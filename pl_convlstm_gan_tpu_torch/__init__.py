@@ -1,0 +1,20 @@
+"""pl_convlstm_gan_tpu_torch: the PyTorch / CUDA port of pl_convlstm_gan_tpu
+for NVIDIA Hopper GPUs.
+
+It imports torch and never jax or the JAX package, which stays beside it as
+the reference. Ported so far: the forecaster's serving path (config,
+ConvLSTM cell, forecaster, weights bridge, predict, CLI) with two
+hand-written CUDA kernels, the fused ConvLSTM cell step and the conv head.
+
+Layout
+------
+- ``config``   the YAML config system (a copy of the JAX package's)
+- ``ops``      NHWC conv helpers, the cell math, and ``ops.kernels``: the CUDA
+               kernels (sources in ``csrc/``) with their plain versions
+- ``models``   ``ConvLSTMForecaster`` and its layers as ``nn.Module``s
+- ``weights``  flax params tree <-> torch state_dict
+- ``predict``  config + checkpoint -> predict function
+- ``cli``      ``python -m pl_convlstm_gan_tpu_torch --mode predict``
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,3 @@
+"""``nn.Module`` models of the port."""
+from .forecaster import ConvLSTMForecaster  # noqa: F401
+from .layers import Conv2dTorch, ConvLSTMCell  # noqa: F401

@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+- ``convlstm_kernel``: K1, the fused ConvLSTM cell step (csrc/convlstm_cell.cu)
+- ``rollout_kernel``: K2, the conv head (csrc/conv_head.cu), and the
+  free-running rollout that launches K1 and K2 step by step
+- ``build``: nvcc build of csrc/ and ctypes loading, at first use
+"""

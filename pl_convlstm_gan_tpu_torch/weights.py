@@ -1,0 +1,72 @@
+"""Carry weights between a flax params tree and the port's ``state_dict``.
+
+The flax side is a tree of numpy arrays, either nested dicts
+(``{"params": {"core": {"cell_0": {"kernel": ..., "bias": ...}}}}``) or flat,
+keyed by ``/``-joined paths (``params/core/cell_0/kernel``, the layout of
+``flax.traverse_util.flatten_dict(params, sep="/")`` saved with
+``np.savez``) or by tuples of names. The torch side names each module by its
+flax path joined with dots: ``core.cell_0.weight``.
+
+Conv kernels go HWIO -> OIHW by ``transpose(3, 2, 0, 1)`` and back by
+``transpose(2, 3, 1, 0)``; biases are unchanged. Gate order (i|f|o|g) and the
+``concat(x, h)`` input-channel order are the same on both sides, so nothing
+else moves. Both directions copy values and dtypes exactly.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flat_paths(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    flat = {}
+    for key, value in tree.items():
+        if isinstance(key, tuple):
+            path = prefix + key
+        else:
+            path = prefix + tuple(str(key).split("/"))
+        if isinstance(value, Mapping):
+            flat.update(_flat_paths(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params tree (nested or flat; a leading ``params`` level is
+    optional) -> torch state_dict of OIHW conv weights and biases."""
+    state = {}
+    for path, value in _flat_paths(params).items():
+        if path[0] == "params":
+            path = path[1:]
+        *modules, leaf = path
+        if leaf == "kernel":
+            if value.ndim != 4:
+                raise ValueError(f"{'/'.join(path)}: only 4-D conv kernels "
+                                 f"are mapped, got shape {value.shape}")
+            value, leaf = value.transpose(3, 2, 0, 1), "weight"
+        elif leaf != "bias":
+            raise ValueError(f"{'/'.join(path)}: unknown parameter {leaf!r}")
+        state[".".join(modules + [leaf])] = torch.from_numpy(
+            np.ascontiguousarray(value))
+    return state
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of ``flax_to_state_dict``: a nested ``{"params": ...}`` tree of
+    numpy arrays with HWIO conv kernels."""
+    root: Dict[str, Any] = {}
+    for name, tensor in state_dict.items():
+        *modules, leaf = name.split(".")
+        value = tensor.detach().cpu().numpy()
+        if leaf == "weight":
+            value, leaf = np.ascontiguousarray(value.transpose(2, 3, 1, 0)), "kernel"
+        elif leaf != "bias":
+            raise ValueError(f"{name}: unknown parameter {leaf!r}")
+        node = root
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[leaf] = value
+    return {"params": root}

@@ -1,0 +1,48 @@
+"""The port imports nothing of JAX, flax or the JAX package.
+
+A subprocess blocks those imports (``sys.modules[name] = None`` makes any
+``import name`` raise), then imports every module of the port and the
+module-level code of chip_smoke.py, and reports what got loaded."""
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pl_convlstm_gan_tpu_torch
+
+REPO = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pl_convlstm_gan_tpu")
+
+_PROBE = """
+import importlib, json, runpy, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+for mod in {modules!r}:
+    importlib.import_module(mod)
+runpy.run_path({chip_smoke!r}, run_name="chip_smoke_module_level")
+loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and
+                m.split(".")[0] in {blocked!r})
+print(json.dumps(loaded))
+"""
+
+
+def _port_modules():
+    mods = [pl_convlstm_gan_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(pl_convlstm_gan_tpu_torch.__path__,
+                                      prefix="pl_convlstm_gan_tpu_torch."):
+        if not info.name.endswith("__main__"):   # runs the CLI when imported
+            mods.append(info.name)
+    return mods
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    modules = _port_modules()
+    assert "pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel" in modules
+    assert "pl_convlstm_gan_tpu_torch.cli" in modules
+    code = _PROBE.format(blocked=BLOCKED, modules=modules,
+                         chip_smoke=str(REPO / "chip_smoke.py"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
