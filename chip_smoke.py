@@ -19,8 +19,20 @@ own line:
    launch counts set to 0 before and read after (72 K1 + 20 K2 a request);
    then torch.profiler over one more bf16 request: device time by kernel
    and the device's idle share;
-5. one JSON line {"kernels": [...]} with each kernel's launches, error, and
-   its time beside its bound, its plain version's and the library call's;
+5. stream: StreamingForecaster on the same checkpoint, in float32 and
+   bfloat16. observe_window of the first request's 5 frames + forecast(19)
+   against the kernel predictor's output for that request (launch counts
+   exactly 3 K1 + 1 K2 per observed frame and 3h K1 + h K2 per forecast(h));
+   frame-by-frame observe against the window and two forecasts from one
+   state (torch.equal, state unchanged); forecast(30) at B 1 and B 8 against
+   rollout_impl="torch" from the same carried state; p50 times of one
+   observe and of forecast(30), kernel and plain, beside the forecast's
+   bound; torch.profiler over one B 1 forecast(30) (idle share);
+6. precip_256 (2x64 cells, 256x256, bf16, B 1): observe_window of 5 frames
+   and forecast(30) against the plain path, timed;
+7. one JSON line {"kernels": [...]} with each kernel's launches (per path),
+   error, and its time beside its bound, its plain version's and the
+   library call's;
 then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -45,6 +57,7 @@ from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain)
 from pl_convlstm_gan_tpu_torch.predict import load_predictor
+from pl_convlstm_gan_tpu_torch.streaming import StreamingForecaster
 from pl_convlstm_gan_tpu_torch.weights import flax_to_state_dict
 
 SEED = 0
@@ -68,6 +81,19 @@ K1_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/convlstm_cell.cu"
 K2_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/conv_head.cu"
 K1_REPLACES = "pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:120"
 K2_REPLACES = "pl_convlstm_gan_tpu/ops/pallas/rollout_kernel.py:407"
+# every TPU kernel each CUDA kernel stands for (PERF.md's table)
+_ROLLOUT = "pl_convlstm_gan_tpu/ops/pallas/rollout_kernel.py"
+K1_STANDS_FOR = [
+    "P1 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:120 (save_z=False)",
+    "P2 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:246 (save_z=False)",
+    f"P3 cells {_ROLLOUT}:505 via rollout_pallas :672",
+    f"P4 cells {_ROLLOUT}:505 via rollout_pallas_from_state :706"]
+K2_STANDS_FOR = [f"P3 head_pass {_ROLLOUT}:407 via rollout_pallas :672",
+                 f"P4 head_pass {_ROLLOUT}:407 via rollout_pallas_from_state :706"]
+# the JAX bench's streaming rows (bench.py:263-298): horizon 30 at B 1 and 8
+STREAM_HORIZON = 30
+STREAM_BATCHES = (1, 8)
+N_TIMED = 5
 
 
 def say(**fields):
@@ -293,31 +319,291 @@ def phase_main_path(ckpt, dtype_name, requests):
     return rec, kernel_predict
 
 
-def profile_request(predict, frames):
-    """torch.profiler over one request: device time by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_request(predict, frames, phase="profile"):
+    """torch.profiler over one request: device time by kernel name. One
+    traced warm-up request comes first and is discarded: the first launches
+    after tracing starts can be missing from the trace."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     predict(frames)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        predict(frames)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         predict(frames)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-        # aten:: rows repeat the device time of the kernels they launch
-        if dev_us > 0 and not ev.key.startswith("aten::"):
+        # aten:: rows repeat the device time of the kernels they launch, and
+        # the ProfilerStep# row that of the whole step
+        if dev_us > 0 and not ev.key.startswith(("aten::", "ProfilerStep")):
             rows.append((ev.key, ev.count, dev_us / 1e3))
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
-    say(phase="profile", wall_ms=wall * 1e3, device_busy_ms=busy,
-        idle_share=max(0.0, 1 - busy / (wall * 1e3)),
+    traced = {name: sum(n for k, n, _ in rows if name in k)
+              for name in ("convlstm_cell", "conv_head")}
+    say(phase=phase, wall_ms=wall * 1e3, device_busy_ms=busy,
+        idle_share=max(0.0, 1 - busy / (wall * 1e3)), traced_launches=traced,
         top=[[k[:100], n, round(ms, 4)] for k, n, ms in rows[:8]])
 
 
-def kernel_entries(cell, head, paths, n_cells):
+def reset_counts():
+    convlstm_cell_fwd.launches = 0
+    conv_head_fwd.launches = 0
+
+
+def expect_counts(what, k1, k2):
+    """Raise unless K1 and K2 launched exactly k1 and k2 times since the
+    last reset_counts(); returns the counts."""
+    got = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
+           "conv_head_fwd": conv_head_fwd.launches}
+    if got != {"convlstm_cell_fwd": k1, "conv_head_fwd": k2}:
+        raise AssertionError(f"{what}: launches {got}, expected {k1} K1 "
+                             f"and {k2} K2")
+    return got
+
+
+def p50_ms(fns, n=N_TIMED):
+    """{name: (p50 ms, [ms...])} of each fn over n calls taken in turns,
+    after one warm-up call each. A call's time runs from an event recorded
+    before it to one after its last launch, so it holds the host's launch
+    cost wherever the device waits for it."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(n):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: (statistics.median(ts), ts) for name, ts in times.items()}
+
+
+def steps_bound_ms(b, hgt, wid, cin, hidden, dtype_name, steps, k=3):
+    """bound() summed over `steps` steps of K1 per cell and K2 for the head,
+    counted as phase_cell and phase_head count one launch."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    px = b * hgt * wid
+    per_step, cx = 0.0, cin
+    for ch in hidden:
+        flops = 2 * px * k * k * (cx + ch) * 4 * ch
+        nbytes = elem * (px * cx + 4 * px * ch + k * k * (cx + ch) * 4 * ch
+                         + 4 * ch)
+        per_step += bound(flops, nbytes, dtype_name)[0]
+        cx = ch
+    flops = 2 * px * 9 * cx * cin
+    nbytes = elem * (px * cx + 9 * cx * cin + cin + px * cin)
+    per_step += bound(flops, nbytes, dtype_name)[0]
+    return steps * per_step
+
+
+def conv_step_fn(b, hgt, wid, cin, hidden, dtype, k=3):
+    """One step's convs as library calls (one F.conv2d per cell over
+    concat(x, h) and one for the head, channels-last, without the gates):
+    the yardstick beside a rollout, which no one PyTorch call computes."""
+    convs, cx = [], cin
+    for ch in hidden:
+        xh = torch.randn(b, hgt, wid, cx + ch, device="cuda", dtype=dtype)
+        convs.append((xh.permute(0, 3, 1, 2),
+                      torch.randn(4 * ch, cx + ch, k, k, device="cuda",
+                                  dtype=dtype),
+                      torch.randn(4 * ch, device="cuda", dtype=dtype), k // 2))
+        cx = ch
+    h = torch.randn(b, hgt, wid, cx, device="cuda", dtype=dtype)
+    convs.append((h.permute(0, 3, 1, 2),
+                  torch.randn(cin, cx, 3, 3, device="cuda", dtype=dtype),
+                  torch.randn(cin, device="cuda", dtype=dtype), 1))
+    return lambda: [F.conv2d(x, w, bias, padding=p) for x, w, bias, p in convs]
+
+
+def states_equal(a, b):
+    return (len(a.cells) == len(b.cells) and torch.equal(a.prev_out, b.prev_out)
+            and all(torch.equal(x, y) for pa, pb in zip(a.cells, b.cells)
+                    for x, y in zip(pa, pb)))
+
+
+def clone_state(state):
+    return type(state)(tuple((h.clone(), c.clone()) for h, c in state.cells),
+                       state.prev_out.clone())
+
+
+def stream_pair(name, dtype_name, ckpt):
+    """(the config with rollout_impl auto, the streaming forecaster on the
+    kernels, the one on the plain modules: rollout_impl torch)."""
+    cfgs = []
+    for impl in ("auto", "torch"):
+        cfg = load_config(name)
+        cfg.precision.compute_dtype = dtype_name
+        cfg.model.rollout_impl = impl
+        cfg.validate()
+        cfgs.append(cfg)
+    return (cfgs[0], StreamingForecaster.from_checkpoint(cfgs[0], ckpt),
+            StreamingForecaster.from_checkpoint(cfgs[1], ckpt))
+
+
+def check_forecast_vs_plain(what, sf, sf_plain, state, horizon, dtype_name):
+    """forecast(horizon) on the kernels against the plain modules from the
+    same carried state; checks the launch counts; returns the max error."""
+    n_cells = len(state.cells)
+    reset_counts()
+    out = sf.forecast(state, horizon)
+    expect_counts(f"{what} forecast({horizon})", n_cells * horizon, horizon)
+    ref = sf_plain.forecast(state, horizon)
+    b, hgt, wid, chans = state.prev_out.shape
+    want = (b, horizon, chans, hgt, wid)
+    if tuple(out.shape) != want or out.dtype != torch.float32:
+        raise AssertionError(f"{what}: got {tuple(out.shape)} {out.dtype}")
+    if float(out.std()) == 0.0:
+        raise AssertionError(f"{what}: constant output")
+    if float(ref.abs().max()) >= MAX_OUTPUT:
+        raise AssertionError(f"{what}: outputs reach {float(ref.abs().max())}"
+                             f", beyond the range PATH_TOL was set for")
+    return check_close(what, out, ref, *PATH_TOL[dtype_name])
+
+
+def phase_stream(ckpt, dtype_name, request, frames8):
+    """The streaming path on nowcast_128 (see the module docstring, 5).
+    Returns its record; the launch counts of the stream path's own run (the
+    first request observed and forecast to the batch horizon) under
+    "launches"."""
+    cfg, sf, sf_plain = stream_pair("nowcast_128", dtype_name, ckpt)
+    n_cells = len(cfg.model.hidden_dims)
+    t_in, t_out = cfg.model.input_frames, cfg.model.output_frames
+    b, _, cin, hgt, wid = request.shape
+    batch = load_predictor(cfg, ckpt)(request)
+    atol, rtol = PATH_TOL[dtype_name]
+
+    reset_counts()
+    state, nowcast = sf.observe_window(sf.init_state(b, hgt, wid), request)
+    expect_counts("observe_window", n_cells * t_in, t_in)
+    rest = sf.forecast(state, t_out - 1)
+    launches = expect_counts("observe_window + forecast",
+                             n_cells * (t_in + t_out - 1), t_in + t_out - 1)
+    rollout = torch.cat([nowcast[:, None], rest], 1)
+    err_batch = check_close(f"stream {dtype_name} vs batch", rollout, batch,
+                            atol, rtol)
+
+    frame_state = sf.init_state(b, hgt, wid)
+    for t in range(t_in):
+        reset_counts()
+        frame_state, frame_now = sf.observe(frame_state, request[:, t])
+        expect_counts(f"observe frame {t}", n_cells, 1)
+    if not (torch.equal(frame_now, nowcast)
+            and states_equal(frame_state, state)):
+        raise AssertionError(f"stream {dtype_name}: frame-by-frame observe "
+                             f"differs from observe_window")
+
+    before = clone_state(state)
+    reset_counts()
+    again = sf.forecast(state, t_out - 1)
+    expect_counts(f"forecast({t_out - 1})", n_cells * (t_out - 1), t_out - 1)
+    if not torch.equal(again, rest):
+        raise AssertionError(f"stream {dtype_name}: two forecasts from one "
+                             f"state differ")
+    if not states_equal(state, before):
+        raise AssertionError(f"stream {dtype_name}: forecast wrote its state")
+
+    per_batch = []
+    horizon = STREAM_HORIZON
+    for nb in STREAM_BATCHES:
+        warm, _ = sf.observe_window(sf.init_state(nb, hgt, wid), frames8[:nb])
+        err = check_forecast_vs_plain(f"stream {dtype_name} B {nb}", sf,
+                                      sf_plain, warm, horizon, dtype_name)
+        frame = frames8[:nb, -1]
+        times = p50_ms({
+            "observe": lambda: sf.observe(warm, frame),
+            "observe_plain": lambda: sf_plain.observe(warm, frame),
+            "forecast": lambda: sf.forecast(warm, horizon),
+            "forecast_plain": lambda: sf_plain.forecast(warm, horizon),
+            "conv_step": conv_step_fn(nb, hgt, wid, cin, cfg.model.hidden_dims,
+                                      warm.prev_out.dtype)})
+        per_batch.append(dict(
+            batch=nb, horizon=horizon, max_abs_err=err,
+            forecast_ms=times["forecast"][0],
+            forecast_plain_ms=times["forecast_plain"][0],
+            forecast_bound_ms=steps_bound_ms(nb, hgt, wid, cin,
+                                             cfg.model.hidden_dims,
+                                             dtype_name, horizon),
+            forecast_launches=[n_cells * horizon, horizon],
+            forecast_library_ms=horizon * times["conv_step"][0],
+            observe_ms=times["observe"][0],
+            observe_plain_ms=times["observe_plain"][0],
+            observe_bound_ms=steps_bound_ms(nb, hgt, wid, cin,
+                                            cfg.model.hidden_dims,
+                                            dtype_name, 1),
+            forecast_ms_all=times["forecast"][1],
+            forecast_plain_ms_all=times["forecast_plain"][1]))
+        if nb == 1:
+            warm_b1 = warm
+    rec = dict(dtype=dtype_name, launches=launches,
+               max_abs_err_vs_batch=err_batch,
+               bit_identical_to_batch=bool(torch.equal(rollout, batch)),
+               frame_by_frame_equal=True, forecast_pure=True,
+               tol=[atol, rtol], per_batch=per_batch)
+    say(phase="stream", **rec)
+    return rec, sf, warm_b1
+
+
+def phase_precip_256(tmp, seed):
+    """precip_256 through the same streaming code: bf16, B 1, 256x256."""
+    dtype_name = "bfloat16"
+    cfg = load_config("precip_256")
+    ckpt = write_checkpoint(os.path.join(tmp, "precip_256_seed.npz"), cfg,
+                            seed)
+    cfg, sf, sf_plain = stream_pair("precip_256", dtype_name, ckpt)
+    n_cells = len(cfg.model.hidden_dims)
+    size, t_in = cfg.data.synthetic_image_size, cfg.model.input_frames
+    frames = torch.from_numpy(np.random.default_rng(seed).random(
+        (1, t_in, cfg.model.in_channels, size, size),
+        dtype=np.float32)).cuda()
+    reset_counts()
+    warm, _ = sf.observe_window(sf.init_state(1, size, size), frames)
+    expect_counts("precip_256 observe_window", n_cells * t_in, t_in)
+    err = check_forecast_vs_plain("precip_256 B 1", sf, sf_plain, warm,
+                                  STREAM_HORIZON, dtype_name)
+    times = p50_ms({"forecast": lambda: sf.forecast(warm, STREAM_HORIZON),
+                    "forecast_plain": lambda: sf_plain.forecast(
+                        warm, STREAM_HORIZON)})
+    say(phase="precip_256", dtype=dtype_name, batch=1, size=size,
+        hidden=list(cfg.model.hidden_dims), horizon=STREAM_HORIZON,
+        max_abs_err=err, tol=list(PATH_TOL[dtype_name]),
+        forecast_ms=times["forecast"][0],
+        forecast_plain_ms=times["forecast_plain"][0],
+        forecast_bound_ms=steps_bound_ms(1, size, size, cfg.model.in_channels,
+                                         cfg.model.hidden_dims, dtype_name,
+                                         STREAM_HORIZON),
+        forecast_ms_all=times["forecast"][1],
+        forecast_plain_ms_all=times["forecast_plain"][1])
+
+
+def write_checkpoint(path, cfg, seed):
+    """nowcast_params(cfg, seed) as the README's .npz of flattened flax
+    params; checks that weights.py maps every entry."""
+    params = nowcast_params(cfg, seed)
+    flat = {f"params/core/{m}/{leaf}": v
+            for m, d in params["params"]["core"].items()
+            for leaf, v in d.items()}
+    np.savez(path, **flat)
+    if set(flax_to_state_dict(flat)) != {
+            f"core.{m}.{leaf}" for m in params["params"]["core"]
+            for leaf in ("weight", "bias")}:
+        raise AssertionError("weights.py does not map every parameter")
+    return path
+
+
+def kernel_entries(cell, head, paths, streams, n_cells):
     """The {"kernels": [...]} records, one per kernel and compute dtype. K1's
     times and bound are per launch, averaged over one request's mix of cell
     shapes (cell 1: (1, 64); cells 2-3: (64, 64))."""
@@ -328,7 +614,11 @@ def kernel_entries(cell, head, paths, n_cells):
         mix = lambda key: sum(w * r[key] for w, r in zip(weights, c_recs)) / sum(weights)
         entries.append(dict(
             name="convlstm_cell_fwd", dtype=name, route="cuda", source=K1_SOURCE,
-            replaces=K1_REPLACES, launches=path["launches"]["convlstm_cell_fwd"],
+            replaces=K1_REPLACES, stands_for=K1_STANDS_FOR,
+            launches=path["launches"]["convlstm_cell_fwd"],
+            launches_by_path={
+                "predict": path["launches"]["convlstm_cell_fwd"],
+                "stream": streams[name]["launches"]["convlstm_cell_fwd"]},
             max_abs_err=max(r["max_abs_err"] for r in cell[name]),
             ms=mix("ms"), plain_ms=mix("plain_ms"), bound_ms=mix("bound_ms"),
             bound_by=c_recs[0]["bound_by"], library_ms=mix("library_ms"),
@@ -336,7 +626,11 @@ def kernel_entries(cell, head, paths, n_cells):
         h = [r for r in head[name] if "ms" in r][0]
         entries.append(dict(
             name="conv_head_fwd", dtype=name, route="cuda", source=K2_SOURCE,
-            replaces=K2_REPLACES, launches=path["launches"]["conv_head_fwd"],
+            replaces=K2_REPLACES, stands_for=K2_STANDS_FOR,
+            launches=path["launches"]["conv_head_fwd"],
+            launches_by_path={
+                "predict": path["launches"]["conv_head_fwd"],
+                "stream": streams[name]["launches"]["conv_head_fwd"]},
             max_abs_err=max(r["max_abs_err"] for r in head[name]),
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=h["library_ms"]))
@@ -372,23 +666,25 @@ def main() -> int:
     requests = [torch.from_numpy(rng.random(
         (b, cfg.model.input_frames, cfg.model.in_channels, size, size),
         dtype=np.float32)).cuda() for _ in range(N_REQUESTS)]
-    paths = {}
+    frames8 = torch.from_numpy(rng.random(
+        (max(STREAM_BATCHES), cfg.model.input_frames, cfg.model.in_channels,
+         size, size), dtype=np.float32)).cuda()
+    paths, streams = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "nowcast_128_seed.npz")
-        params = nowcast_params(cfg, SEED)
-        flat = {f"params/core/{m}/{leaf}": v
-                for m, d in params["params"]["core"].items()
-                for leaf, v in d.items()}
-        np.savez(ckpt, **flat)
-        assert set(flax_to_state_dict(flat)) == {
-            f"core.{m}.{leaf}" for m in params["params"]["core"]
-            for leaf in ("weight", "bias")}
+        ckpt = write_checkpoint(os.path.join(tmp, "nowcast_128_seed.npz"),
+                                cfg, SEED)
         for dtype_name in ("float32", "bfloat16"):
             paths[dtype_name], predict = phase_main_path(ckpt, dtype_name,
                                                          requests)
         profile_request(predict, requests[0])
+        for dtype_name in ("float32", "bfloat16"):
+            streams[dtype_name], sf, warm_b1 = phase_stream(
+                ckpt, dtype_name, requests[0], frames8)
+        profile_request(lambda st: sf.forecast(st, STREAM_HORIZON), warm_b1,
+                        phase="stream_profile")
+        phase_precip_256(tmp, SEED)
 
-    print(json.dumps({"kernels": kernel_entries(cell, head, paths,
+    print(json.dumps({"kernels": kernel_entries(cell, head, paths, streams,
                                                  len(hidden))}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

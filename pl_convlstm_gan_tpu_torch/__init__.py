@@ -3,8 +3,9 @@ for NVIDIA Hopper GPUs.
 
 It imports torch and never jax or the JAX package, which stays beside it as
 the reference. Ported so far: the forecaster's serving path (config,
-ConvLSTM cell, forecaster, weights bridge, predict, CLI) with two
-hand-written CUDA kernels, the fused ConvLSTM cell step and the conv head.
+ConvLSTM cell, forecaster, weights bridge, batch predict, streaming, CLI)
+with two hand-written CUDA kernels, the fused ConvLSTM cell step and the
+conv head.
 
 Layout
 ------
@@ -14,7 +15,9 @@ Layout
 - ``models``   ``ConvLSTMForecaster`` and its layers as ``nn.Module``s
 - ``weights``  flax params tree <-> torch state_dict
 - ``predict``  config + checkpoint -> predict function
-- ``cli``      ``python -m pl_convlstm_gan_tpu_torch --mode predict``
+- ``streaming`` ``StreamingForecaster``: observe frames into a carried state,
+               branch forecasts from it
+- ``cli``      ``python -m pl_convlstm_gan_tpu_torch --mode predict|stream``
 """
 
 __version__ = "0.1.0"

@@ -66,7 +66,7 @@ class ModelConfig:
     lu_channels: int = 0           # 0 => resolved from dataset at setup_model time
     kernel_size: int = 3
     convlstm_impl: str = "auto"    # "auto" | "xla" | "pallas"
-    # inference-rollout path for predict (sequence families):
+    # inference path of predict and streaming (sequence families):
     # "auto" = the hand-written CUDA kernels (fused cell + head, launched per
     # step by ops.kernels.rollout_kernel) when the model is on a GPU, else
     # the plain PyTorch forward; "kernel" forces the kernel path (on CPU

@@ -2,6 +2,7 @@
 
 - ``convlstm_kernel``: K1, the fused ConvLSTM cell step (csrc/convlstm_cell.cu)
 - ``rollout_kernel``: K2, the conv head (csrc/conv_head.cu), and the
-  free-running rollout that launches K1 and K2 step by step
+  free-running rollouts (cold, and warm from a carried state) and streaming
+  observe that launch K1 and K2 step by step
 - ``build``: nvcc build of csrc/ and ctypes loading, at first use
 """

@@ -12,12 +12,30 @@ At nowcast_128 (3 cells, 5 frames in, 20 out) a request is 72 K1 and 20 K2
 launches. Capturing the loop in a CUDA graph, or one persistent kernel,
 would remove the per-launch host cost; that is left to a later change.
 
+The warm-start launch of the TPU kernel (``rollout_pallas_from_state``, run
+by ``StreamingForecaster.forecast``) is the same loop seeded from a carried
+``(h, c)`` state instead of zeros, with t_in = 1: step 0 feeds the stream's
+last emitted frame and the head emits at every step, so a horizon-h forecast
+is h x n_cells K1 and h K2 launches. Streaming's ``observe`` runs the loop
+too, one step per frame. Three parts of the TPU kernel have no counterpart:
+- the 128-lane padding of the packed seeds, a Mosaic tile artifact: each
+  cell's state is its own [B,H,W,Ch] tensor here;
+- the resident/streamed ``io_mode`` choice, a VMEM budget, and with it the
+  streamed-I/O variant (double-buffered frame and output DMAs);
+- ``cell_pass_looped``, a traced row-tile loop that bounds Mosaic code size.
+The state, frames and outputs already live in device memory between
+launches and nvcc's code size does not grow with the frame, so one code
+path serves 128 px and 256 px frames alike.
+
 This module holds:
 - K2's wrapper ``conv_head_fwd``, its plain version ``conv_head_plain`` and
   its launch count ``conv_head_fwd.launches``;
 - ``pack_weights``: the model's state_dict -> the kernels' HWIO layout;
 - ``rollout_kernel`` (the counterpart of ``rollout_pallas``) and
-  ``rollout_plain``: the same loop through the wrappers or the plain versions.
+  ``rollout_plain``: the same loop through the wrappers or the plain versions;
+- ``rollout_kernel_from_state`` (the counterpart of
+  ``rollout_pallas_from_state``) and ``rollout_plain_from_state``;
+- ``observe_kernel``: streaming's assimilation of new frames on K1 and K2.
 """
 from __future__ import annotations
 
@@ -116,39 +134,95 @@ def pack_weights(state_dict, compute_dtype=torch.bfloat16) -> RolloutWeights:
                           conv("core.head"))
 
 
-def _rollout(weights: RolloutWeights, frames, t_out: int, compute_dtype,
-             cell_fn, head_fn):
-    """The per-step loop shared by the kernel and plain rollouts.
-
-    frames [B,T_in,C,H,W] -> [B,t_out,C,H,W] float32. Step t feeds
-    x = frames[t] while t < T_in, else the previous prediction out[t - T_in];
-    each cell reads its h from one ping-pong buffer and writes the other
-    (neighbours read the halo), and updates its c in place."""
-    b, t_in, c, hgt, wid = frames.shape
-    if t_in < 1 or t_out < 1:
-        raise ValueError(f"need t_in >= 1 and t_out >= 1, got {t_in}, {t_out}")
+def _time_major(weights: RolloutWeights, frames, compute_dtype):
+    """frames [B,T,C,H,W] -> [T,B,H,W,C] contiguous in the compute dtype,
+    after checking C against the first cell's input width."""
+    c = frames.shape[2]
     w1 = weights.cells[0][0]
     if w1.shape[2] - w1.shape[3] // 4 != c:
         raise ValueError(f"frames have {c} channels, the first cell takes "
                          f"{w1.shape[2] - w1.shape[3] // 4}")
-    dev = frames.device
-    fr = frames.permute(1, 0, 3, 4, 2).to(compute_dtype).contiguous()
-    out = torch.empty((t_out, b, hgt, wid, c), dtype=compute_dtype, device=dev)
-    hs, cs = [], []
-    for w, _ in weights.cells:
-        ch = w.shape[-1] // 4
-        hs.append(torch.zeros((2, b, hgt, wid, ch), dtype=compute_dtype,
-                              device=dev))
-        cs.append(torch.zeros((b, hgt, wid, ch), dtype=compute_dtype,
-                              device=dev))
-    for t in range(t_in + t_out - 1):
-        cur, nxt = t % 2, 1 - t % 2
-        x = fr[t] if t < t_in else out[t - t_in]
+    return frames.permute(1, 0, 3, 4, 2).to(compute_dtype).contiguous()
+
+
+def _seeds(weights: RolloutWeights, cells, b, hgt, wid, compute_dtype,
+           device):
+    """A carried state ((h, c), ...) as the loop's seeds: checked against the
+    weights and the frames, contiguous, in the compute dtype (a copy only
+    where a tensor is not already so; the loop never writes a seed)."""
+    if len(cells) != len(weights.cells):
+        raise ValueError(f"{len(cells)} state pairs for "
+                         f"{len(weights.cells)} cells")
+    seeds = []
+    for k, ((h, c), (w, _)) in enumerate(zip(cells, weights.cells)):
+        want = (b, hgt, wid, w.shape[-1] // 4)
+        if tuple(h.shape) != want or tuple(c.shape) != want:
+            raise ValueError(f"cell {k} state must be {want}, got "
+                             f"{tuple(h.shape)} and {tuple(c.shape)}")
+        seeds.append(tuple(t.to(device, compute_dtype).contiguous()
+                           for t in (h, c)))
+    return seeds
+
+
+def _steps(weights: RolloutWeights, fr, steps: int, emit_from: int, seeds,
+           cell_fn, head_fn):
+    """The per-step loop shared by the cold and warm rollouts and ``observe``.
+
+    fr [T_in,B,H,W,C] holds the frames, time-major NHWC in the compute dtype.
+    Step t feeds x = fr[t] while t < T_in, else the head's output of the step
+    before. The head runs from step ``emit_from`` (<= T_in - 1) on and writes
+    out[t - emit_from]. ``seeds`` ((h, c) per cell) is the state before step
+    0 and is only read: each cell writes its h into the other buffer of a
+    ping-pong pair of its own (neighbouring blocks read the halo of the h
+    they read) and its c into a buffer of its own, in place from step 1 on.
+    Returns (out [steps - emit_from,B,H,W,C], the state after the last step:
+    ((h, c), ...), none of it aliasing a seed)."""
+    t_in, b, hgt, wid, c = fr.shape
+    out = torch.empty((steps - emit_from, b, hgt, wid, c), dtype=fr.dtype,
+                      device=fr.device)
+    state = list(seeds)
+    h_bufs = [[torch.empty_like(h) for _ in range(min(steps, 2))]
+              for h, _ in seeds]
+    c_bufs = [torch.empty_like(c_seed) for _, c_seed in seeds]
+    for t in range(steps):
+        x = fr[t] if t < t_in else out[t - 1 - emit_from]
         for k, (w, bias) in enumerate(weights.cells):
-            cell_fn(x, hs[k][cur], cs[k], w, bias, hs[k][nxt], cs[k])
-            x = hs[k][nxt]
-        if t >= t_in - 1:
-            head_fn(x, weights.head[0], weights.head[1], out[t - (t_in - 1)])
+            h_new = h_bufs[k][t % 2]
+            cell_fn(x, *state[k], w, bias, h_new, c_bufs[k])
+            state[k] = (h_new, c_bufs[k])
+            x = h_new
+        if t >= emit_from:
+            head_fn(x, weights.head[0], weights.head[1], out[t - emit_from])
+    return out, tuple(state)
+
+
+def _rollout(weights: RolloutWeights, frames, t_out: int, compute_dtype,
+             cell_fn, head_fn):
+    """Cold rollout: frames [B,T_in,C,H,W] -> [B,t_out,C,H,W] float32 from
+    zero state; T_in encode steps, the head from the last of them on."""
+    b, t_in, _, hgt, wid = frames.shape
+    if t_in < 1 or t_out < 1:
+        raise ValueError(f"need t_in >= 1 and t_out >= 1, got {t_in}, {t_out}")
+    fr = _time_major(weights, frames, compute_dtype)
+    # one zero tensor per cell seeds both h and c: the loop only reads seeds
+    zeros = [torch.zeros((b, hgt, wid, w.shape[-1] // 4), dtype=compute_dtype,
+                         device=frames.device) for w, _ in weights.cells]
+    out, _ = _steps(weights, fr, t_in + t_out - 1, t_in - 1,
+                    [(z, z) for z in zeros], cell_fn, head_fn)
+    return out.permute(1, 0, 4, 2, 3).float()
+
+
+def _rollout_from_state(weights: RolloutWeights, cells, prev_out, horizon: int,
+                        compute_dtype, cell_fn, head_fn):
+    """Warm rollout (t_in = 1): step 0 feeds ``prev_out`` [B,H,W,C] against
+    the carried ``cells`` and the head emits at every step."""
+    if horizon < 1:
+        raise ValueError(f"horizon must be >= 1, got {horizon}")
+    b, hgt, wid, _ = prev_out.shape
+    fr = _time_major(weights, prev_out.permute(0, 3, 1, 2)[:, None],
+                     compute_dtype)
+    seeds = _seeds(weights, cells, b, hgt, wid, compute_dtype, fr.device)
+    out, _ = _steps(weights, fr, horizon, 0, seeds, cell_fn, head_fn)
     return out.permute(1, 0, 4, 2, 3).float()
 
 
@@ -166,3 +240,39 @@ def rollout_plain(weights: RolloutWeights, frames, t_out: int,
     """The same loop as ``rollout_kernel`` through the plain versions."""
     return _rollout(weights, frames, t_out, compute_dtype, convlstm_cell_plain,
                     conv_head_plain)
+
+
+def rollout_kernel_from_state(weights: RolloutWeights, cells, prev_out,
+                              horizon: int, compute_dtype=torch.bfloat16):
+    """Free-running rollout branched from a warm state through K1 and K2,
+    the contract of the JAX ``rollout_pallas_from_state``: ``cells`` =
+    ((h, c), ...) NHWC [B,H,W,Ch] per cell, ``prev_out`` [B,H,W,C] the last
+    emitted frame; returns [B,horizon,C,H,W] float32. horizon x n_cells K1
+    launches and horizon K2 launches; the state is not written."""
+    return _rollout_from_state(weights, cells, prev_out, horizon,
+                               compute_dtype, convlstm_cell_fwd, conv_head_fwd)
+
+
+def rollout_plain_from_state(weights: RolloutWeights, cells, prev_out,
+                             horizon: int, compute_dtype=torch.bfloat16):
+    """The same loop as ``rollout_kernel_from_state`` through the plain
+    versions."""
+    return _rollout_from_state(weights, cells, prev_out, horizon,
+                               compute_dtype, convlstm_cell_plain,
+                               conv_head_plain)
+
+
+def observe_kernel(weights: RolloutWeights, cells, frames,
+                   compute_dtype=torch.bfloat16):
+    """Fold frames [B,T,C,H,W] into the carried ``cells`` through K1 and K2:
+    one step per frame (n_cells K1 launches, then K2 for the head). Returns
+    (the new cells, prev_out [B,H,W,C] in the compute dtype: the head's
+    output at the last frame). The given state is not written."""
+    b, t, _, hgt, wid = frames.shape
+    if t < 1:
+        raise ValueError("observe needs at least one frame")
+    fr = _time_major(weights, frames, compute_dtype)
+    seeds = _seeds(weights, cells, b, hgt, wid, compute_dtype, fr.device)
+    out, state = _steps(weights, fr, t, 0, seeds, convlstm_cell_fwd,
+                        conv_head_fwd)
+    return state, out[-1]

@@ -11,6 +11,9 @@ Conv kernels go HWIO -> OIHW by ``transpose(3, 2, 0, 1)`` and back by
 ``transpose(2, 3, 1, 0)``; biases are unchanged. Gate order (i|f|o|g) and the
 ``concat(x, h)`` input-channel order are the same on both sides, so nothing
 else moves. Both directions copy values and dtypes exactly.
+
+A streaming state crosses the same way (``stream_state_from_numpy`` /
+``stream_state_to_numpy``): the JAX and port ``StreamState`` are both NHWC.
 """
 from __future__ import annotations
 
@@ -70,3 +73,21 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
             node = node.setdefault(m, {})
         node[leaf] = value
     return {"params": root}
+
+
+def stream_state_from_numpy(cells, prev_out, device, dtype):
+    """A JAX ``StreamState`` given as numpy arrays (``cells`` = ((h, c), ...)
+    NHWC, ``prev_out`` [B,H,W,C]) -> the port's ``streaming.StreamState`` on
+    ``device`` in ``dtype``. The layouts are the same, so nothing moves;
+    values pass through float32, which is exact for float32 and bfloat16
+    states (numpy has no bfloat16 of its own)."""
+    from .streaming import StreamState
+    to = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device, dtype)
+    return StreamState(tuple((to(h), to(c)) for h, c in cells), to(prev_out))
+
+
+def stream_state_to_numpy(state):
+    """Inverse of ``stream_state_from_numpy``: (((h, c), ...), prev_out) as
+    float32 numpy arrays, exact for float32 and bfloat16 states."""
+    to = lambda t: t.detach().to("cpu", torch.float32).numpy()
+    return tuple((to(h), to(c)) for h, c in state.cells), to(state.prev_out)

@@ -40,6 +40,7 @@ def test_port_and_chip_smoke_import_no_jax():
     modules = _port_modules()
     assert "pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel" in modules
     assert "pl_convlstm_gan_tpu_torch.cli" in modules
+    assert "pl_convlstm_gan_tpu_torch.streaming" in modules
     code = _PROBE.format(blocked=BLOCKED, modules=modules,
                          chip_smoke=str(REPO / "chip_smoke.py"))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
