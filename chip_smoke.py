@@ -30,9 +30,27 @@ own line:
    bound; torch.profiler over one B 1 forecast(30) (idle share);
 6. precip_256 (2x64 cells, 256x256, bf16, B 1): observe_window of 5 frames
    and forecast(30) against the plain path, timed;
-7. one JSON line {"kernels": [...]} with each kernel's launches (per path),
+7. cell_save_z: K1 writing z (the training form, save_z=True) against its
+   plain version at the cell shapes of 2 in both dtypes (h', c' and z),
+   timed beside K1 without z, its bound, plain and library times; then
+   ConvLSTMCellFn's backward on the card against torch autograd through
+   convlstm_step_torch at the (64, 64) shape: all five gradients;
+8. train: configs/nowcast_128_pallas.yaml at full width (3x64, 128x128, B
+   4, 5 -> 20, bf16 compute on f32 params), weights from seed 0 through
+   weights.py, batches from the port's SyntheticSequenceDataset (seed 0):
+   the step-1 gradients, then 5 steps on the kernel path (convlstm_impl
+   pallas: 72 K1-with-z launches a step, no K1 without z, no K2) and the
+   same 5 steps on the plain path (xla) from the same state: per-step
+   losses, gradients and params after 5 steps within TRAIN_TOL; p50 step
+   times; 72 K1 without z per eval batch; torch.profiler over one kernel
+   step (device time by kernel group, idle share); then 2 steps in f32;
+9. trainer: the CLI's train path on nowcast_128_pallas with 24 sequences
+   and 2 epochs, --resume to 3 epochs (starts at epoch 2), --mode eval,
+   and load_predictor on the trainer's best_model serving one request on
+   K1/K2, each with exact launch counts;
+10. one JSON line {"kernels": [...]} with each kernel's launches (per path),
    error, and its time beside its bound, its plain version's and the
-   library call's;
+   library call's (K1 with z as its own entry);
 then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -48,19 +66,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pl_convlstm_gan_tpu_torch import cli
 from pl_convlstm_gan_tpu_torch.config import load_config
+from pl_convlstm_gan_tpu_torch.data import (SyntheticSequenceDataset,
+                                            batch_iterator, to_device)
+from pl_convlstm_gan_tpu_torch.ops.convlstm import convlstm_step_torch
 from pl_convlstm_gan_tpu_torch.ops.kernels import build
 from pl_convlstm_gan_tpu_torch.ops.kernels import convlstm_kernel as cell_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels import rollout_kernel as head_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
-    convlstm_cell_fwd, convlstm_cell_plain)
+    ConvLSTMCellFn, convlstm_cell_fwd, convlstm_cell_plain)
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain)
-from pl_convlstm_gan_tpu_torch.predict import load_predictor
+from pl_convlstm_gan_tpu_torch.ops.nn import oihw_from_hwio
+from pl_convlstm_gan_tpu_torch.predict import build_model, load_predictor
 from pl_convlstm_gan_tpu_torch.streaming import StreamingForecaster
+from pl_convlstm_gan_tpu_torch.train.steps import (
+    TrainState, forecaster_eval_step, forecaster_loss, forecaster_train_step,
+    make_optimizer)
 from pl_convlstm_gan_tpu_torch.weights import flax_to_state_dict
 
 SEED = 0
+DEVICE = "cuda"
 N_REQUESTS = 3
 # published peaks of one H100 SXM (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -90,6 +117,47 @@ K1_STANDS_FOR = [
     f"P4 cells {_ROLLOUT}:505 via rollout_pallas_from_state :706"]
 K2_STANDS_FOR = [f"P3 head_pass {_ROLLOUT}:407 via rollout_pallas :672",
                  f"P4 head_pass {_ROLLOUT}:407 via rollout_pallas_from_state :706"]
+# K1 writing z (the training form) stands for P1/P2 with save_z=True
+K1Z_STANDS_FOR = [
+    "P1 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:120 (save_z=True, "
+    "z stored at :81-82) via _fwd :331",
+    "P2 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:246 (save_z=True, "
+    "z stored at :213-215) via _fwd :331"]
+# z against the plain version's z: the same KERNEL_TOL atol, plus one bf16
+# ulp relative (2^-7 |z|) because z reaches |z| ~ 2 here, where one ulp
+# (2^-6) is above the 1e-2 that holds h' and c' (|h|, |c| < 2)
+Z_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2.0 ** -7)}
+# ConvLSTMCellFn's gradients against torch autograd through
+# convlstm_step_torch on the same operands, as max |diff| / max |reference|
+# per gradient: float32 (TF32 off) differs by sums in other orders (~1e-6);
+# bfloat16 by the backward's inputs: the Function recomputes the gates from
+# z and c' stored in bf16 (relative error up to 2^-9 each), autograd from
+# float32 values it never rounded, and each gradient is rounded to bf16
+# (2^-9) at the end: a few bf16 ulps of the largest gradient
+CELL_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_STEPS = {"bfloat16": 5, "float32": 2}
+# kernel path (K1 + ConvLSTMCellFn) against the plain path (autograd through
+# convlstm_step_torch) from one state, same batches:
+TRAIN_TOL = {
+    # |loss_k - loss_p| per step: L1 is 1-Lipschitz in the predictions, so
+    # it is at most max |pred_k - pred_p|, which PATH_TOL's atol bounds
+    # (later steps start from params that differ as bounded below).
+    # Measured on an H100: float32 0, bfloat16 7.4e-7
+    "loss": {"float32": 1e-5, "bfloat16": 1e-3},
+    # ||g_k - g_p|| / ||g_p|| at step 1 over all params: float32 sums in
+    # other orders; bfloat16 the per-element differences of CELL_GRAD_TOL
+    # (a few bf16 ulps of the largest element), which a norm over 0.9 M
+    # elements averages down. Measured: float32 3.3e-8, bfloat16 6.7e-5
+    "grad": {"float32": 1e-4, "bfloat16": 1e-3},
+    # max |p_k - p_p| after the steps: Adam moves an element by about lr a
+    # step (|m_hat| / sqrt(v_hat) ~ 1 while a gradient keeps its sign), so
+    # an element whose gradient's sign differs between the paths (it lies
+    # within the gradient error of 0) lands at most 2 lr per step away.
+    # Measured: float32 1.5e-7 (2 steps), bfloat16 8.7e-5 (5 steps)
+    "param": {"float32": 2e-3 * 2, "bfloat16": 2e-3 * 5},
+}
+TRAINER_SEQUENCES = 24
+TRAINER_EPOCHS = 2
 # the JAX bench's streaming rows (bench.py:263-298): horizon 30 at B 1 and 8
 STREAM_HORIZON = 30
 STREAM_BATCHES = (1, 8)
@@ -129,9 +197,10 @@ def time_ms(fn, iters):
 def raw_launcher(lib, symbol, argtypes, tensors, ints):
     """The kernel's C entry bound to fixed operands: a launch without the
     wrapper's Python checks (for timing, after the wrapper has checked them
-    once). It does not touch the wrapper's launch count."""
+    once); a None operand passes a null pointer. It does not touch the
+    wrapper's launch counts."""
     fn = build.load_function(lib, symbol, argtypes)
-    ptrs = [t.data_ptr() for t in tensors]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
@@ -158,7 +227,7 @@ def phase_build():
 
 
 def cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype):
-    dev = "cuda"
+    dev = DEVICE
     u = lambda shape, lo, hi: torch.empty(shape, device=dev).uniform_(
         lo, hi, generator=gen)
     bnd = 1.0 / (k * k * (cx + ch)) ** 0.5
@@ -187,7 +256,8 @@ def phase_cell(gen, shapes, dtypes):
                 h_out, c_out = torch.empty_like(h), torch.empty_like(c)
                 launch = raw_launcher(
                     "convlstm_cell", cell_mod._SYMBOLS[dtype], cell_mod._ARGTYPES,
-                    (x, h, c, w, bias, h_out, c_out), (b, hgt, wid, cx, ch, k))
+                    (x, h, c, w, bias, h_out, c_out, None),
+                    (b, hgt, wid, cx, ch, k))
                 rec["ms"] = time_ms(launch, 5)
                 rec["plain_ms"] = time_ms(
                     lambda: convlstm_cell_plain(x, h, c, w, bias), 5)
@@ -243,6 +313,98 @@ def phase_head(gen, shapes, dtypes):
     return out
 
 
+def phase_cell_save_z(gen, shapes, dtypes):
+    """K1 writing z against its plain version (h', c' and z), timed beside
+    K1 without z on the same operands; then ConvLSTMCellFn's gradients
+    against autograd at the (64, 64) shape. Returns {dtype: [records]}."""
+    out = {}
+    for dtype in dtypes:
+        name = str(dtype).split(".")[-1]
+        recs = []
+        for (b, hgt, wid, cx, ch, k, timed) in shapes:
+            x, h, c, w, bias = cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype)
+            z_k = torch.empty((b, hgt, wid, 4 * ch), dtype=dtype, device=DEVICE)
+            z_p = torch.empty_like(z_k)
+            hk, ck = convlstm_cell_fwd(x, h, c, w, bias, z_out=z_k)
+            hp, cp = convlstm_cell_plain(x, h, c, w, bias, z_out=z_p)
+            torch.cuda.synchronize()
+            what = f"K1+z {name} {(cx, ch, k)}"
+            err = max(check_close(f"{what} h'", hk, hp, *KERNEL_TOL[name]),
+                      check_close(f"{what} c'", ck, cp, *KERNEL_TOL[name]))
+            err_z = check_close(f"{what} z", z_k, z_p, *Z_TOL[name])
+            rec = dict(shape=[b, hgt, wid, cx, ch, k], max_abs_err=err,
+                       max_abs_err_z=err_z, max_abs_z=float(z_p.abs().max()))
+            if timed:
+                h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+                ints = (b, hgt, wid, cx, ch, k)
+                launch = {z: raw_launcher(
+                    "convlstm_cell", cell_mod._SYMBOLS[dtype], cell_mod._ARGTYPES,
+                    (x, h, c, w, bias, h_out, c_out, z), ints)
+                    for z in (None, z_k)}
+                # in turns within one call: without z, with z, with, without
+                times = {"ms_no_z": [], "ms": []}
+                for key, z in (("ms_no_z", None), ("ms", z_k), ("ms", z_k),
+                               ("ms_no_z", None)):
+                    times[key].append(time_ms(launch[z], 5))
+                rec.update({key: statistics.mean(v) for key, v in times.items()})
+                rec["plain_ms"] = time_ms(
+                    lambda: convlstm_cell_plain(x, h, c, w, bias, z_out=z_p), 5)
+                xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)  # channels_last
+                w_oihw = w.permute(3, 2, 0, 1).contiguous()
+                rec["library_ms"] = time_ms(
+                    lambda: F.conv2d(xh, w_oihw, bias, padding=k // 2), 5)
+                flops = 2 * b * hgt * wid * k * k * (cx + ch) * 4 * ch
+                nbytes = x.element_size() * (x.numel() + 4 * h.numel()
+                                             + w.numel() + bias.numel()
+                                             + z_k.numel())
+                rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
+            say(phase="cell_save_z", dtype=name, tol=KERNEL_TOL[name],
+                tol_z=Z_TOL[name], **rec)
+            recs.append(rec)
+        out[name] = recs
+        out[name + "_grad"] = phase_cell_grad(gen, shapes[1], dtype, name)
+    return out
+
+
+def phase_cell_grad(gen, shape, dtype, name):
+    """ConvLSTMCellFn (K1 with z, the hand-written backward) against torch
+    autograd through convlstm_step_torch: the five gradients of one
+    random-cotangent loss, each as max |diff| / max |reference|."""
+    b, hgt, wid, cx, ch, k, _ = shape
+    x, h, c, w, bias = cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype)
+    operands = (w, bias, x, h, c)
+    gh = torch.randn((b, hgt, wid, ch), device=DEVICE, generator=gen)
+    gc = torch.randn((b, hgt, wid, ch), device=DEVICE, generator=gen)
+
+    def grads(step):
+        leaves = [t.clone().requires_grad_(True) for t in operands]
+        hn, cn = step(*leaves)
+        ((hn.float() * gh).sum() + (cn.float() * gc).sum()).backward()
+        return [t.grad for t in leaves]
+
+    reset_counts()
+    got = grads(ConvLSTMCellFn.apply)
+    if convlstm_cell_fwd.launches_z != 1:
+        raise AssertionError("ConvLSTMCellFn did not launch K1 with z")
+    want = grads(lambda w, bias, x, h, c: convlstm_step_torch(
+        x, h, c, oihw_from_hwio(w), bias))
+    torch.cuda.synchronize()
+    errs = {}
+    for gname, g, r in zip(("dweight", "dbias", "dx", "dh", "dc"), got, want):
+        if g.dtype != r.dtype or not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"cell grad {name} {gname}: {g.dtype} vs "
+                                 f"{r.dtype} or non-finite")
+        errs[gname] = float((g.float() - r.float()).abs().max()
+                            / r.float().abs().max())
+    say(phase="cell_grad", dtype=name, shape=[b, hgt, wid, cx, ch, k],
+        tol=CELL_GRAD_TOL[name], rel_err=errs)
+    for gname, err in errs.items():
+        if not err <= CELL_GRAD_TOL[name]:
+            raise AssertionError(f"cell grad {name} {gname}: relative error "
+                                 f"{err:.3e} > {CELL_GRAD_TOL[name]}")
+    return errs
+
+
 def nowcast_params(cfg, seed):
     """The nowcast_128 forecaster as a flax params tree of numpy arrays, with
     torch-default-init ranges (the layout a JAX checkpoint exports)."""
@@ -286,14 +448,9 @@ def phase_main_path(ckpt, dtype_name, requests):
     cfg_torch.model.rollout_impl = "torch"
     torch_predict = load_predictor(cfg_torch, ckpt)
 
-    convlstm_cell_fwd.launches = 0
-    conv_head_fwd.launches = 0
+    reset_counts()
     outs, k_ms = zip(*(request_ms(kernel_predict, f) for f in requests))
-    launches = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
-                "conv_head_fwd": conv_head_fwd.launches}
-    if launches != {"convlstm_cell_fwd": expect_k1, "conv_head_fwd": expect_k2}:
-        raise AssertionError(f"main path {dtype_name}: launches {launches}, "
-                             f"expected {expect_k1} K1 and {expect_k2} K2")
+    launches = expect_counts(f"main path {dtype_name}", expect_k1, expect_k2)
     refs, t_ms = zip(*(request_ms(torch_predict, f) for f in requests))
     atol, rtol = PATH_TOL[dtype_name]
     want = (requests[0].shape[0], cfg.model.output_frames,
@@ -356,17 +513,21 @@ def profile_request(predict, frames, phase="profile"):
 
 def reset_counts():
     convlstm_cell_fwd.launches = 0
+    convlstm_cell_fwd.launches_z = 0
     conv_head_fwd.launches = 0
 
 
-def expect_counts(what, k1, k2):
-    """Raise unless K1 and K2 launched exactly k1 and k2 times since the
-    last reset_counts(); returns the counts."""
+def expect_counts(what, k1, k2, k1z=0):
+    """Raise unless K1 (without z), K2 and K1 with z launched exactly k1, k2
+    and k1z times since the last reset_counts(); returns the counts of K1
+    and K2."""
     got = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
            "conv_head_fwd": conv_head_fwd.launches}
-    if got != {"convlstm_cell_fwd": k1, "conv_head_fwd": k2}:
-        raise AssertionError(f"{what}: launches {got}, expected {k1} K1 "
-                             f"and {k2} K2")
+    if got != {"convlstm_cell_fwd": k1, "conv_head_fwd": k2} or \
+            convlstm_cell_fwd.launches_z != k1z:
+        raise AssertionError(f"{what}: launches {got}, with z "
+                             f"{convlstm_cell_fwd.launches_z}; expected {k1} "
+                             f"K1, {k2} K2 and {k1z} K1 with z")
     return got
 
 
@@ -588,6 +749,221 @@ def phase_precip_256(tmp, seed):
         forecast_plain_ms_all=times["forecast_plain"][1])
 
 
+def train_config(dtype_name, impl="pallas"):
+    cfg = load_config("nowcast_128_pallas")
+    cfg.precision.compute_dtype = dtype_name
+    cfg.model.convlstm_impl = impl
+    cfg.validate(training=True)
+    return cfg
+
+
+def train_state(cfg, state_dict):
+    model = build_model(cfg)
+    model.load_state_dict(state_dict)
+    model.to(DEVICE).train()
+    return TrainState(model, make_optimizer(model), 0)
+
+
+def flat_grads(model):
+    return torch.cat([p.grad.flatten() for p in model.parameters()])
+
+
+def profile_train_step(state, batch, lr):
+    """torch.profiler over one kernel-path train step after a traced
+    warm-up step: device time by kernel group and the idle share."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        forecaster_train_step(state, batch, lr)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        forecaster_train_step(state, batch, lr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        # the kernels' own rows only: an op's row (aten::, the autograd
+        # Function's, the step's) repeats the device time of what it launched
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0 and ev.device_type == DeviceType.CUDA and \
+                not ev.key.startswith("ProfilerStep"):
+            rows.append((ev.key, ev.count, dev_us / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    conv_marks = ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad",
+                  "implicit", "cutlass", "sm90", "sm80")
+
+    def group(key):
+        if "convlstm_cell" in key:
+            return "K1"
+        if any(m in key.lower() for m in conv_marks):
+            return "cudnn_conv"
+        return "elementwise_reduce_copy"
+
+    groups = {}
+    for key, n, ms in rows:
+        g = groups.setdefault(group(key), [0, 0.0])
+        g[0] += n
+        g[1] += ms
+    busy = sum(r[2] for r in rows)
+    rec = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+               idle_share=max(0.0, 1 - busy / (wall * 1e3)),
+               groups={k: [n, round(ms, 3)] for k, (n, ms) in groups.items()},
+               top=[[k[:100], n, round(ms, 3)] for k, n, ms in rows[:12]])
+    say(phase="train_profile", **rec)
+    return rec
+
+
+def phase_train(dtype_name, seed):
+    """nowcast_128_pallas at full width: the kernel path (K1 with z and the
+    custom backward) against the plain path from one state (see the module
+    docstring, 8). Returns the record."""
+    steps = TRAIN_STEPS[dtype_name]
+    cfg = train_config(dtype_name)
+    mc = cfg.model
+    b, size = cfg.training.batch_size, cfg.data.synthetic_image_size
+    n_cells = len(mc.hidden_dims)
+    per_step = n_cells * (mc.input_frames + mc.output_frames - 1)
+    lr = cfg.training.learning_rate
+    state_dict = flax_to_state_dict(nowcast_params(cfg, seed))
+    ds = SyntheticSequenceDataset(steps * b, mc.input_frames, mc.output_frames,
+                                  size, seed=seed)
+    batches = [to_device(x, torch.device(DEVICE))
+               for x in batch_iterator(ds, b)]
+    paths = {"kernel": train_state(cfg, state_dict),
+             "plain": train_state(train_config(dtype_name, "xla"), state_dict)}
+
+    grads = {}
+    for name, st in paths.items():        # step-1 gradients, then cleared
+        forecaster_loss(st.model, *batches[0])[0].backward()
+        grads[name] = flat_grads(st.model)
+        st.optimizer.zero_grad(set_to_none=True)
+    grad_err = float((grads["kernel"] - grads["plain"]).norm()
+                     / grads["plain"].norm())
+    del grads
+
+    losses, times = {}, {}
+    for name, st in paths.items():
+        losses[name], times[name] = [], []
+        for i, batch in enumerate(batches):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = forecaster_train_step(st, batch, lr)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "kernel":
+                expect_counts(f"train {dtype_name} step {i}", 0, 0, per_step)
+            else:
+                expect_counts(f"plain train {dtype_name} step {i}", 0, 0, 0)
+            if m["skipped"] or not np.isfinite(m["total"]):
+                raise AssertionError(f"train {name} {dtype_name} step {i}: "
+                                     f"{m}")
+            losses[name].append(m["total"])
+    loss_err = max(abs(a - c) for a, c in zip(losses["kernel"],
+                                               losses["plain"]))
+    param_err = max(float((pk - pp).detach().abs().max()) for pk, pp in zip(
+        paths["kernel"].model.parameters(), paths["plain"].model.parameters()))
+    moved = max(float((p.detach().cpu() - state_dict[n]).abs().max())
+                for n, p in paths["kernel"].model.named_parameters())
+    errs = {"loss": loss_err, "grad": grad_err, "param": param_err}
+    say(phase="train_check", dtype=dtype_name, errors=errs,
+        tol={k: v[dtype_name] for k, v in TRAIN_TOL.items()},
+        max_param_move=moved, losses_kernel=losses["kernel"],
+        losses_plain=losses["plain"])
+    for key, err in errs.items():
+        if not err <= TRAIN_TOL[key][dtype_name]:
+            raise AssertionError(f"train {dtype_name}: {key} error {err:.3e} "
+                                 f"> {TRAIN_TOL[key][dtype_name]}")
+    if moved == 0.0:
+        raise AssertionError(f"train {dtype_name}: the params did not move")
+
+    reset_counts()
+    acc = forecaster_eval_step(paths["kernel"].model, batches[0], b,
+                               tuple(cfg.training.eval_thresholds))
+    expect_counts(f"eval {dtype_name}", per_step, 0)
+    if not all(bool(torch.isfinite(v[0]).all()) for v in acc.values()):
+        raise AssertionError(f"eval {dtype_name}: non-finite metrics")
+
+    profile = None
+    if dtype_name == "bfloat16":
+        profile = profile_train_step(paths["kernel"], batches[0], lr)
+    rec = dict(dtype=dtype_name, steps=steps, batch=b,
+               launches_per_step={"convlstm_cell_fwd_save_z": per_step,
+                                  "convlstm_cell_fwd": 0, "conv_head_fwd": 0},
+               launches_train=per_step * steps, launches_eval_batch=per_step,
+               kernel_p50_ms=statistics.median(times["kernel"]),
+               plain_p50_ms=statistics.median(times["plain"]),
+               kernel_ms=times["kernel"], plain_ms=times["plain"],
+               losses_kernel=losses["kernel"], losses_plain=losses["plain"],
+               errors=errs, tol={k: v[dtype_name] for k, v in TRAIN_TOL.items()},
+               max_param_move=moved,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say(phase="train", **rec)
+    del paths, batches
+    torch.cuda.empty_cache()
+    rec["profile"] = profile
+    return rec
+
+
+def phase_trainer(tmp, request):
+    """The CLI's train path on nowcast_128_pallas in process (24 sequences,
+    2 epochs; latest saved every epoch so that --resume starts at epoch 2),
+    --resume to 3 epochs, --mode eval, then load_predictor on the trainer's
+    best_model serving one request on K1/K2."""
+    cfg = load_config("nowcast_128_pallas")
+    mc = cfg.model
+    cfg.data.synthetic_num_sequences = TRAINER_SEQUENCES
+    cfg.training.epochs = TRAINER_EPOCHS
+    cfg.output.output_dir = os.path.join(tmp, "trainer")
+    cfg.output.save_model_interval = 1
+    yamls = []
+    for epochs in (TRAINER_EPOCHS, TRAINER_EPOCHS + 1):
+        cfg.training.epochs = epochs
+        yamls.append(os.path.join(tmp, f"trainer_{epochs}.yaml"))
+        cfg.to_yaml(yamls[-1])
+    per_step = len(mc.hidden_dims) * (mc.input_frames + mc.output_frames - 1)
+    b = cfg.training.batch_size
+    n_train = int(TRAINER_SEQUENCES * 0.7) // b
+    n_val = -(-int(TRAINER_SEQUENCES * 0.15) // b)
+    t0 = time.perf_counter()
+    reset_counts()
+    h2 = cli.main(["--config", yamls[0], "--mode", "train"])
+    train_launches = convlstm_cell_fwd.launches_z
+    expect_counts("trainer 2 epochs", TRAINER_EPOCHS * n_val * per_step, 0,
+                  TRAINER_EPOCHS * n_train * per_step)
+    h3 = cli.main(["--config", yamls[1], "--mode", "train", "--resume"])
+    if h3["epoch"] != list(range(TRAINER_EPOCHS + 1)) or \
+            {k: v[:TRAINER_EPOCHS] for k, v in h3.items()} != h2:
+        raise AssertionError(f"--resume did not continue at epoch "
+                             f"{TRAINER_EPOCHS}: {h3['epoch']}")
+    with open(os.path.join(cfg.output.output_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line)["epoch"] for line in f]
+    if logged != list(range(TRAINER_EPOCHS + 1)):
+        raise AssertionError(f"metrics.jsonl epochs {logged}")
+    metrics = cli.main(["--config", yamls[1], "--mode", "eval"])
+    if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"--mode eval metrics {metrics}")
+    predict = load_predictor(cfg, os.path.join(cfg.output.output_dir,
+                                               "best_model"))
+    reset_counts()
+    out = predict(request)
+    expect_counts("trainer best_model predict", per_step, mc.output_frames)
+    want = (request.shape[0], mc.output_frames) + tuple(request.shape[2:])
+    if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"trainer predict: {tuple(out.shape)}")
+    rec = dict(sequences=TRAINER_SEQUENCES, epochs=TRAINER_EPOCHS + 1,
+               seconds=time.perf_counter() - t0, train_launches_z=train_launches,
+               val_l1=h3["val_l1"], total_loss=h3["total_loss"],
+               test_metrics=metrics)
+    say(phase="trainer", **rec)
+    return rec
+
+
 def write_checkpoint(path, cfg, seed):
     """nowcast_params(cfg, seed) as the README's .npz of flattened flax
     params; checks that weights.py maps every entry."""
@@ -603,14 +979,16 @@ def write_checkpoint(path, cfg, seed):
     return path
 
 
-def kernel_entries(cell, head, paths, streams, n_cells):
-    """The {"kernels": [...]} records, one per kernel and compute dtype. K1's
-    times and bound are per launch, averaged over one request's mix of cell
-    shapes (cell 1: (1, 64); cells 2-3: (64, 64))."""
+def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
+                   trainer):
+    """The {"kernels": [...]} records, one per kernel (K1 with z as its own
+    entry) and compute dtype. K1's times and bound are per launch, averaged
+    over one request's (or train step's) mix of cell shapes (cell 1:
+    (1, 64); cells 2-3: (64, 64))."""
     entries = []
+    weights = [1, n_cells - 1]
     for name, path in paths.items():
         c_recs = [r for r in cell[name] if "ms" in r]
-        weights = [1, n_cells - 1]
         mix = lambda key: sum(w * r[key] for w, r in zip(weights, c_recs)) / sum(weights)
         entries.append(dict(
             name="convlstm_cell_fwd", dtype=name, route="cuda", source=K1_SOURCE,
@@ -618,11 +996,30 @@ def kernel_entries(cell, head, paths, streams, n_cells):
             launches=path["launches"]["convlstm_cell_fwd"],
             launches_by_path={
                 "predict": path["launches"]["convlstm_cell_fwd"],
-                "stream": streams[name]["launches"]["convlstm_cell_fwd"]},
+                "stream": streams[name]["launches"]["convlstm_cell_fwd"],
+                "train_eval_batch": trains[name]["launches_eval_batch"]},
             max_abs_err=max(r["max_abs_err"] for r in cell[name]),
             ms=mix("ms"), plain_ms=mix("plain_ms"), bound_ms=mix("bound_ms"),
             bound_by=c_recs[0]["bound_by"], library_ms=mix("library_ms"),
             per_shape=c_recs))
+        z_recs = [r for r in cell_z[name] if "ms" in r]
+        zmix = lambda key: sum(w * r[key] for w, r in zip(weights, z_recs)) / sum(weights)
+        by_path = {"train": trains[name]["launches_train"],
+                   "train_per_step": trains[name]["launches_per_step"][
+                       "convlstm_cell_fwd_save_z"]}
+        if name == "bfloat16":
+            by_path["trainer"] = trainer["train_launches_z"]
+        entries.append(dict(
+            name="convlstm_cell_fwd", variant="save_z", dtype=name, route="cuda",
+            source=K1_SOURCE, replaces=K1_REPLACES, stands_for=K1Z_STANDS_FOR,
+            launches=trains[name]["launches_train"], launches_by_path=by_path,
+            max_abs_err=max(max(r["max_abs_err"], r["max_abs_err_z"])
+                            for r in cell_z[name]),
+            ms=zmix("ms"), ms_without_z=zmix("ms_no_z"),
+            plain_ms=zmix("plain_ms"), bound_ms=zmix("bound_ms"),
+            # the bound of the shape of two of the three cells, (64, 64)
+            bound_by=z_recs[-1]["bound_by"], library_ms=zmix("library_ms"),
+            grad_rel_err=cell_z[name + "_grad"], per_shape=z_recs))
         h = [r for r in head[name] if "ms" in r][0]
         entries.append(dict(
             name="conv_head_fwd", dtype=name, route="cuda", source=K2_SOURCE,
@@ -661,6 +1058,7 @@ def main() -> int:
                    (2, 13, 21, 40, 5, 3, False)]           # ragged, Cout=5
     cell = phase_cell(gen, cell_shapes, dtypes)
     head = phase_head(gen, head_shapes, dtypes)
+    cell_z = phase_cell_save_z(gen, cell_shapes, dtypes)
 
     rng = np.random.default_rng(SEED)
     requests = [torch.from_numpy(rng.random(
@@ -683,9 +1081,13 @@ def main() -> int:
         profile_request(lambda st: sf.forecast(st, STREAM_HORIZON), warm_b1,
                         phase="stream_profile")
         phase_precip_256(tmp, SEED)
+        trains = {dtype_name: phase_train(dtype_name, SEED)
+                  for dtype_name in ("bfloat16", "float32")}
+        trainer = phase_trainer(tmp, requests[0])
 
-    print(json.dumps({"kernels": kernel_entries(cell, head, paths, streams,
-                                                 len(hidden))}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(
+        cell, head, paths, streams, len(hidden), cell_z, trains, trainer)}),
+        flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

@@ -2,10 +2,11 @@
 for NVIDIA Hopper GPUs.
 
 It imports torch and never jax or the JAX package, which stays beside it as
-the reference. Ported so far: the forecaster's serving path (config,
-ConvLSTM cell, forecaster, weights bridge, batch predict, streaming, CLI)
-with two hand-written CUDA kernels, the fused ConvLSTM cell step and the
-conv head.
+the reference. Ported so far: the forecaster's serving paths (batch
+predict, streaming) and its training (train/eval steps, trainer,
+checkpoints), with two hand-written CUDA kernels, the fused ConvLSTM cell
+step (which also writes the conv pre-activation for the custom backward in
+training) and the conv head.
 
 Layout
 ------
@@ -13,11 +14,17 @@ Layout
 - ``ops``      NHWC conv helpers, the cell math, and ``ops.kernels``: the CUDA
                kernels (sources in ``csrc/``) with their plain versions
 - ``models``   ``ConvLSTMForecaster`` and its layers as ``nn.Module``s
-- ``weights``  flax params tree <-> torch state_dict
+- ``weights``  flax params tree <-> torch state_dict; optax Adam state <->
+               torch.optim.Adam
 - ``predict``  config + checkpoint -> predict function
 - ``streaming`` ``StreamingForecaster``: observe frames into a carried state,
                branch forecasts from it
-- ``cli``      ``python -m pl_convlstm_gan_tpu_torch --mode predict|stream``
+- ``losses``   L1, SSIM, POD/FAR/CSI/HSS, sharpness
+- ``data``     synthetic sequences, split, batching, device prefetch
+- ``train``    train/eval steps, ``SequenceTrainer``, checkpoints, plateau,
+               early stopping, metrics log
+- ``cli``      ``python -m pl_convlstm_gan_tpu_torch --mode
+               train|eval|predict|stream``
 """
 
 __version__ = "0.1.0"

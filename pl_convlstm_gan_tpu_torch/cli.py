@@ -1,19 +1,29 @@
 """Command line of the port: ``python -m pl_convlstm_gan_tpu_torch``.
 
+    python -m pl_convlstm_gan_tpu_torch --config nowcast_128_pallas \\
+        --mode train [--resume]
+    python -m pl_convlstm_gan_tpu_torch --config nowcast_128_pallas \\
+        --mode eval [--checkpoint <dir>]
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode predict \\
         --input frames.npy --checkpoint params.npz [--output-frames N]
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode stream \\
         --input frames.npy --checkpoint params.npz [--horizons 10,30]
 
-Both modes restore the weights (a ``.npz`` of flattened flax params or a
-torch ``.pt`` state_dict) and read frames from a ``.npy``, or a ``.npz`` with
-a ``frames`` key. Predict mode runs the forecaster on [B,T_in,C,H,W] and
-writes the predictions [B,T_out,C,H,W] as a ``.npy``. Stream mode feeds
-[T,C,H,W] (one stream) or [B,T,C,H,W] (B streams) one frame at a time
-through ``StreamingForecaster`` and writes an ``.npz`` with ``nowcasts``
-[B,T,C,H,W] and one ``forecast_<h>`` [B,h,C,H,W] per horizon, branched from
-the state after the last frame. Both run on the GPU unless ``--device cpu``
-is given. Training, export and the other modes are not ported yet.
+Train mode runs ``SequenceTrainer`` (forecaster family); ``--resume``
+continues from ``<output_dir>/latest``, else ``best_model``, recovering a
+checkpoint a crash left at ``.pending`` or ``.old``. Eval mode restores a
+checkpoint (default ``<output_dir>/best_model``) and prints the test-split
+metrics. Predict and stream restore the weights (a ``.npz`` of flattened
+flax params, a torch ``.pt`` state_dict, or a checkpoint directory of the
+trainer; default ``<output_dir>/best_model``) and read frames from a
+``.npy``, or a ``.npz`` with a ``frames`` key. Predict mode runs the
+forecaster on [B,T_in,C,H,W] and writes the predictions [B,T_out,C,H,W] as
+a ``.npy``. Stream mode feeds [T,C,H,W] (one stream) or [B,T,C,H,W] (B
+streams) one frame at a time through ``StreamingForecaster`` and writes an
+``.npz`` with ``nowcasts`` [B,T,C,H,W] and one ``forecast_<h>`` [B,h,C,H,W]
+per horizon, branched from the state after the last frame. Every mode runs
+on the GPU unless ``--device cpu`` is given. Export and the other modes are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -69,27 +79,64 @@ def _stream(config, args, out_path):
     print(f"Streamed {t} frames x {b} stream(s): {shapes} saved to {out_path}")
 
 
+def _train(config, args):
+    from .train.checkpoint import recover_checkpoint_dir
+    from .train.sequence_trainer import SequenceTrainer
+
+    if args.resume and not config.training.resume_from:
+        for name in ("latest", "best_model"):
+            ckpt = os.path.join(config.output.output_dir, name)
+            if recover_checkpoint_dir(ckpt):
+                config.training.resume_from = ckpt
+                print(f"Resuming from {ckpt}")
+                break
+        else:
+            print("--resume: no checkpoint found, starting fresh")
+    return SequenceTrainer(config=config, device=args.device).train()
+
+
+def _evaluate(config, args):
+    from .train.sequence_trainer import SequenceTrainer
+
+    trainer = SequenceTrainer(config=config, device=args.device)
+    trainer.setup_data()
+    trainer.setup_model()
+    trainer.restore(args.checkpoint or os.path.join(config.output.output_dir,
+                                                    "best_model"))
+    metrics = trainer.evaluate_test()
+    print(f"Test metrics: {metrics}")
+    return metrics
+
+
 def _make_parent(path):
     if os.path.dirname(path):
         os.makedirs(os.path.dirname(path), exist_ok=True)
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Run one mode; returns the history (train) or the test metrics
+    (eval)."""
     from .config import load_config
     from .predict import load_predictor
 
     parser = argparse.ArgumentParser(
         prog="python -m pl_convlstm_gan_tpu_torch",
-        description="pl-convlstm-gan forecaster inference on PyTorch/CUDA")
+        description="pl-convlstm-gan forecaster training and inference on "
+                    "PyTorch/CUDA")
     parser.add_argument("--config", type=str, default="default",
                         help="configuration name (configs/<name>.yaml) or a "
                              "direct path to a .yaml file")
-    parser.add_argument("--mode", choices=("predict", "stream"),
-                        default="predict")
-    parser.add_argument("--checkpoint", type=str, required=True,
-                        help="weights: .npz of flattened flax params or a "
-                             "torch .pt state_dict")
-    parser.add_argument("--input", type=str, required=True,
+    parser.add_argument("--mode", choices=("predict", "stream", "train",
+                                           "eval"), default="predict")
+    parser.add_argument("--checkpoint", type=str, default=None,
+                        help="weights: .npz of flattened flax params, a "
+                             "torch .pt state_dict or a checkpoint directory "
+                             "of the trainer (default: <output_dir>/"
+                             "best_model)")
+    parser.add_argument("--resume", action="store_true",
+                        help="train mode: resume from <output_dir>/latest "
+                             "(or best_model) if present")
+    parser.add_argument("--input", type=str, default=None,
                         help="input frames: [B,T_in,C,H,W] for predict, "
                              "[T,C,H,W] or [B,T,C,H,W] for stream; .npy, or "
                              ".npz with a 'frames' key")
@@ -112,10 +159,18 @@ def main(argv=None) -> None:
                          "(0 = config value)")
 
     config = load_config(args.config)
-    config.validate()
+    training = args.mode in ("train", "eval")
+    config.validate(training=training)
+    if training:
+        return _train(config, args) if args.mode == "train" else \
+            _evaluate(config, args)
     if config.model.family not in ("forecaster", "gan"):
         raise SystemExit(f"the port serves the forecaster/gan families, not "
                          f"{config.model.family!r}")
+    if not args.input:
+        raise SystemExit(f"--mode {args.mode} requires --input")
+    args.checkpoint = args.checkpoint or os.path.join(
+        config.output.output_dir, "best_model")
     default_name = "predictions.npy" if args.mode == "predict" else "stream_out.npz"
     out_path = args.output or os.path.join(config.output.output_dir,
                                            default_name)

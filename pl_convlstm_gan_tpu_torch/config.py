@@ -6,8 +6,13 @@ A copy of the JAX package's config module, so that the port reads the same
 fallback (``CONFIG_NAME``), round-trip ``to_yaml`` and ``validate()``.
 
 Differences from the JAX copy: no ``apply_debug_flags`` (it drives JAX's own
-debug switches), and ``model.rollout_impl`` takes the port's values
-``auto | torch | kernel``.
+debug switches), ``model.rollout_impl`` takes the port's values
+``auto | torch | kernel``, and ``model.convlstm_impl`` keeps the JAX values
+with the port's meaning (``convlstm_cell_impl``): ``pallas`` runs the cells
+on the hand-written CUDA kernel K1 (in training: K1 writing z and the custom
+backward, ``ops.kernels.convlstm_kernel.ConvLSTMCellFn``); ``xla`` and
+``auto`` run the plain PyTorch step. ``validate(training=True)`` refuses the
+training settings the port has not ported yet, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -65,7 +70,10 @@ class ModelConfig:
     dem_channels: int = 1
     lu_channels: int = 0           # 0 => resolved from dataset at setup_model time
     kernel_size: int = 3
-    convlstm_impl: str = "auto"    # "auto" | "xla" | "pallas"
+    # "auto" | "xla" | "pallas"; in the port: pallas = the CUDA cell kernel
+    # K1 (training: K1 writing z + the custom backward), xla/auto = the
+    # plain PyTorch step (config.convlstm_cell_impl)
+    convlstm_impl: str = "auto"
     # inference path of predict and streaming (sequence families):
     # "auto" = the hand-written CUDA kernels (fused cell + head, launched per
     # step by ops.kernels.rollout_kernel) when the model is on a GPU, else
@@ -220,8 +228,10 @@ class Config:
         with open(yaml_path, "w", encoding="utf-8") as f:
             yaml.dump(config_dict, f, default_flow_style=False, allow_unicode=True)
 
-    def validate(self) -> None:
-        """Path warnings + range checks (reference: src/config.py:104-119)."""
+    def validate(self, training: bool = False) -> None:
+        """Path warnings + range checks (reference: src/config.py:104-119).
+        ``training=True`` (the trainer and ``--mode train/eval``) also
+        refuses the training settings the port has not ported yet."""
         for path_name, path_value in self.data.__dict__.items():
             if path_name.endswith("_path") and path_value and not os.path.exists(path_value):
                 print(f"Warning: {path_name} does not exist: {path_value}")
@@ -237,6 +247,7 @@ class Config:
             raise ValueError(f"Unknown model family: {self.model.family}")
         if self.precision.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype: {self.precision.compute_dtype}")
+        convlstm_cell_impl(self.model.convlstm_impl)   # raises if unknown
         if self.model.rollout_impl not in ("auto", "torch", "kernel"):
             raise ValueError(
                 f"Unknown rollout_impl: {self.model.rollout_impl!r} "
@@ -284,6 +295,47 @@ class Config:
                 "model.target_grid_size requires model.input_grid_size — "
                 "without it the generator silently falls back to scale 1 "
                 "(no upsampling at all)")
+        if training:
+            self._refuse_unported_training()
+
+    def _refuse_unported_training(self) -> None:
+        """The training settings the port does not run yet, each refused with
+        the ROADMAP item that ports it."""
+        refusals = [
+            (self.model.family != "forecaster",
+             f"model.family {self.model.family!r}: the port trains the "
+             f"forecaster family only; GAN training is ROADMAP A7, the "
+             f"Generator A8"),
+            (self.mesh.model_axis > 1,
+             "mesh.model_axis > 1: tensor-parallel training is ROADMAP A10"),
+            (self.mesh.data_axis > 1,
+             "mesh.data_axis > 1: data-parallel training is ROADMAP A9; the "
+             "port trains on one device"),
+            (self.model.remat,
+             "model.remat: true: remat via torch.utils.checkpoint is ROADMAP "
+             "A3 (left)"),
+            (self.data.source == "frames",
+             "data.source 'frames': the on-disk frames source is ROADMAP A6 "
+             "(left)"),
+            (self.data.loader == "grain",
+             "data.loader 'grain': grain is ROADMAP A6 (left); use 'plain'"),
+        ]
+        for refused, message in refusals:
+            if refused:
+                raise NotImplementedError(f"not ported yet: {message}")
+
+
+CONVLSTM_IMPLS = ("auto", "xla", "pallas")
+
+
+def convlstm_cell_impl(convlstm_impl: str) -> str:
+    """The port's cell step for a config's ``model.convlstm_impl``, as the
+    JAX trainer maps it (sequence_trainer.py:137): 'pallas' -> 'kernel' (K1),
+    'xla' and 'auto' -> 'torch' (the plain step)."""
+    if convlstm_impl not in CONVLSTM_IMPLS:
+        raise ValueError(f"Unknown convlstm_impl: {convlstm_impl!r} "
+                         f"(valid: {', '.join(CONVLSTM_IMPLS)})")
+    return "kernel" if convlstm_impl == "pallas" else "torch"
 
 
 def config_dir() -> str:

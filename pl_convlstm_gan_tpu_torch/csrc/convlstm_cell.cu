@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernels of pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py
 // (_run_kernel / _kernel_body and _run_kernel_tiled / _tiled_kernel_body, the
-// forward with save_z=False) and the cell_pass of
-// pl_convlstm_gan_tpu/ops/pallas/rollout_kernel.py.
+// forward with save_z=False, and with save_z=True for training) and the
+// cell_pass of pl_convlstm_gan_tpu/ops/pallas/rollout_kernel.py.
 //
 // Computes, per pixel p and hidden channel j:
 //   z[g] = bias[g*Ch+j] + sum_{tap, ci} in[p+tap][ci] * w[tap][ci][g*Ch+j]
@@ -12,6 +12,14 @@
 // The conv accumulates in float32, the bias is added in float32 (it seeds the
 // accumulator, as in the TPU kernels), the gates run in float32, and h' and c'
 // are stored in the operands' type (float32 or bfloat16).
+// Training form (save_z=True): when the z pointer is not null, the epilogue
+// also stores the pre-activation z = accumulator + bias, rounded once to the
+// operands' type, NHWC [B,H,W,4Ch] gate-major (i|f|o|g blocks of Ch), as
+// the TPU kernel's z_ref: the residual of the backward pass. A thread
+// already holds all four gates of its (pixel, channel) pairs, so this is a
+// store in the epilogue and the tiling does not change. The stores are not
+// coalesced (a thread writes 4 gates Ch apart); that is left to a later
+// change. With a null z nothing more is stored.
 //
 // What bounds it on the card: operations. At the nowcast_128 shape a launch
 // does 2*65536*9*128*256 = 38.7 GFLOP against ~17 MB of traffic in bf16, far
@@ -61,8 +69,8 @@ __global__ void __launch_bounds__(NT)
 convlstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
                      const float* c, const float* __restrict__ w,
                      const float* __restrict__ bias, float* __restrict__ h_out,
-                     float* c_out, int H, int W, int Cx, int Ch, int K,
-                     int tiles_w) {
+                     float* c_out, float* __restrict__ z, int H, int W, int Cx,
+                     int Ch, int K, int tiles_w) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int IH = TH + K - 1, IW = TW + K - 1, pad = K / 2;
@@ -162,6 +170,10 @@ convlstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
       const int jj = j0 + cg * CPT + q;
       if (jj >= Ch) continue;
       const long long o = pix * Ch + jj;
+      if (z != nullptr) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) z[pix * Cz + g * Ch + jj] = acc[k][q][g];
+      }
       const float ig = sigmoid_f(acc[k][q][0]);
       const float fg = sigmoid_f(acc[k][q][1]);
       const float og = sigmoid_f(acc[k][q][2]);
@@ -207,8 +219,8 @@ convlstm_cell_mma_kernel(const __nv_bfloat16* __restrict__ x,
                          const __nv_bfloat16* __restrict__ w,
                          const __nv_bfloat16* __restrict__ bias,
                          __nv_bfloat16* __restrict__ h_out,
-                         __nv_bfloat16* c_out, int H, int W, int Cx, int Ch,
-                         int K, int tiles_w) {
+                         __nv_bfloat16* c_out, __nv_bfloat16* __restrict__ z,
+                         int H, int W, int Cx, int Ch, int K, int tiles_w) {
   extern __shared__ float4 smem4[];
   __nv_bfloat16* in_s = reinterpret_cast<__nv_bfloat16*>(smem4);  // [IH*IW][MKP]
   const int IH = TH + K - 1, IW = TW + K - 1, pad = K / 2;
@@ -322,6 +334,11 @@ convlstm_cell_mma_kernel(const __nv_bfloat16* __restrict__ x,
         const int jj = j0 + 16 * wn + 8 * cgp + 2 * gq + (e & 1);
         if (jj >= Ch) continue;
         const long long o = pix * Ch + jj;
+        if (z != nullptr) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            z[pix * Cz + g * Ch + jj] = __float2bfloat16(acc[mt][cgp][g][e]);
+        }
         const float ig = sigmoid_f(acc[mt][cgp][0][e]);
         const float fg = sigmoid_f(acc[mt][cgp][1][e]);
         const float og = sigmoid_f(acc[mt][cgp][2][e]);
@@ -337,7 +354,7 @@ convlstm_cell_mma_kernel(const __nv_bfloat16* __restrict__ x,
 template <typename T, typename Kernel>
 int launch(Kernel kern, size_t smem, const void* x, const void* h,
            const void* c, const void* w, const void* bias, void* h_out,
-           void* c_out, int B, int H, int W, int Cx, int Ch, int K,
+           void* c_out, void* z, int B, int H, int W, int Cx, int Ch, int K,
            void* stream) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || Cx < 1 || Ch < 1 || K < 1 ||
       K % 2 == 0)
@@ -353,32 +370,35 @@ int launch(Kernel kern, size_t smem, const void* x, const void* h,
       static_cast<const T*>(x), static_cast<const T*>(h),
       static_cast<const T*>(c), static_cast<const T*>(w),
       static_cast<const T*>(bias), static_cast<T*>(h_out),
-      static_cast<T*>(c_out), H, W, Cx, Ch, K, tiles_w);
+      static_cast<T*>(c_out), static_cast<T*>(z), H, W, Cx, Ch, K, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// z may be null (serving: h' and c' only) or [B,H,W,4Ch] (training).
 extern "C" int convlstm_cell_fwd_f32(const void* x, const void* h,
                                      const void* c, const void* w,
                                      const void* bias, void* h_out,
-                                     void* c_out, int B, int H, int W, int Cx,
-                                     int Ch, int K, void* stream) {
+                                     void* c_out, void* z, int B, int H, int W,
+                                     int Cx, int Ch, int K, void* stream) {
   const size_t smem = sizeof(float) * (size_t)(CK * (TH + K - 1) * (TW + K - 1) +
                                                K * CK * CB * 4);
   return launch<float>(convlstm_cell_kernel, smem, x, h, c, w, bias,
-                       h_out, c_out, B, H, W, Cx, Ch, K, stream);
+                       h_out, c_out, z, B, H, W, Cx, Ch, K, stream);
 }
 
 extern "C" int convlstm_cell_fwd_bf16(const void* x, const void* h,
                                       const void* c, const void* w,
                                       const void* bias, void* h_out,
-                                      void* c_out, int B, int H, int W, int Cx,
-                                      int Ch, int K, void* stream) {
+                                      void* c_out, void* z, int B, int H,
+                                      int W, int Cx, int Ch, int K,
+                                      void* stream) {
   const size_t smem = sizeof(__nv_bfloat16) * MKP *
                       (size_t)((TH + K - 1) * (TW + K - 1) + K * MN);
   return launch<__nv_bfloat16>(convlstm_cell_mma_kernel, smem, x, h, c, w,
-                               bias, h_out, c_out, B, H, W, Cx, Ch, K, stream);
+                               bias, h_out, c_out, z, B, H, W, Cx, Ch, K,
+                               stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

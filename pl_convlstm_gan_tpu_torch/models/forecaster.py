@@ -8,6 +8,10 @@ sampling. The JAX scan of ``T_in + T_out - 1`` steps is a Python loop here.
 Scheduled sampling takes its Bernoulli draws as an argument
 (``teacher_draws``, [steps, B] bool): ``jax.random`` streams cannot be
 replayed in torch, so a caller (or a test) supplies the draws.
+
+``convlstm_impl`` picks each cell's step: 'torch' (plain, autograd) or
+'kernel' (K1; under autograd ``ConvLSTMCellFn``: K1 writing z and the custom
+backward), the port's meaning of the config's ``xla`` and ``pallas``.
 """
 from __future__ import annotations
 
@@ -23,13 +27,13 @@ class _Core(nn.Module):
     """The per-step modules, named as in the flax tree (``core.cell_<i>``,
     ``core.head``) so that state_dict keys mirror the flax params."""
 
-    def __init__(self, in_channels, hidden_dims, kernel_size, dtype):
+    def __init__(self, in_channels, hidden_dims, kernel_size, dtype, impl):
         super().__init__()
         cin = in_channels
         self.n_cells = len(hidden_dims)
         for i, feat in enumerate(hidden_dims):
             self.add_module(f"cell_{i}", ConvLSTMCell(cin, feat, kernel_size,
-                                                      dtype=dtype))
+                                                      impl=impl, dtype=dtype))
             cin = feat
         self.head = Conv2dTorch(cin, in_channels, (3, 3), padding=1,
                                 dtype=dtype)
@@ -44,14 +48,17 @@ class ConvLSTMForecaster(nn.Module):
     def __init__(self, hidden_dims: Sequence[int] = (64, 64, 64),
                  input_frames: int = 5, output_frames: int = 20,
                  in_channels: int = 1, kernel_size: int = 3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 convlstm_impl: str = "torch"):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
         self.input_frames = input_frames
         self.output_frames = output_frames
         self.in_channels = in_channels
         self.dtype = dtype
-        self.core = _Core(in_channels, self.hidden_dims, kernel_size, dtype)
+        self.convlstm_impl = convlstm_impl
+        self.core = _Core(in_channels, self.hidden_dims, kernel_size, dtype,
+                          convlstm_impl)
 
     def forward(self, frames: torch.Tensor, targets: torch.Tensor | None = None,
                 teacher_draws: torch.Tensor | None = None) -> torch.Tensor:
@@ -80,6 +87,7 @@ class ConvLSTMForecaster(nn.Module):
             tpad = torch.zeros((t_in,) + tuple(tgt.shape[1:]), dtype=cdtype,
                                device=frames.device)
             teacher_seq = torch.cat([tpad, tgt], dim=0)[:steps]
+            teacher_draws = teacher_draws.to(frames.device)
 
         zeros = lambda f: torch.zeros((b, hgt, wid, f), dtype=cdtype,
                                       device=frames.device)
@@ -91,7 +99,7 @@ class ConvLSTMForecaster(nn.Module):
             if s < t_in:
                 x = x_seq[s]
             elif teacher_seq is not None:
-                use = teacher_draws[s].to(frames.device)[:, None, None, None]
+                use = teacher_draws[s][:, None, None, None]
                 x = torch.where(use, teacher_seq[s], prev_out)
             else:
                 x = prev_out

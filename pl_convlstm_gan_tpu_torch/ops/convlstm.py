@@ -42,12 +42,19 @@ def convlstm_step_torch(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 def convlstm_step(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                   weight: torch.Tensor, bias: torch.Tensor, impl: str = "torch"):
-    """Impl-dispatching cell step: 'torch' (plain) or 'kernel' (the fused CUDA
-    cell on CUDA tensors, its plain version on CPU tensors)."""
+    """Impl-dispatching cell step: 'torch' (plain, differentiated by
+    autograd) or 'kernel' (the fused CUDA cell on CUDA tensors, its plain
+    version on CPU tensors). With 'kernel', a step that needs gradients runs
+    ``ConvLSTMCellFn`` (K1 writing z, then the custom backward); a step
+    under ``no_grad`` / ``inference_mode`` launches K1 without z."""
     if impl == "torch":
         return convlstm_step_torch(x, h, c, weight, bias)
     if impl == "kernel":
-        from .kernels.convlstm_kernel import convlstm_cell_fwd
-        return convlstm_cell_fwd(x, h, c, hwio_from_oihw(weight).contiguous(),
-                                 bias)
+        from .kernels.convlstm_kernel import ConvLSTMCellFn, convlstm_cell_fwd
+        operands = (hwio_from_oihw(weight).contiguous(), bias.contiguous(),
+                    x.contiguous(), h.contiguous(), c.contiguous())
+        if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+            return ConvLSTMCellFn.apply(*operands)
+        w, b, x, h, c = operands
+        return convlstm_cell_fwd(x, h, c, w, b)
     raise ValueError(f"Unknown convlstm impl: {impl!r} (valid: 'torch', 'kernel')")

@@ -8,18 +8,21 @@ Usage:
     future = predict(past_frames)    # [B,T_in,1,H,W] -> [B,T_out,1,H,W] f32
 
 Checkpoints are a ``.npz`` of the flattened flax params (see ``weights.py``;
-the README shows how to write one from a JAX checkpoint) or a torch ``.pt``
-state_dict. Entry points run on the GPU unless the caller passes
-``device="cpu"``; with no CUDA device and no such request they raise.
+the README shows how to write one from a JAX checkpoint), a torch ``.pt``
+state_dict, or a checkpoint directory that the port's trainer wrote
+(``<output_dir>/best_model`` or ``latest``). Entry points run on the GPU
+unless the caller passes ``device="cpu"``; with no CUDA device and no such
+request they raise.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import numpy as np
 import torch
 
-from .config import Config
+from .config import Config, convlstm_cell_impl
 from .models import ConvLSTMForecaster
 from .ops.kernels.rollout_kernel import pack_weights, rollout_kernel
 from .weights import flax_to_state_dict
@@ -45,7 +48,8 @@ def compute_dtype(config: Config) -> torch.dtype:
 
 def build_model(config: Config, output_frames: int = 0) -> ConvLSTMForecaster:
     """The (randomly initialised) module a config describes. ``output_frames``
-    overrides the rollout horizon: the recurrent weights do not depend on it."""
+    overrides the rollout horizon: the recurrent weights do not depend on it.
+    ``model.convlstm_impl`` picks the cells' step (``convlstm_cell_impl``)."""
     mc = config.model
     if mc.family not in ("forecaster", "gan"):
         raise NotImplementedError(
@@ -55,18 +59,25 @@ def build_model(config: Config, output_frames: int = 0) -> ConvLSTMForecaster:
     return ConvLSTMForecaster(
         hidden_dims=tuple(mc.hidden_dims), input_frames=mc.input_frames,
         output_frames=output_frames or mc.output_frames,
-        in_channels=mc.in_channels, kernel_size=mc.kernel_size, dtype=dtype)
+        in_channels=mc.in_channels, kernel_size=mc.kernel_size, dtype=dtype,
+        convlstm_impl=convlstm_cell_impl(mc.convlstm_impl))
 
 
 def load_state_dict(checkpoint_path: str) -> dict:
-    """A ``.npz`` of flattened flax params, or a torch ``.pt`` state_dict."""
+    """A ``.npz`` of flattened flax params, a torch ``.pt`` state_dict, or a
+    checkpoint directory written by the port's trainer (``best_model``,
+    ``latest``: its ``params``)."""
+    if os.path.isdir(checkpoint_path):
+        from .train.checkpoint import restore_checkpoint
+        return restore_checkpoint(checkpoint_path)[0]["params"]
     if checkpoint_path.endswith(".npz"):
         with np.load(checkpoint_path) as data:
             return flax_to_state_dict({k: data[k] for k in data.files})
     if checkpoint_path.endswith(".pt"):
         return torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-    raise ValueError(f"checkpoint must be a .npz of flax params or a .pt "
-                     f"state_dict, got {checkpoint_path!r}")
+    raise ValueError(f"checkpoint must be a .npz of flax params, a .pt "
+                     f"state_dict or a checkpoint directory of the port's "
+                     f"trainer, got {checkpoint_path!r}")
 
 
 def build_predict_fn(config: Config, checkpoint_path: str,

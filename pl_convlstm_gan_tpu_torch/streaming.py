@@ -84,7 +84,8 @@ class StreamingForecaster:
     @classmethod
     def from_checkpoint(cls, config: Config, checkpoint_path: str,
                         device=None) -> "StreamingForecaster":
-        """A ``.npz`` of flattened flax params or a torch ``.pt``."""
+        """A ``.npz`` of flattened flax params, a torch ``.pt``, or a
+        checkpoint directory of the port's trainer (``best_model``)."""
         return cls(config, load_state_dict(checkpoint_path), device)
 
     def init_state(self, batch_size: int, height: int, width: int

@@ -1,0 +1,6 @@
+"""Training of the forecaster family: the train/eval steps (``steps``), the
+trainer (``sequence_trainer``) and its checkpoints (``checkpoint``),
+counterparts of the JAX package's ``train/``."""
+from .sequence_trainer import SequenceTrainer
+
+__all__ = ["SequenceTrainer"]

@@ -1,0 +1,34 @@
+"""Run artifacts of the trainer as strict JSON, a copy of the JAX package's
+``utils/metrics_log.py`` for one process: one line per epoch in
+``<output_dir>/metrics.jsonl`` and the whole ``history.json``, with
+non-finite floats written as null (bare NaN/Infinity tokens break non-Python
+readers). A checkpoint's ``host_state.json`` keeps exact values instead."""
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Any, Dict
+
+
+def sanitize_json(obj: Any) -> Any:
+    """Recursively replace non-finite floats with None."""
+    if isinstance(obj, float):
+        return obj if math.isfinite(obj) else None
+    if isinstance(obj, dict):
+        return {k: sanitize_json(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [sanitize_json(v) for v in obj]
+    return obj
+
+
+def append_metrics_line(output_dir: str, record: Dict[str, Any]) -> None:
+    """Append one strict-JSON line to <output_dir>/metrics.jsonl."""
+    with open(os.path.join(output_dir, "metrics.jsonl"), "a") as f:
+        f.write(json.dumps(sanitize_json(record)) + "\n")
+
+
+def dump_history(output_dir: str, history: Dict[str, Any]) -> None:
+    """Write <output_dir>/history.json as strict JSON."""
+    with open(os.path.join(output_dir, "history.json"), "w") as f:
+        json.dump(sanitize_json(history), f)

@@ -1,0 +1,268 @@
+"""SequenceTrainer: training of the forecaster family on one device.
+
+Counterpart of the JAX package's ``train/sequence_trainer.py`` without its
+GAN, tensor-parallel and data-parallel branches (ROADMAP A7, A10, A9), which
+it refuses, with the other unported settings (``model.remat``, the frames
+source, grain: ``Config.validate(training=True)``). What it keeps:
+- synthetic moving-blob data, the seeded 70/15/15 split, shuffled batches
+  per epoch (``data.py``), prefetched to the device;
+- the model of ``predict.build_model`` (``convlstm_impl: pallas`` runs the
+  cells on K1 writing z, with the custom backward), float32 params and the
+  config's compute dtype, initialised from ``training.seed``;
+- the linear scheduled-sampling decay, with draws from a ``torch.Generator``
+  seeded ``seed * 100_003 + epoch`` (the JAX trainer's key for the epoch);
+- the forecaster train step (clip 0.5, Adam, NaN-skip: ``steps.py``),
+  ReduceLROnPlateau on the val L1, optional early stopping;
+- the best checkpoint (``best_model``), ``latest`` every
+  ``save_model_interval`` epochs, resume (``training.resume_from``);
+- ``validate`` / ``evaluate_test`` (L1, SSIM, POD/FAR/CSI/HSS, sharpness);
+- ``metrics.jsonl`` (one line per epoch) and ``history.json``.
+No plots: the JAX trainer's matplotlib curves are not ported (ROADMAP A6).
+
+Usage:
+    SequenceTrainer(config=load_config("nowcast_128_pallas")).train()  # GPU
+    SequenceTrainer(config=cfg, device="cpu").train()
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config, load_config
+from ..data import (SyntheticSequenceDataset, batch_iterator, eval_batches,
+                    prefetch_to_device, split_dataset_random, to_device)
+from ..predict import build_model, resolve_device
+from .checkpoint import CheckpointWriter, restore_checkpoint
+from .early_stopping import EarlyStopping
+from .metrics_log import append_metrics_line, dump_history
+from .plateau import ReduceLROnPlateau
+from .steps import (TrainState, aggregate_epoch_metrics,
+                    aggregate_sequence_eval, forecaster_eval_step,
+                    forecaster_train_step, make_optimizer)
+
+
+class SequenceTrainer:
+    def __init__(self, config_name: str = "default",
+                 config: Optional[Config] = None, device=None):
+        self.config = config if config is not None else load_config(config_name)
+        self.config.validate(training=True)
+        self.device = resolve_device(device)
+        self.output_dir = self.config.output.output_dir
+        os.makedirs(self.output_dir, exist_ok=True)
+        self.history = {"epoch": [], "total_loss": [], "val_l1": [],
+                        "val_ssim": [], "learning_rate": []}
+        self.best_metric = float("inf")
+        self.best_epoch = -1
+        self.start_epoch = 0
+        self._ckpt_writer = CheckpointWriter()
+        tc = self.config.training
+        self.early_stopping = EarlyStopping(
+            patience=tc.early_stopping_patience,
+            min_delta=tc.early_stopping_min_delta) \
+            if tc.use_early_stopping else None
+
+    # ------------------------------------------------------------------ data
+    def setup_data(self):
+        dc, mc = self.config.data, self.config.model
+        full = SyntheticSequenceDataset(
+            num_sequences=dc.synthetic_num_sequences,
+            input_frames=mc.input_frames, output_frames=mc.output_frames,
+            image_size=dc.synthetic_image_size, seed=dc.seed)
+        if self.config.training.use_split:
+            self.train_dataset, self.val_dataset, self.test_dataset = \
+                split_dataset_random(full, seed=dc.split_seed)
+        else:
+            self.train_dataset, self.val_dataset, self.test_dataset = \
+                full, None, None
+        return full
+
+    def _loader(self, dataset, epoch: int):
+        it = batch_iterator(dataset, self.config.training.batch_size,
+                            shuffle=True, seed=self.config.training.seed,
+                            epoch=epoch)
+        return prefetch_to_device(it, self.device)
+
+    # ----------------------------------------------------------------- model
+    def setup_model(self):
+        tc = self.config.training
+        # the init draws from the global generator; fork it so that seeding
+        # here leaves the caller's random state alone
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(tc.seed)
+            model = build_model(self.config)
+        model.to(self.device)
+        self.state = TrainState(model, make_optimizer(model), 0)
+        self.scheduler = ReduceLROnPlateau(
+            lr=tc.learning_rate, factor=tc.scheduler_factor,
+            patience=tc.scheduler_patience)
+        self.thresholds = (tuple(tc.eval_thresholds)
+                           if tc.eval_thresholds else None)
+        if tc.resume_from:
+            self.restore(tc.resume_from)
+
+    @property
+    def model(self):
+        return self.state.model
+
+    # ------------------------------------------------------------- schedules
+    def teacher_forcing_prob(self, epoch: int) -> float:
+        """Linear scheduled-sampling decay 1 -> 0 over
+        sampling_decay_epochs."""
+        tc = self.config.training
+        if not tc.scheduled_sampling:
+            return 0.0
+        return float(np.clip(1.0 - epoch / max(tc.sampling_decay_epochs, 1),
+                             0.0, 1.0))
+
+    # ------------------------------------------------------------------ eval
+    def _run_eval(self, dataset) -> Optional[Dict[str, float]]:
+        """Wrap-padded batches masked in the step, sums aggregated exactly:
+        metrics do not depend on the batch size."""
+        if dataset is None or len(dataset) == 0:
+            return None
+        self.model.eval()
+        acc = [forecaster_eval_step(self.model, to_device(batch, self.device),
+                                    n_valid, self.thresholds,
+                                    self.config.training.eval_sharpness)
+               for batch, n_valid in eval_batches(
+                   dataset, self.config.training.batch_size)]
+        self.model.train()
+        return aggregate_sequence_eval(acc)
+
+    def validate(self) -> Optional[Dict[str, float]]:
+        return self._run_eval(self.val_dataset)
+
+    def evaluate_test(self) -> Optional[Dict[str, float]]:
+        """Every eval metric on the held-out test split (free rollout)."""
+        return self._run_eval(self.test_dataset)
+
+    # ----------------------------------------------------------------- train
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        tc, mc = self.config.training, self.config.model
+        tf_prob = self.teacher_forcing_prob(epoch)
+        lr = self.scheduler.lr
+        gen = torch.Generator().manual_seed(tc.seed * 100_003 + epoch)
+        steps = mc.input_frames + mc.output_frames - 1
+        metrics_acc = []
+        for i, batch in enumerate(self._loader(self.train_dataset, epoch)):
+            draws = None
+            if tf_prob > 0:
+                draws = torch.rand((steps, batch[0].shape[0]),
+                                   generator=gen) < tf_prob
+            m = forecaster_train_step(self.state, batch, lr, draws,
+                                      tc.grad_clip_norm)
+            metrics_acc.append(m)
+            if i % self.config.output.log_interval == 0:
+                print(f"Epoch {epoch} | L1: {m['total']:.4f} | "
+                      f"tf_prob {tf_prob:.2f}")
+        if not metrics_acc:
+            raise ValueError(
+                f"No training batches: dataset has {len(self.train_dataset)} "
+                f"samples < batch_size {tc.batch_size}")
+        return aggregate_epoch_metrics(metrics_acc)
+
+    def train(self):
+        self.setup_data()
+        self.setup_model()
+        self.model.train()
+        for epoch in range(self.start_epoch, self.config.training.epochs):
+            epoch_t0 = time.perf_counter()
+            avg = self.train_epoch(epoch)
+            epoch_s = time.perf_counter() - epoch_t0
+            self.history["epoch"].append(epoch)
+            train_loss = avg["total"]
+            self.history["total_loss"].append(train_loss)
+            self.history["learning_rate"].append(self.scheduler.lr)
+
+            val = self.validate()
+            if val:
+                self.history["val_l1"].append(val["l1"])
+                self.history["val_ssim"].append(val["ssim"])
+                print(f"Epoch {epoch} | Train: {train_loss:.4f} | "
+                      f"Val L1: {val['l1']:.4f} | Val SSIM: {val['ssim']:.4f} "
+                      f"| {epoch_s:.1f}s")
+                current = val["l1"]
+            else:
+                # NaN-pad so every history series stays aligned with 'epoch'
+                self.history["val_l1"].append(float("nan"))
+                self.history["val_ssim"].append(float("nan"))
+                print(f"Epoch {epoch} | Train: {train_loss:.4f}")
+                current = train_loss
+            # logged before scheduler.step: the record carries the lr this
+            # epoch trained at
+            self._log_epoch_metrics(epoch, epoch_s, avg, val)
+            self.scheduler.step(current)
+
+            if self.early_stopping is not None:
+                should_save = self.early_stopping(current, epoch)
+            else:
+                should_save = current < self.best_metric
+            if should_save:
+                self.best_metric = current
+                self.best_epoch = epoch
+                self.save_best(epoch, current)
+                print(f"New best model saved! Epoch {epoch + 1}, "
+                      f"metric {current:.4f}")
+            interval = self.config.output.save_model_interval
+            if interval and (epoch + 1) % interval == 0:
+                self._ckpt_writer.save(os.path.join(self.output_dir, "latest"),
+                                       self._device_state_dict(),
+                                       self._host_state(epoch, current))
+            if self.early_stopping is not None and self.early_stopping.early_stop:
+                print(f"Early stopping at epoch {epoch + 1}")
+                break
+
+        self._ckpt_writer.wait()
+        dump_history(self.output_dir, self.history)
+        print(f"\nTraining completed. Best epoch {self.best_epoch + 1}, "
+              f"metric {self.best_metric:.4f}")
+        return self.history
+
+    def _log_epoch_metrics(self, epoch, epoch_s, train_avg, val_metrics):
+        rec = {"epoch": epoch, "epoch_seconds": round(epoch_s, 3),
+               "lr": self.scheduler.lr,
+               "tf_prob": self.teacher_forcing_prob(epoch),
+               **{f"train_{k}": float(v) for k, v in train_avg.items()}}
+        if val_metrics:
+            rec.update({f"val_{k}": float(v) for k, v in val_metrics.items()})
+        append_metrics_line(self.output_dir, rec)
+
+    # ------------------------------------------------------------ checkpoint
+    def _device_state_dict(self):
+        return {"params": self.model.state_dict(),
+                "opt_state": self.state.optimizer.state_dict(),
+                "step": self.state.step}
+
+    def _host_state(self, epoch: int, metric: float) -> Dict:
+        return {"epoch": epoch, "metric": metric, "history": self.history,
+                # the historical best, apart from this checkpoint's metric,
+                # so resuming from 'latest' never lowers the bar
+                "best_metric": self.best_metric, "best_epoch": self.best_epoch,
+                "scheduler": self.scheduler.state_dict(),
+                "early_stopping": (self.early_stopping.state_dict()
+                                   if self.early_stopping else None)}
+
+    def save_best(self, epoch: int, metric: float):
+        """Async best-checkpoint save (overlaps the next epoch)."""
+        self._ckpt_writer.save(os.path.join(self.output_dir, "best_model"),
+                               self._device_state_dict(),
+                               self._host_state(epoch, metric))
+
+    def restore(self, path: str):
+        self._ckpt_writer.wait()   # finalize any in-flight save of this path
+        device_state, host_state = restore_checkpoint(path)
+        self.model.load_state_dict(device_state["params"])
+        self.state.optimizer.load_state_dict(device_state["opt_state"])
+        self.state.step = int(device_state["step"])
+        self.history = host_state["history"]
+        self.best_metric = host_state.get("best_metric", host_state["metric"])
+        self.best_epoch = host_state.get("best_epoch", host_state["epoch"])
+        self.start_epoch = host_state["epoch"] + 1
+        self.scheduler.load_state_dict(host_state["scheduler"])
+        if self.early_stopping is not None and host_state.get("early_stopping"):
+            self.early_stopping.load_state_dict(host_state["early_stopping"])
+        print(f"Restored checkpoint from {path} (epoch {host_state['epoch']})")

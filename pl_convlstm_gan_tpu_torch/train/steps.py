@@ -1,0 +1,172 @@
+"""Train and eval steps of the forecaster family.
+
+Counterpart of the forecaster half of the JAX package's ``train/steps.py``
+(``make_optimizer``, ``forecaster_step_body``, ``make_forecaster_eval_step``,
+``aggregate_epoch_metrics``, ``aggregate_sequence_eval``):
+
+- the loss is L1 of the scheduled-sampling rollout against the targets;
+- the update is clip-by-global-norm then Adam moments, with the LR passed
+  per step: ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` with ``lr``
+  set in its ``param_groups`` each step, and the clip written by hand to
+  optax's formula (scale by max_norm / norm only when norm >= max_norm;
+  ``clip_grad_norm_`` divides by norm + 1e-6);
+- the NaN-skip decides on ``isfinite(loss)`` alone, as the JAX step does: a
+  non-finite loss runs neither the clip nor ``Adam.step``, so the params and
+  Adam's state (its own ``step`` included) stay as they were, while the
+  state's step count still advances, as ``TrainState.step`` does.
+
+The scheduled-sampling draws are an argument (``teacher_draws`` [steps, B]
+bool; the trainer draws them from a ``torch.Generator``): ``jax.random``
+streams cannot be replayed in torch, so a test passes JAX's own draws.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..losses import (contingency_counts, l1_loss, scores_from_counts,
+                      sharpness_sums, ssim_per_sample)
+
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+@dataclass
+class TrainState:
+    """The port's ``TrainState(params, opt_state, step)``: the model holds the
+    params, the optimizer the Adam moments, ``step`` counts train steps
+    (skipped ones included)."""
+    model: torch.nn.Module
+    optimizer: torch.optim.Adam
+    step: int = 0
+
+
+def make_optimizer(model: torch.nn.Module) -> torch.optim.Adam:
+    """Adam moments with optax's ``scale_by_adam`` defaults; the LR is set
+    per step and the clip runs before it (``forecaster_train_step``)."""
+    return torch.optim.Adam(model.parameters(), lr=0.0, betas=ADAM_BETAS,
+                            eps=ADAM_EPS)
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float
+                         ) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: g -> g / norm * max_norm when the
+    global norm >= max_norm, else unchanged. Returns the norm (a tensor: no
+    host sync)."""
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+def forecaster_loss(model, inputs, targets, teacher_draws=None):
+    """(L1 loss, predictions) of the rollout with scheduled sampling."""
+    pred = model(inputs, targets, teacher_draws)
+    return l1_loss(pred, targets), pred
+
+
+def forecaster_train_step(state: TrainState, batch, lr: float,
+                          teacher_draws: Optional[torch.Tensor] = None,
+                          grad_clip_norm: float = 0.5) -> Dict[str, float]:
+    """One update of ``state`` in place on batch = (inputs [B,T_in,C,H,W],
+    targets [B,T_out,C,H,W]); returns {"total": loss, "skipped": 0 or 1}.
+
+    One host sync: the finite-loss decision. It is taken after the backward
+    is queued, so the host waits only for the forward."""
+    inputs, targets = batch
+    params = list(state.model.parameters())
+    state.optimizer.zero_grad(set_to_none=True)
+    total, _ = forecaster_loss(state.model, inputs, targets, teacher_draws)
+    total.backward()
+    ok = bool(torch.isfinite(total))
+    if ok:
+        clip_by_global_norm_([p.grad for p in params], grad_clip_norm)
+        for group in state.optimizer.param_groups:
+            group["lr"] = float(lr)
+        state.optimizer.step()
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+    return {"total": float(total.detach()), "skipped": int(not ok)}
+
+
+@torch.no_grad()
+def forecaster_eval_step(model, batch, n_valid: int,
+                         score_thresholds: Optional[Sequence[float]] = None,
+                         sharpness: bool = False) -> Dict[str, tuple]:
+    """{metric: (sum, weight)} of a free-running rollout on one batch; rows
+    with index >= n_valid (wrap-padding) carry weight 0. Contingency counts
+    ride along raw (``counts@<th>``) so the host forms scores from global
+    counts. Values stay on the device; ``aggregate_sequence_eval`` fetches
+    them."""
+    inputs, targets = batch
+    b = inputs.shape[0]
+    valid = torch.arange(b, device=inputs.device) < n_valid
+    vm = valid.float()
+    nv = vm.sum()
+    pred = model(inputs)
+    l1_ps = (pred - targets).abs().reshape(b, -1).mean(dim=1)
+    ssim_ps = ssim_per_sample(pred, targets)
+    out = {"l1": ((l1_ps * vm).sum(), nv), "ssim": ((ssim_ps * vm).sum(), nv)}
+    for th in (score_thresholds or ()):
+        counts = contingency_counts(pred, targets, th, valid)
+        out[f"counts@{th:g}"] = (torch.stack(counts), nv)
+    if sharpness:
+        out.update(sharpness_sums(pred, targets, valid))
+    return out
+
+
+def _to_host(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def aggregate_epoch_metrics(metrics_acc: List[Dict]) -> Dict[str, float]:
+    """Epoch averages over per-step metrics, leaving out NaN-skipped steps;
+    an epoch whose every step was skipped averages to NaN (never a new
+    best, a bad plateau epoch), as in the JAX package."""
+    stacked = {k: np.asarray([float(m[k]) for m in metrics_acc])
+               for k in metrics_acc[0]}
+    skipped = int(stacked["skipped"].sum())
+    keep = stacked["skipped"] < 1
+    if skipped:
+        print(f"NaN guard: skipped {skipped} batch updates this epoch")
+    avg = {k: float(v[keep].mean()) if keep.any() else float("nan")
+           for k, v in stacked.items()}
+    avg["skipped"] = float(skipped)
+    return avg
+
+
+def aggregate_sequence_eval(metric_batches) -> Optional[Dict[str, float]]:
+    """Exact aggregation of eval sums over batches: masked means of l1 and
+    ssim, POD/FAR/CSI/HSS from the global contingency counts, sharpness
+    ratios of the global means. Key names as in the JAX package."""
+    if not metric_batches:
+        return None
+    metric_batches = _to_host(list(metric_batches))   # one transfer
+    out: Dict[str, float] = {}
+    for k in metric_batches[0]:
+        num = sum(np.asarray(m[k][0], np.float64) for m in metric_batches)
+        wt = sum(float(m[k][1]) for m in metric_batches)
+        if k.startswith("counts@"):
+            hits, miss, fa, cn = num
+            th = k.split("@", 1)[1]
+            out.update({f"{s}@{th}": float(v) for s, v in
+                        scores_from_counts(hits, fa, miss, cn).items()})
+        else:
+            out[k] = float(num) / wt if wt > 0 else 0.0
+    for name in ("hf", "gm"):
+        p = out.pop(f"sharp_{name}_pred", None)
+        t = out.pop(f"sharp_{name}_true", None)
+        if p is not None:
+            out[f"sharp_{name}_ratio"] = p / t if t else float("nan")
+    return out

@@ -14,6 +14,13 @@ else moves. Both directions copy values and dtypes exactly.
 
 A streaming state crosses the same way (``stream_state_from_numpy`` /
 ``stream_state_to_numpy``): the JAX and port ``StreamState`` are both NHWC.
+
+The Adam state crosses too (``load_optax_adam_state`` /
+``optax_adam_state``): optax's ``chain(clip_by_global_norm, scale_by_adam)``
+state is ``(ClipByGlobalNormState(), ScaleByAdamState(count, mu, nu))``,
+whose ``mu`` and ``nu`` are params-shaped trees; ``torch.optim.Adam`` keeps
+``step``, ``exp_avg`` and ``exp_avg_sq`` per parameter. The moments' conv
+kernels go HWIO <-> OIHW like the params; values are copied exactly.
 """
 from __future__ import annotations
 
@@ -53,7 +60,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         elif leaf != "bias":
             raise ValueError(f"{'/'.join(path)}: unknown parameter {leaf!r}")
         state[".".join(modules + [leaf])] = torch.from_numpy(
-            np.ascontiguousarray(value))
+            np.array(value, order="C"))
     return state
 
 
@@ -91,3 +98,55 @@ def stream_state_to_numpy(state):
     float32 numpy arrays, exact for float32 and bfloat16 states."""
     to = lambda t: t.detach().to("cpu", torch.float32).numpy()
     return tuple((to(h), to(c)) for h, c in state.cells), to(state.prev_out)
+
+
+def _adam_leaf(opt_state):
+    """The ScaleByAdamState inside an optax chain state (the element with
+    ``count``, ``mu`` and ``nu``)."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            try:
+                return _adam_leaf(part)
+            except ValueError:
+                continue
+    raise ValueError("no Adam state (count, mu, nu) in the optax state")
+
+
+def _param_order(optimizer, model):
+    """Model parameter names in the order ``optimizer.state_dict()`` numbers
+    them."""
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    return [name_of[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def load_optax_adam_state(optimizer, model, opt_state) -> None:
+    """Load optax's Adam state (the chain state) into ``optimizer`` (a ``torch.optim.Adam`` over ``model``'s
+    parameters): step = count, exp_avg = mu, exp_avg_sq = nu."""
+    count, mu, nu = _adam_leaf(opt_state)
+    mu, nu = flax_to_state_dict(mu), flax_to_state_dict(nu)
+    step = float(np.asarray(count))
+    state = {i: {"step": torch.tensor(step, dtype=torch.float32),
+                 "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+             for i, name in enumerate(_param_order(optimizer, model))}
+    optimizer.load_state_dict({"state": state, "param_groups":
+                               optimizer.state_dict()["param_groups"]})
+
+
+def optax_adam_state(optimizer, model) -> Dict[str, Any]:
+    """``optimizer``'s Adam state as {"count": int32, "mu": tree, "nu":
+    tree}, the fields of optax's ``ScaleByAdamState`` with params-shaped
+    ``{"params": ...}`` trees of numpy arrays (zeros and count 0 before the
+    first step)."""
+    mu, nu, count = {}, {}, 0
+    params = dict(model.named_parameters())
+    for i, name in enumerate(_param_order(optimizer, model)):
+        st = optimizer.state.get(params[name], {})
+        zeros = torch.zeros_like(params[name])
+        mu[name] = st.get("exp_avg", zeros)
+        nu[name] = st.get("exp_avg_sq", zeros)
+        if "step" in st:
+            count = int(st["step"])
+    return {"count": np.int32(count), "mu": state_dict_to_flax(mu),
+            "nu": state_dict_to_flax(nu)}

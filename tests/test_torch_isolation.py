@@ -1,4 +1,4 @@
-"""The port imports nothing of JAX, flax or the JAX package.
+"""The port imports nothing of JAX, flax, optax, orbax or the JAX package.
 
 A subprocess blocks those imports (``sys.modules[name] = None`` makes any
 ``import name`` raise), then imports every module of the port and the
@@ -41,6 +41,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel" in modules
     assert "pl_convlstm_gan_tpu_torch.cli" in modules
     assert "pl_convlstm_gan_tpu_torch.streaming" in modules
+    for mod in ("train.sequence_trainer", "train.steps", "train.checkpoint",
+                "losses", "data"):
+        assert f"pl_convlstm_gan_tpu_torch.{mod}" in modules
     code = _PROBE.format(blocked=BLOCKED, modules=modules,
                          chip_smoke=str(REPO / "chip_smoke.py"))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
