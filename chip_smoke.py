@@ -48,9 +48,26 @@ own line:
    and 2 epochs, --resume to 3 epochs (starts at epoch 2), --mode eval,
    and load_predictor on the trainer's best_model serving one request on
    K1/K2, each with exact launch counts;
-10. one JSON line {"kernels": [...]} with each kernel's launches (per path),
+10. gan: GAN training at full width (generator 2x64, discriminator
+   64/128/256), from one seeded state on the kernel path (convlstm_impl
+   pallas: K1 with z and ConvLSTMCellFn in G) and on the plain path (auto):
+   gan_64 as written (f32, default step: K1 without z and K1 with z, 28 of
+   each a step; B 8, 5 -> 10, 64x64) and gan_256_single with remat cut
+   (bf16, vjp step: 68 K1 with z a step; scheduled sampling; B 2, 5 -> 30,
+   256x256), 3 steps each: step-1 gradients of G and D, per-step d_total /
+   g_total and params after the steps within TRAIN_TOL, default against
+   vjp, p50 step times, peak memory, and a profiled kernel step (K1 / cuDNN
+   convs of G / of D / elementwise, idle share);
+11. gan_trainer: the CLI's train path on gan_64 cut to 24 sequences and 2
+   epochs, --resume to 3, --mode eval, and load_predictor serving the
+   best_model's gen_params on K1/K2, with exact launch counts;
+12. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
+   shape through experiments.tap_structure.run() with its launch counts,
+   then K3 and K4 against their plain versions (rtol 2^-7), timed in
+   turns, beside the plain versions, 64 cuBLAS products and the bound;
+13. one JSON line {"kernels": [...]} with each kernel's launches (per path),
    error, and its time beside its bound, its plain version's and the
-   library call's (K1 with z as its own entry);
+   library call's (K1 with z as its own entry; K1 to K4);
 then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -76,13 +93,18 @@ from pl_convlstm_gan_tpu_torch.ops.kernels import convlstm_kernel as cell_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels import rollout_kernel as head_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
     ConvLSTMCellFn, convlstm_cell_fwd, convlstm_cell_plain)
+from pl_convlstm_gan_tpu_torch.ops.kernels import tap_structure_kernel as tap_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain)
+from pl_convlstm_gan_tpu_torch.ops.kernels.tap_structure_kernel import (
+    big_plain, tap_k1152, tap_loop, taps_plain)
 from pl_convlstm_gan_tpu_torch.ops.nn import oihw_from_hwio
-from pl_convlstm_gan_tpu_torch.predict import build_model, load_predictor
+from pl_convlstm_gan_tpu_torch.predict import (build_discriminator,
+                                               build_model, load_predictor)
 from pl_convlstm_gan_tpu_torch.streaming import StreamingForecaster
 from pl_convlstm_gan_tpu_torch.train.steps import (
-    TrainState, forecaster_eval_step, forecaster_loss, forecaster_train_step,
+    GANTrainState, TrainState, forecaster_eval_step, forecaster_loss,
+    forecaster_train_step, gan_d_loss, gan_g_loss, gan_train_step,
     make_optimizer)
 from pl_convlstm_gan_tpu_torch.weights import flax_to_state_dict
 
@@ -158,6 +180,33 @@ TRAIN_TOL = {
 }
 TRAINER_SEQUENCES = 24
 TRAINER_EPOCHS = 2
+K3_SOURCE = K4_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/tap_structure.cu"
+K3_REPLACES = "experiments/pallas_tap_structure.py:48"
+K4_REPLACES = "experiments/pallas_tap_structure.py:52"
+K3_STANDS_FOR = ["P5 experiments/pallas_tap_structure.py taps_kernel :15 "
+                 "(pallas_call :48)"]
+K4_STANDS_FOR = ["P5 experiments/pallas_tap_structure.py big_kernel :25 "
+                 "(pallas_call :52)"]
+# K3/K4 against taps_plain/big_plain: both sum float32 products in other
+# orders and round once to bf16; outputs are ~1.8e4, where one bf16 ulp is
+# 128, so where a float32 value straddles a rounding point they land one
+# ulp apart: 2 ulps relative at the finest spacing, 2^-7
+TAP_RTOL = 2.0 ** -7
+# the GAN configurations of the gan phase: (config, compute dtype, step
+# impl, teacher-forcing prob of the draws, steps, the cuts made); each runs
+# at full width from one seeded state on both paths
+GAN_RUNS = (
+    ("gan_64", "float32", "default", 0.0, 3, []),
+    ("gan_256_single", "bfloat16", "vjp", 0.5, 3,
+     ["model.remat true -> false and remat_policy save_z -> '' (remat is "
+      "ROADMAP A3)", "depth: 3 steps of the 30-epoch run"]),
+)
+# default against vjp on the kernel path, one step from one state: the
+# same math; the JAX test's bounds (tests/test_sequence_trainer.py:100-107)
+# on the losses; params within 2 lr (an element whose gradient lies within
+# the reduction-order noise of 0 may take Adam's other sign)
+GAN_IMPL_LOSS_TOL = (1e-6, 1e-5)
+GAN_TRAINER_SEQUENCES = 24
 # the JAX bench's streaming rows (bench.py:263-298): horizon 30 at B 1 and 8
 STREAM_HORIZON = 30
 STREAM_BATCHES = (1, 8)
@@ -515,6 +564,8 @@ def reset_counts():
     convlstm_cell_fwd.launches = 0
     convlstm_cell_fwd.launches_z = 0
     conv_head_fwd.launches = 0
+    tap_loop.launches = 0
+    tap_k1152.launches = 0
 
 
 def expect_counts(what, k1, k2, k1z=0):
@@ -964,6 +1015,376 @@ def phase_trainer(tmp, request):
     return rec
 
 
+def phase_tap_structure():
+    """The tap-structure experiment (P5 on Hopper) at its full shape: its
+    own path, experiments.tap_structure.run(), with the launch counts set to
+    0 before and read after; then K3 and K4 against their plain versions on
+    the experiment's operands, timed in turns beside the plain versions,
+    64 cuBLAS products of the same operands, and the bound."""
+    from pl_convlstm_gan_tpu_torch.experiments import tap_structure as ts
+    reset_counts()
+    runs = {r["name"]: r for r in ts.run(device=DEVICE)}
+    launches = {"tap_loop": tap_loop.launches, "tap_k1152": tap_k1152.launches}
+    expect = ts.ITERS * ts.ROUNDS + 1          # and one warm-up launch
+    if launches != {"tap_loop": expect, "tap_k1152": expect}:
+        raise AssertionError(f"tap_structure launches {launches}, expected "
+                             f"{expect} each")
+    a9, w9, abig, wbig = ts.operands(DEVICE)
+    m, n, kt, reps = ts.M, ts.N, ts.TAPS * ts.K, ts.REPS
+    flops = ts.flops(reps)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = (m // tap_mod._BM) * (n // tap_mod._BN)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=DEVICE)
+    raw = {"tap_loop": raw_launcher(
+               "tap_structure", "tap_loop_bf16", tap_mod._ARGTYPES,
+               (a9, w9, out), (m, ts.K, n, reps)),
+           "tap_k1152": raw_launcher(
+               "tap_structure", "tap_k1152_bf16", tap_mod._ARGTYPES,
+               (abig, wbig, out), (m, kt, n, reps))}
+    # in turns within one call: K3, K4, K4, K3
+    turns = {"tap_loop": [], "tap_k1152": []}
+    for name in ("tap_loop", "tap_k1152", "tap_k1152", "tap_loop"):
+        turns[name].append(ts.launch_ms(raw[name])[0])
+    recs = {}
+    for name, run_name, kernel, plain, operands, library in (
+            ("tap_loop", "9-tap-loop", tap_loop, taps_plain, (a9, w9),
+             lambda: torch.matmul(a9, w9)),
+            ("tap_k1152", "one-K1152", tap_k1152, big_plain, (abig, wbig),
+             lambda: torch.matmul(abig, wbig))):
+        got = kernel(*operands, reps)
+        want = plain(*operands, reps)
+        torch.cuda.synchronize()
+        err = check_close(f"{name} vs plain", got, want, 0.0, TAP_RTOL)
+        nbytes = 2 * (operands[0].numel() + operands[1].numel() + m * n)
+        rec = dict(
+            ms=runs[run_name]["ms"], ms_all=runs[run_name]["ms_all"],
+            ms_turns=turns[name], tflops=runs[run_name]["tflops"],
+            launches=launches[name], max_abs_err=err,
+            max_rel_err=float(((got.float() - want.float()).abs()
+                               / want.float().abs()).max()),
+            max_abs_output=float(want.float().abs().max()),
+            plain_ms=ts.launch_ms(lambda: plain(*operands, reps), 3)[0],
+            library_ms=ts.launch_ms(lambda: [library() for _ in range(reps)],
+                                    3)[0],
+            flops=flops, nbytes=nbytes, blocks=blocks, sms=sms,
+            sm_share=min(blocks, sms) / sms)
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, "bfloat16")
+        recs[name] = rec
+        say(phase="tap_structure", kernel=name, tol=[0.0, TAP_RTOL], **rec)
+    return recs
+
+
+def gan_config(name, dtype_name, step_impl, impl="pallas"):
+    cfg = load_config(name)
+    cfg.precision.compute_dtype = dtype_name
+    cfg.model.convlstm_impl = impl
+    cfg.model.remat, cfg.model.remat_policy = False, ""
+    cfg.training.gan_step_impl = step_impl
+    cfg.validate(training=True)
+    return cfg
+
+
+def disc_params(cfg, seed):
+    """The discriminator of cfg as a flax params tree of numpy arrays with
+    torch-default-init ranges (conv_0 ... conv_out, 4x4 kernels)."""
+    rng = np.random.default_rng(seed)
+    tree, cin = {}, cfg.model.in_channels
+    names = [f"conv_{i}" for i in range(len(cfg.model.disc_features))]
+    for name, cout in zip(names + ["conv_out"],
+                          list(cfg.model.disc_features) + [1]):
+        bnd = 1.0 / np.sqrt(16 * cin)
+        tree[name] = {
+            "kernel": rng.uniform(-bnd, bnd, (4, 4, cin, cout)).astype(np.float32),
+            "bias": rng.uniform(-bnd, bnd, cout).astype(np.float32)}
+        cin = cout
+    return {"params": tree}
+
+
+def gan_state(cfg, gen_sd, disc_sd):
+    gen, disc = build_model(cfg), build_discriminator(cfg)
+    gen.load_state_dict(gen_sd)
+    disc.load_state_dict(disc_sd)
+    gen.to(DEVICE).train()
+    disc.to(DEVICE).train()
+    return GANTrainState(gen, disc, make_optimizer(gen), make_optimizer(disc))
+
+
+def gan_step_fn(state, cfg, lr, d_lr, draws):
+    tc = cfg.training
+    return lambda batch: gan_train_step(
+        state, batch, lr, d_lr, draws, tc.lambda_adv, tc.lambda_l1,
+        tc.label_smoothing, tc.grad_clip_norm, tc.gan_step_impl)
+
+
+def gan_grads(state, cfg, batch, draws):
+    """Step-1 gradients of D (on the detached fake) and of G (against the
+    same D), flattened, without an update."""
+    inputs, targets = batch
+    tc = cfg.training
+    fake = state.gen(inputs, targets, draws)
+    d_total, _ = gan_d_loss(state.disc, targets, fake.detach(),
+                            tc.label_smoothing)
+    d = torch.autograd.grad(d_total, list(state.disc.parameters()))
+    g_total, _ = gan_g_loss(state.disc, fake, targets, tc.lambda_adv,
+                            tc.lambda_l1)
+    g = torch.autograd.grad(g_total, list(state.gen.parameters()))
+    return {"g": torch.cat([t.flatten() for t in g]),
+            "d": torch.cat([t.flatten() for t in d])}
+
+
+def max_param_diff(a, b):
+    return max(float((pa - pb).detach().abs().max())
+               for pa, pb in zip(a.parameters(), b.parameters()))
+
+
+def profile_gan_step(step, batch, p50_ms):
+    """torch.profiler over one GAN step after a traced warm-up step: device
+    time by group. A kernel goes to the op that launched it (the profiler's
+    own link, ``FunctionEvent.kernels``): K1 by its name; the kernels of a
+    convolution op (forward or backward) to D when the op's weight is 4x4,
+    else to G (3x3: the cells' backward, the head); the rest to
+    elementwise. Device time no op claims is listed as unattributed. The
+    idle share is taken against the unprofiled p50 step (recording shapes
+    slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+        prof.step()
+        reset_counts()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    k1 = {"without_z": convlstm_cell_fwd.launches,
+          "with_z": convlstm_cell_fwd.launches_z}
+    events = list(prof.events())
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA
+               and not ev.name.startswith("ProfilerStep")
+               and not getattr(ev, "is_user_annotation", False)]
+    span = lambda ev: (ev.time_range.end - ev.time_range.start) / 1e3
+    busy = sum(span(ev) for ev in kernels)
+    # K1 by name: a launch outside any op (the detached forward) has no op
+    k1_events = [ev for ev in kernels if "convlstm_cell" in ev.name]
+    groups = {"K1": [len(k1_events), sum(span(ev) for ev in k1_events)]}
+    for op in events:
+        if op.device_type != DeviceType.CPU:
+            continue
+        for k in op.kernels:
+            if "convlstm_cell" in k.name:
+                continue
+            if "conv" in op.name:
+                d = any(len(sh) == 4 and tuple(sh[-2:]) == (4, 4)
+                        for sh in (op.input_shapes or []))
+                name = "cudnn_conv_D" if d else "cudnn_conv_G"
+            else:
+                name = "elementwise_reduce_copy"
+            g = groups.setdefault(name, [0, 0.0])
+            g[0] += 1
+            g[1] += k.duration / 1e3
+    groups["unattributed"] = [0, busy - sum(ms for _, ms in groups.values())]
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                idle_share=max(0.0, 1 - busy / p50_ms),
+                idle_share_profiled=max(0.0, 1 - busy / (wall * 1e3)),
+                k1_launches=k1,
+                groups={k: [n, round(ms, 3)] for k, (n, ms) in groups.items()})
+
+
+def phase_gan(name, dtype_name, step_impl, tf_prob, steps, cuts, seed):
+    """GAN training at full width on the kernel path (convlstm_impl pallas:
+    K1 with z and ConvLSTMCellFn in G) against the plain path (auto) from
+    one state and batches: step-1 gradients of G and D, per-step d_total
+    and g_total, params after the steps, within TRAIN_TOL; exact K1 launch
+    counts; default against vjp on the kernel path; p50 step times, peak
+    memory and a profiled kernel step."""
+    cfg = gan_config(name, dtype_name, step_impl)
+    mc, tc = cfg.model, cfg.training
+    b, size = tc.batch_size, cfg.data.synthetic_image_size
+    n_cells = len(mc.hidden_dims)
+    scan = mc.input_frames + mc.output_frames - 1
+    lr, d_lr = tc.learning_rate, tc.disc_learning_rate or tc.learning_rate
+    gen_sd = flax_to_state_dict(nowcast_params(cfg, seed))
+    disc_sd = flax_to_state_dict(disc_params(cfg, seed + 1))
+    ds = SyntheticSequenceDataset(steps * b, mc.input_frames, mc.output_frames,
+                                  size, seed=seed)
+    batches = [to_device(x, torch.device(DEVICE))
+               for x in batch_iterator(ds, b)]
+    gen = torch.Generator().manual_seed(seed)
+    draws = [(torch.rand((scan, b), generator=gen) < tf_prob).to(DEVICE)
+             if tf_prob > 0 else None for _ in batches]
+    cfgs = {"kernel": cfg,
+            "plain": gan_config(name, dtype_name, step_impl, "auto")}
+    paths = {p: gan_state(c, gen_sd, disc_sd) for p, c in cfgs.items()}
+
+    grads = {p: gan_grads(st, cfgs[p], batches[0], draws[0])
+             for p, st in paths.items()}
+    grad_err = {k: float((grads["kernel"][k] - grads["plain"][k]).norm()
+                         / grads["plain"][k].norm()) for k in ("g", "d")}
+    del grads
+    if step_impl == "default":      # K1 without z (the detached forward)
+        expect = (n_cells * scan, n_cells * scan)
+    else:
+        expect = (0, n_cells * scan)
+    metrics, times, peak_gb = {}, {}, {}
+    for p, st in paths.items():
+        torch.cuda.reset_peak_memory_stats()
+        metrics[p], times[p] = [], []
+        for i, batch in enumerate(batches):
+            step = gan_step_fn(st, cfgs[p], lr, d_lr, draws[i])
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(batch)
+            torch.cuda.synchronize()
+            times[p].append((time.perf_counter() - t0) * 1e3)
+            want = expect if p == "kernel" else (0, 0)
+            expect_counts(f"gan {name} {p} step {i}", want[0], 0, want[1])
+            if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"gan {name} {p} step {i}: {m}")
+            metrics[p].append(m)
+        peak_gb[p] = torch.cuda.max_memory_allocated() / 1e9
+    loss_err = max(abs(mk[k] - mp[k]) for mk, mp in zip(
+        metrics["kernel"], metrics["plain"]) for k in ("d_total", "g_total"))
+    param_err = {"g": max_param_diff(paths["kernel"].gen, paths["plain"].gen),
+                 "d": max_param_diff(paths["kernel"].disc,
+                                     paths["plain"].disc)}
+    moved = max(float((p.detach().cpu() - gen_sd[n]).abs().max())
+                for n, p in paths["kernel"].gen.named_parameters())
+    errs = {"loss": loss_err, "grad_g": grad_err["g"],
+            "grad_d": grad_err["d"], "param_g": param_err["g"],
+            "param_d": param_err["d"]}
+    tol = {k: TRAIN_TOL[k.split("_")[0]][dtype_name] for k in errs}
+    say(phase="gan_check", config=name, dtype=dtype_name, impl=step_impl,
+        errors=errs, tol=tol, max_param_move=moved,
+        d_total_kernel=[m["d_total"] for m in metrics["kernel"]],
+        d_total_plain=[m["d_total"] for m in metrics["plain"]],
+        g_total_kernel=[m["g_total"] for m in metrics["kernel"]],
+        g_total_plain=[m["g_total"] for m in metrics["plain"]])
+    for key, err in errs.items():
+        if not err <= tol[key]:
+            raise AssertionError(f"gan {name}: {key} error {err:.3e} > "
+                                 f"{tol[key]}")
+    if moved == 0.0:
+        raise AssertionError(f"gan {name}: the generator did not move")
+
+    # the other step impl on the kernel path, one step from the same state
+    other = "vjp" if step_impl == "default" else "default"
+    pair = {}
+    for impl in (step_impl, other):
+        c = gan_config(name, dtype_name, impl)
+        st = gan_state(c, gen_sd, disc_sd)
+        pair[impl] = (st, gan_step_fn(st, c, lr, d_lr, draws[0])(batches[0]))
+    atol, rtol = GAN_IMPL_LOSS_TOL
+    impl_err = {k: abs(pair["vjp"][1][k] - pair["default"][1][k])
+                for k in ("d_total", "g_total")}
+    impl_param = max_param_diff(pair["vjp"][0].gen, pair["default"][0].gen)
+    for k, err in impl_err.items():
+        if not err <= atol + rtol * abs(pair["default"][1][k]):
+            raise AssertionError(f"gan {name}: vjp vs default {k} {err:.3e}")
+    if not impl_param <= 2 * lr:
+        raise AssertionError(f"gan {name}: vjp vs default params "
+                             f"{impl_param:.3e} > 2 lr")
+    del pair
+
+    prof = profile_gan_step(gan_step_fn(paths["kernel"], cfg, lr, d_lr,
+                                        draws[0]), batches[0],
+                            statistics.median(times["kernel"]))
+    say(phase="gan_profile", config=name, dtype=dtype_name, impl=step_impl,
+        **prof)
+    rec = dict(config=name, dtype=dtype_name, impl=step_impl, steps=steps,
+               batch=b, size=size, frames=[mc.input_frames, mc.output_frames],
+               hidden=list(mc.hidden_dims),
+               disc_features=list(mc.disc_features), tf_prob=tf_prob,
+               cuts=cuts,
+               launches_per_step={"convlstm_cell_fwd": expect[0],
+                                  "convlstm_cell_fwd_save_z": expect[1],
+                                  "conv_head_fwd": 0},
+               kernel_p50_ms=statistics.median(times["kernel"]),
+               plain_p50_ms=statistics.median(times["plain"]),
+               kernel_ms=times["kernel"], plain_ms=times["plain"],
+               errors=errs, tol=tol,
+               impl_check={"other": other, "loss_err": impl_err,
+                           "param_err": impl_param},
+               peak_mem_gb=peak_gb, max_param_move=moved)
+    say(phase="gan", **rec)
+    del paths, batches
+    torch.cuda.empty_cache()
+    rec["profile"] = prof
+    return rec
+
+
+def phase_gan_trainer(tmp, seed):
+    """The CLI's train path on gan_64 (kernel path: convlstm_impl pallas) in
+    process, with its data cut to 24 sequences and the run to 2 epochs, then
+    --resume to 3, --mode eval, and load_predictor on the trainer's
+    best_model (its gen_params) serving one request of B frames on K1/K2,
+    each with exact launch counts."""
+    cfg = load_config("gan_64")
+    mc = cfg.model
+    size = cfg.data.synthetic_image_size
+    request = torch.from_numpy(np.random.default_rng(seed).random(
+        (cfg.training.batch_size, mc.input_frames, mc.in_channels, size,
+         size), dtype=np.float32)).to(DEVICE)
+    cfg.model.convlstm_impl = "pallas"
+    cfg.data.synthetic_num_sequences = GAN_TRAINER_SEQUENCES
+    cfg.output.output_dir = os.path.join(tmp, "gan_trainer")
+    cfg.output.save_model_interval = 1
+    cuts = [f"data: {GAN_TRAINER_SEQUENCES} sequences (from "
+            f"{load_config('gan_64').data.synthetic_num_sequences})",
+            f"epochs: {TRAINER_EPOCHS} + 1 resumed (from "
+            f"{load_config('gan_64').training.epochs})"]
+    yamls = []
+    for epochs in (TRAINER_EPOCHS, TRAINER_EPOCHS + 1):
+        cfg.training.epochs = epochs
+        yamls.append(os.path.join(tmp, f"gan_trainer_{epochs}.yaml"))
+        cfg.to_yaml(yamls[-1])
+    per_step = len(mc.hidden_dims) * (mc.input_frames + mc.output_frames - 1)
+    b = cfg.training.batch_size
+    n_train = int(GAN_TRAINER_SEQUENCES * 0.7) // b
+    n_val = -(-int(GAN_TRAINER_SEQUENCES * 0.15) // b)
+    t0 = time.perf_counter()
+    reset_counts()
+    h2 = cli.main(["--config", yamls[0], "--mode", "train"])
+    train_launches = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
+                      "convlstm_cell_fwd_save_z": convlstm_cell_fwd.launches_z}
+    # default step: one detached forward (K1 without z) and one with z a
+    # step; validation runs K1 without z
+    expect_counts("gan trainer 2 epochs",
+                  TRAINER_EPOCHS * (n_train + n_val) * per_step, 0,
+                  TRAINER_EPOCHS * n_train * per_step)
+    h3 = cli.main(["--config", yamls[1], "--mode", "train", "--resume"])
+    if h3["epoch"] != list(range(TRAINER_EPOCHS + 1)) or \
+            {k: v[:TRAINER_EPOCHS] for k, v in h3.items()} != h2:
+        raise AssertionError(f"gan --resume did not continue at epoch "
+                             f"{TRAINER_EPOCHS}: {h3['epoch']}")
+    if not (all(np.isfinite(h3["g_loss"])) and all(np.isfinite(h3["d_loss"]))):
+        raise AssertionError(f"gan trainer losses {h3['g_loss']} "
+                             f"{h3['d_loss']}")
+    metrics = cli.main(["--config", yamls[1], "--mode", "eval"])
+    if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"gan --mode eval metrics {metrics}")
+    predict = load_predictor(cfg, os.path.join(cfg.output.output_dir,
+                                               "best_model"))
+    reset_counts()
+    out = predict(request)
+    expect_counts("gan trainer best_model predict", per_step,
+                  mc.output_frames)
+    want = (request.shape[0], mc.output_frames) + tuple(request.shape[2:])
+    if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"gan trainer predict: {tuple(out.shape)}")
+    rec = dict(config="gan_64", cuts=cuts, sequences=GAN_TRAINER_SEQUENCES,
+               epochs=TRAINER_EPOCHS + 1, seconds=time.perf_counter() - t0,
+               train_launches=train_launches, g_loss=h3["g_loss"],
+               d_loss=h3["d_loss"], val_l1=h3["val_l1"], test_metrics=metrics)
+    say(phase="gan_trainer", **rec)
+    return rec
+
+
 def write_checkpoint(path, cfg, seed):
     """nowcast_params(cfg, seed) as the README's .npz of flattened flax
     params; checks that weights.py maps every entry."""
@@ -980,12 +1401,24 @@ def write_checkpoint(path, cfg, seed):
 
 
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
-                   trainer):
+                   trainer, gans, gan_trainer, taps):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
-    entry) and compute dtype. K1's times and bound are per launch, averaged
-    over one request's (or train step's) mix of cell shapes (cell 1:
-    (1, 64); cells 2-3: (64, 64))."""
+    entry) and compute dtype, then K3 and K4. K1's times and bound are per
+    launch, averaged over one request's (or train step's) mix of cell shapes
+    (cell 1: (1, 64); cells 2-3: (64, 64)). The GAN paths' launches are per
+    step of each configuration and of the GAN trainer's run."""
     entries = []
+    gan_k1 = {name: {} for name in paths}
+    gan_k1z = {name: {} for name in paths}
+    for g in gans:
+        gan_k1[g["dtype"]][f"{g['config']}_step"] = \
+            g["launches_per_step"]["convlstm_cell_fwd"]
+        gan_k1z[g["dtype"]][f"{g['config']}_step"] = \
+            g["launches_per_step"]["convlstm_cell_fwd_save_z"]
+    gan_k1["float32"]["gan_trainer_train"] = \
+        gan_trainer["train_launches"]["convlstm_cell_fwd"]
+    gan_k1z["float32"]["gan_trainer_train"] = \
+        gan_trainer["train_launches"]["convlstm_cell_fwd_save_z"]
     weights = [1, n_cells - 1]
     for name, path in paths.items():
         c_recs = [r for r in cell[name] if "ms" in r]
@@ -997,7 +1430,8 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             launches_by_path={
                 "predict": path["launches"]["convlstm_cell_fwd"],
                 "stream": streams[name]["launches"]["convlstm_cell_fwd"],
-                "train_eval_batch": trains[name]["launches_eval_batch"]},
+                "train_eval_batch": trains[name]["launches_eval_batch"],
+                **gan_k1[name]},
             max_abs_err=max(r["max_abs_err"] for r in cell[name]),
             ms=mix("ms"), plain_ms=mix("plain_ms"), bound_ms=mix("bound_ms"),
             bound_by=c_recs[0]["bound_by"], library_ms=mix("library_ms"),
@@ -1009,6 +1443,7 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                        "convlstm_cell_fwd_save_z"]}
         if name == "bfloat16":
             by_path["trainer"] = trainer["train_launches_z"]
+        by_path.update(gan_k1z[name])
         entries.append(dict(
             name="convlstm_cell_fwd", variant="save_z", dtype=name, route="cuda",
             source=K1_SOURCE, replaces=K1_REPLACES, stands_for=K1Z_STANDS_FOR,
@@ -1031,6 +1466,18 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             max_abs_err=max(r["max_abs_err"] for r in head[name]),
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=h["library_ms"]))
+    for name, source, replaces, stands_for in (
+            ("tap_loop", K3_SOURCE, K3_REPLACES, K3_STANDS_FOR),
+            ("tap_k1152", K4_SOURCE, K4_REPLACES, K4_STANDS_FOR)):
+        t = taps[name]
+        entries.append(dict(
+            name=name, dtype="bfloat16", route="cuda", source=source,
+            replaces=replaces, stands_for=stands_for, launches=t["launches"],
+            launches_by_path={"tap_structure_experiment": t["launches"]},
+            max_abs_err=t["max_abs_err"], max_rel_err=t["max_rel_err"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            tflops=t["tflops"], sm_share=t["sm_share"]))
     return entries
 
 
@@ -1084,10 +1531,13 @@ def main() -> int:
         trains = {dtype_name: phase_train(dtype_name, SEED)
                   for dtype_name in ("bfloat16", "float32")}
         trainer = phase_trainer(tmp, requests[0])
+        gans = [phase_gan(*run, seed=SEED) for run in GAN_RUNS]
+        gan_trainer = phase_gan_trainer(tmp, SEED)
+    taps = phase_tap_structure()
 
     print(json.dumps({"kernels": kernel_entries(
-        cell, head, paths, streams, len(hidden), cell_z, trains, trainer)}),
-        flush=True)
+        cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
+        gans, gan_trainer, taps)}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

@@ -2,6 +2,7 @@
 
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128_pallas \\
         --mode train [--resume]
+    python -m pl_convlstm_gan_tpu_torch --config gan_64 --mode train
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128_pallas \\
         --mode eval [--checkpoint <dir>]
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode predict \\
@@ -9,13 +10,13 @@
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode stream \\
         --input frames.npy --checkpoint params.npz [--horizons 10,30]
 
-Train mode runs ``SequenceTrainer`` (forecaster family); ``--resume``
+Train mode runs ``SequenceTrainer`` (forecaster and GAN families); ``--resume``
 continues from ``<output_dir>/latest``, else ``best_model``, recovering a
 checkpoint a crash left at ``.pending`` or ``.old``. Eval mode restores a
 checkpoint (default ``<output_dir>/best_model``) and prints the test-split
 metrics. Predict and stream restore the weights (a ``.npz`` of flattened
 flax params, a torch ``.pt`` state_dict, or a checkpoint directory of the
-trainer; default ``<output_dir>/best_model``) and read frames from a
+trainer, of a GAN run its generator; default ``<output_dir>/best_model``) and read frames from a
 ``.npy``, or a ``.npz`` with a ``frames`` key. Predict mode runs the
 forecaster on [B,T_in,C,H,W] and writes the predictions [B,T_out,C,H,W] as
 a ``.npy``. Stream mode feeds [T,C,H,W] (one stream) or [B,T,C,H,W] (B
@@ -121,8 +122,8 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(
         prog="python -m pl_convlstm_gan_tpu_torch",
-        description="pl-convlstm-gan forecaster training and inference on "
-                    "PyTorch/CUDA")
+        description="pl-convlstm-gan forecaster and GAN training and "
+                    "inference on PyTorch/CUDA")
     parser.add_argument("--config", type=str, default="default",
                         help="configuration name (configs/<name>.yaml) or a "
                              "direct path to a .yaml file")

@@ -1,6 +1,11 @@
-"""Losses and eval metrics of the forecaster family, in plain PyTorch.
+"""Losses and eval metrics of the forecaster and GAN families, in plain
+PyTorch.
 
-Copies of the JAX package's ``losses/adversarial.py`` (``l1_loss``),
+Copies of the JAX package's ``losses/adversarial.py`` (``l1_loss``,
+``l2_loss`` and the GAN losses: ``bce_with_logits`` in its log-sum-exp form,
+``discriminator_loss`` with one-sided label smoothing, the non-saturating
+``generator_adversarial_loss``, ``gan_generator_loss``; the part names
+``d_real``, ``d_fake``, ``g_adv``, ``g_l1`` as in JAX),
 ``losses/ssim.py``, ``losses/metrics.py`` and ``losses/sharpness.py``, with
 the same formulas, clamps and masks:
 
@@ -25,6 +30,44 @@ import torch.nn.functional as F
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (pred - target).abs().mean()
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred - target).square().mean()
+
+
+# ------------------------------------------------------------------ GAN
+
+def bce_with_logits(logits: torch.Tensor, targets) -> torch.Tensor:
+    """Mean elementwise binary cross-entropy on logits, in the stable form
+    max(x, 0) - x*y + log(1 + exp(-|x|)) (never forms the sigmoid)."""
+    return (logits.clamp(min=0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def discriminator_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor,
+                       label_smoothing: float = 0.0):
+    """(0.5 * (BCE(real, 1 - label_smoothing) + BCE(fake, 0)), {"d_real",
+    "d_fake"}): one-sided label smoothing on the real targets only."""
+    loss_real = bce_with_logits(real_logits, 1.0 - label_smoothing)
+    loss_fake = bce_with_logits(fake_logits, 0.0)
+    return 0.5 * (loss_real + loss_fake), {"d_real": loss_real,
+                                           "d_fake": loss_fake}
+
+
+def generator_adversarial_loss(fake_logits: torch.Tensor) -> torch.Tensor:
+    """Non-saturating G loss: BCE(fake, 1)."""
+    return bce_with_logits(fake_logits, 1.0)
+
+
+def gan_generator_loss(fake_logits: torch.Tensor, pred: torch.Tensor,
+                       target: torch.Tensor, lambda_adv: float = 0.001,
+                       lambda_l1: float = 1.0):
+    """(lambda_adv * BCE(fake, 1) + lambda_l1 * L1(pred, target), {"g_adv",
+    "g_l1"})."""
+    adv = generator_adversarial_loss(fake_logits)
+    rec = l1_loss(pred, target)
+    return lambda_adv * adv + lambda_l1 * rec, {"g_adv": adv, "g_l1": rec}
 
 
 # --------------------------------------------------------------------- SSIM

@@ -23,14 +23,18 @@ def _init_uniform(param: torch.Tensor, fan_in: int) -> None:
 
 
 class Conv2dTorch(nn.Module):
-    """Stride-1 NHWC conv with PyTorch Conv2d's default init, U(+-1/sqrt(fan_in))
-    on kernel and bias. Accumulates in float32 and returns the compute type."""
+    """NHWC conv with PyTorch Conv2d's default init, U(+-1/sqrt(fan_in)) on
+    kernel and bias. ``strides`` and an int ``padding`` (pixels on every
+    side) as in the JAX ``Conv2dTorch``; ``"same"`` needs stride 1.
+    Accumulates in float32 and returns the compute type."""
 
     def __init__(self, in_features: int, features: int,
-                 kernel_size: Tuple[int, int] = (3, 3), padding="same",
+                 kernel_size: Tuple[int, int] = (3, 3),
+                 strides: Tuple[int, int] = (1, 1), padding="same",
                  use_bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         kh, kw = kernel_size
+        self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features, kh, kw))
@@ -44,7 +48,7 @@ class Conv2dTorch(nn.Module):
         dtype = self.dtype or x.dtype
         bias = None if self.bias is None else self.bias.to(dtype)
         return conv2d_nhwc_f32(x.to(dtype), self.weight.to(dtype), bias,
-                               self.padding).to(dtype)
+                               self.padding, self.strides).to(dtype)
 
 
 class ConvLSTMCell(nn.Module):

@@ -6,5 +6,7 @@
 - ``rollout_kernel``: K2, the conv head (csrc/conv_head.cu), and the
   free-running rollouts (cold, and warm from a carried state) and streaming
   observe that launch K1 and K2 step by step
+- ``tap_structure_kernel``: K3 and K4, the tap-structure experiment's 9-tap
+  and one-K1152 contractions (csrc/tap_structure.cu)
 - ``build``: nvcc build of csrc/ and ctypes loading, at first use
 """

@@ -34,13 +34,17 @@ def oihw_from_hwio(kernel_hwio):
 
 
 def conv2d_nhwc_f32(x: torch.Tensor, weight_oihw: torch.Tensor,
-                    bias: torch.Tensor | None, padding="same") -> torch.Tensor:
-    """Stride-1 conv of NHWC ``x`` with an OIHW kernel, computed in float32
-    whatever the operands' type (the products of bf16 values are exact in
-    f32, so bf16 operands give f32 accumulation). Returns NHWC float32.
+                    bias: torch.Tensor | None, padding="same",
+                    stride: int | tuple[int, int] = 1) -> torch.Tensor:
+    """Conv of NHWC ``x`` with an OIHW kernel, computed in float32 whatever
+    the operands' type (the products of bf16 values are exact in f32, so
+    bf16 operands give f32 accumulation). Returns NHWC float32.
 
-    ``padding="same"`` pads (K-1)//2 before and the rest after, which is the
-    JAX 'SAME' rule for even kernels too."""
+    ``padding="same"`` (stride 1 only) pads (K-1)//2 before and the rest
+    after, which is the JAX 'SAME' rule for even kernels too; an int pads
+    that many pixels on every side, torch-style, as the JAX ``conv2d`` does
+    with an int padding."""
     out = F.conv2d(x.permute(0, 3, 1, 2).float(), weight_oihw.float(),
-                   None if bias is None else bias.float(), padding=padding)
+                   None if bias is None else bias.float(), stride=stride,
+                   padding=padding)
     return out.permute(0, 2, 3, 1)

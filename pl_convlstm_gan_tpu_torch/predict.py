@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .config import Config, convlstm_cell_impl
-from .models import ConvLSTMForecaster
+from .models import ConvLSTMForecaster, Discriminator
 from .ops.kernels.rollout_kernel import pack_weights, rollout_kernel
 from .weights import flax_to_state_dict
 
@@ -63,13 +63,27 @@ def build_model(config: Config, output_frames: int = 0) -> ConvLSTMForecaster:
         convlstm_impl=convlstm_cell_impl(mc.convlstm_impl))
 
 
+def build_discriminator(config: Config) -> Discriminator:
+    """The GAN family's (randomly initialised) discriminator: features
+    ``model.disc_features``, the config's compute dtype."""
+    dtype = torch.bfloat16 if compute_dtype(config) == torch.bfloat16 else None
+    return Discriminator(config.model.in_channels,
+                         tuple(config.model.disc_features), dtype)
+
+
 def load_state_dict(checkpoint_path: str) -> dict:
     """A ``.npz`` of flattened flax params, a torch ``.pt`` state_dict, or a
     checkpoint directory written by the port's trainer (``best_model``,
-    ``latest``: its ``params``)."""
+    ``latest``): its ``params``, or for a GAN checkpoint ``gen_params`` (the
+    generator is the deployed model), as the JAX ``restore_params``."""
     if os.path.isdir(checkpoint_path):
         from .train.checkpoint import restore_checkpoint
-        return restore_checkpoint(checkpoint_path)[0]["params"]
+        device_state = restore_checkpoint(checkpoint_path)[0]
+        params = device_state.get("params", device_state.get("gen_params"))
+        if params is None:
+            raise ValueError(f"no params/gen_params in checkpoint "
+                             f"{checkpoint_path}")
+        return params
     if checkpoint_path.endswith(".npz"):
         with np.load(checkpoint_path) as data:
             return flax_to_state_dict({k: data[k] for k in data.files})

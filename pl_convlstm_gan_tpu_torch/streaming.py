@@ -85,7 +85,8 @@ class StreamingForecaster:
     def from_checkpoint(cls, config: Config, checkpoint_path: str,
                         device=None) -> "StreamingForecaster":
         """A ``.npz`` of flattened flax params, a torch ``.pt``, or a
-        checkpoint directory of the port's trainer (``best_model``)."""
+        checkpoint directory of the port's trainer (``best_model``; of a
+        GAN run, its ``gen_params``)."""
         return cls(config, load_state_dict(checkpoint_path), device)
 
     def init_state(self, batch_size: int, height: int, width: int

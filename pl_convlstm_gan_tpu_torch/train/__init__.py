@@ -1,4 +1,4 @@
-"""Training of the forecaster family: the train/eval steps (``steps``), the
+"""Training of the forecaster and GAN families: the train/eval steps (``steps``), the
 trainer (``sequence_trainer``) and its checkpoints (``checkpoint``),
 counterparts of the JAX package's ``train/``."""
 from .sequence_trainer import SequenceTrainer

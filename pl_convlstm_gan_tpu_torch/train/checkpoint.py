@@ -4,7 +4,9 @@ The semantics of the JAX package's ``train/checkpoint.py``; the format is the
 port's own. A checkpoint is a directory holding ``host_state.json`` (epoch,
 metric, history, scheduler and early-stopping state; Python's JSON, which
 keeps NaN exactly) and ``state.pt``, a ``torch.save`` of the bundle
-``{"params": model state_dict, "opt_state": Adam state_dict, "step": int}``.
+``{"params": model state_dict, "opt_state": Adam state_dict, "step": int}``
+(a GAN run: ``gen_params``, ``disc_params``, ``gen_opt_state``,
+``disc_opt_state``, ``step``).
 An orbax checkpoint of the JAX package is not read (orbax is JAX's, and the
 port imports none of it): weights cross between the packages as a ``.npz``
 of flattened flax params (``weights.py``), the Adam moments through

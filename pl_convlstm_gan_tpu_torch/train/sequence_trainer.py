@@ -1,8 +1,9 @@
-"""SequenceTrainer: training of the forecaster family on one device.
+"""SequenceTrainer: training of the forecaster and GAN families on one
+device.
 
 Counterpart of the JAX package's ``train/sequence_trainer.py`` without its
-GAN, tensor-parallel and data-parallel branches (ROADMAP A7, A10, A9), which
-it refuses, with the other unported settings (``model.remat``, the frames
+tensor-parallel and data-parallel branches (ROADMAP A10, A9), which it
+refuses, with the other unported settings (``model.remat``, the frames
 source, grain: ``Config.validate(training=True)``). What it keeps:
 - synthetic moving-blob data, the seeded 70/15/15 split, shuffled batches
   per epoch (``data.py``), prefetched to the device;
@@ -13,6 +14,13 @@ source, grain: ``Config.validate(training=True)``). What it keeps:
   seeded ``seed * 100_003 + epoch`` (the JAX trainer's key for the epoch);
 - the forecaster train step (clip 0.5, Adam, NaN-skip: ``steps.py``),
   ReduceLROnPlateau on the val L1, optional early stopping;
+- ``family: gan``: a discriminator (``model.disc_features``) initialised
+  from ``training.seed + 1``, the GAN step (``steps.gan_train_step``,
+  ``training.gan_step_impl``) with D at ``disc_learning_rate or
+  learning_rate``, constant, while the plateau scheduler drives G only;
+  ``g_loss`` / ``d_loss`` in the history; eval and the best metric on the
+  generator; checkpoints hold ``gen_params``, ``disc_params``,
+  ``gen_opt_state``, ``disc_opt_state`` and ``step``;
 - the best checkpoint (``best_model``), ``latest`` every
   ``save_model_interval`` epochs, resume (``training.resume_from``);
 - ``validate`` / ``evaluate_test`` (L1, SSIM, POD/FAR/CSI/HSS, sharpness);
@@ -35,14 +43,14 @@ import torch
 from ..config import Config, load_config
 from ..data import (SyntheticSequenceDataset, batch_iterator, eval_batches,
                     prefetch_to_device, split_dataset_random, to_device)
-from ..predict import build_model, resolve_device
+from ..predict import build_discriminator, build_model, resolve_device
 from .checkpoint import CheckpointWriter, restore_checkpoint
 from .early_stopping import EarlyStopping
 from .metrics_log import append_metrics_line, dump_history
 from .plateau import ReduceLROnPlateau
-from .steps import (TrainState, aggregate_epoch_metrics,
+from .steps import (GANTrainState, TrainState, aggregate_epoch_metrics,
                     aggregate_sequence_eval, forecaster_eval_step,
-                    forecaster_train_step, make_optimizer)
+                    forecaster_train_step, gan_train_step, make_optimizer)
 
 
 class SequenceTrainer:
@@ -51,10 +59,13 @@ class SequenceTrainer:
         self.config = config if config is not None else load_config(config_name)
         self.config.validate(training=True)
         self.device = resolve_device(device)
+        self.is_gan = self.config.model.family == "gan"
         self.output_dir = self.config.output.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
         self.history = {"epoch": [], "total_loss": [], "val_l1": [],
                         "val_ssim": [], "learning_rate": []}
+        if self.is_gan:
+            self.history.update({"g_loss": [], "d_loss": []})
         self.best_metric = float("inf")
         self.best_epoch = -1
         self.start_epoch = 0
@@ -95,7 +106,16 @@ class SequenceTrainer:
             torch.manual_seed(tc.seed)
             model = build_model(self.config)
         model.to(self.device)
-        self.state = TrainState(model, make_optimizer(model), 0)
+        if self.is_gan:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(tc.seed + 1)
+                disc = build_discriminator(self.config)
+            disc.to(self.device)
+            self.disc_lr = tc.disc_learning_rate or tc.learning_rate
+            self.state = GANTrainState(model, disc, make_optimizer(model),
+                                       make_optimizer(disc), 0)
+        else:
+            self.state = TrainState(model, make_optimizer(model), 0)
         self.scheduler = ReduceLROnPlateau(
             lr=tc.learning_rate, factor=tc.scheduler_factor,
             patience=tc.scheduler_patience)
@@ -106,7 +126,8 @@ class SequenceTrainer:
 
     @property
     def model(self):
-        return self.state.model
+        """The forecaster; of a GAN, its generator."""
+        return self.state.gen if self.is_gan else self.state.model
 
     # ------------------------------------------------------------- schedules
     def teacher_forcing_prob(self, epoch: int) -> float:
@@ -153,12 +174,23 @@ class SequenceTrainer:
             if tf_prob > 0:
                 draws = torch.rand((steps, batch[0].shape[0]),
                                    generator=gen) < tf_prob
-            m = forecaster_train_step(self.state, batch, lr, draws,
-                                      tc.grad_clip_norm)
+            if self.is_gan:
+                m = gan_train_step(self.state, batch, lr, self.disc_lr, draws,
+                                   tc.lambda_adv, tc.lambda_l1,
+                                   tc.label_smoothing, tc.grad_clip_norm,
+                                   tc.gan_step_impl)
+            else:
+                m = forecaster_train_step(self.state, batch, lr, draws,
+                                          tc.grad_clip_norm)
             metrics_acc.append(m)
             if i % self.config.output.log_interval == 0:
-                print(f"Epoch {epoch} | L1: {m['total']:.4f} | "
-                      f"tf_prob {tf_prob:.2f}")
+                if self.is_gan:
+                    print(f"Epoch {epoch} | G: {m['g_total']:.4f} "
+                          f"(adv {m['g_adv']:.4f}, l1 {m['g_l1']:.4f}) | "
+                          f"D: {m['d_total']:.4f} | tf_prob {tf_prob:.2f}")
+                else:
+                    print(f"Epoch {epoch} | L1: {m['total']:.4f} | "
+                          f"tf_prob {tf_prob:.2f}")
         if not metrics_acc:
             raise ValueError(
                 f"No training batches: dataset has {len(self.train_dataset)} "
@@ -169,13 +201,18 @@ class SequenceTrainer:
         self.setup_data()
         self.setup_model()
         self.model.train()
+        if self.is_gan:
+            self.state.disc.train()
         for epoch in range(self.start_epoch, self.config.training.epochs):
             epoch_t0 = time.perf_counter()
             avg = self.train_epoch(epoch)
             epoch_s = time.perf_counter() - epoch_t0
             self.history["epoch"].append(epoch)
-            train_loss = avg["total"]
+            train_loss = avg["g_total"] if self.is_gan else avg["total"]
             self.history["total_loss"].append(train_loss)
+            if self.is_gan:
+                self.history["g_loss"].append(avg["g_total"])
+                self.history["d_loss"].append(avg["d_total"])
             self.history["learning_rate"].append(self.scheduler.lr)
 
             val = self.validate()
@@ -233,6 +270,13 @@ class SequenceTrainer:
 
     # ------------------------------------------------------------ checkpoint
     def _device_state_dict(self):
+        if self.is_gan:
+            st = self.state
+            return {"gen_params": st.gen.state_dict(),
+                    "disc_params": st.disc.state_dict(),
+                    "gen_opt_state": st.gen_optimizer.state_dict(),
+                    "disc_opt_state": st.disc_optimizer.state_dict(),
+                    "step": st.step}
         return {"params": self.model.state_dict(),
                 "opt_state": self.state.optimizer.state_dict(),
                 "step": self.state.step}
@@ -255,8 +299,15 @@ class SequenceTrainer:
     def restore(self, path: str):
         self._ckpt_writer.wait()   # finalize any in-flight save of this path
         device_state, host_state = restore_checkpoint(path)
-        self.model.load_state_dict(device_state["params"])
-        self.state.optimizer.load_state_dict(device_state["opt_state"])
+        if self.is_gan:
+            st = self.state
+            st.gen.load_state_dict(device_state["gen_params"])
+            st.disc.load_state_dict(device_state["disc_params"])
+            st.gen_optimizer.load_state_dict(device_state["gen_opt_state"])
+            st.disc_optimizer.load_state_dict(device_state["disc_opt_state"])
+        else:
+            self.model.load_state_dict(device_state["params"])
+            self.state.optimizer.load_state_dict(device_state["opt_state"])
         self.state.step = int(device_state["step"])
         self.history = host_state["history"]
         self.best_metric = host_state.get("best_metric", host_state["metric"])

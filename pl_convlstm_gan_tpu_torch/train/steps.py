@@ -1,8 +1,9 @@
-"""Train and eval steps of the forecaster family.
+"""Train and eval steps of the forecaster and GAN families.
 
-Counterpart of the forecaster half of the JAX package's ``train/steps.py``
-(``make_optimizer``, ``forecaster_step_body``, ``make_forecaster_eval_step``,
-``aggregate_epoch_metrics``, ``aggregate_sequence_eval``):
+Counterpart of the forecaster and GAN halves of the JAX package's
+``train/steps.py`` (``make_optimizer``, ``forecaster_step_body``,
+``gan_step_body``, ``make_forecaster_eval_step``, ``aggregate_epoch_metrics``,
+``aggregate_sequence_eval``):
 
 - the loss is L1 of the scheduled-sampling rollout against the targets;
 - the update is clip-by-global-norm then Adam moments, with the LR passed
@@ -14,6 +15,14 @@ Counterpart of the forecaster half of the JAX package's ``train/steps.py``
   non-finite loss runs neither the clip nor ``Adam.step``, so the params and
   Adam's state (its own ``step`` included) stay as they were, while the
   state's step count still advances, as ``TrainState.step`` does.
+
+The GAN step (``gan_train_step``) updates D on (real, detached fake), then G
+against the updated D, each with its own clip, Adam and NaN-skip, in the
+JAX package's two structures (``impl``): "default" runs the generator twice
+(once under ``no_grad`` for the D update, once with gradients for G's);
+"vjp" runs it once, keeps its graph across the D update and takes G's
+gradient through it. G's gradient is ``torch.autograd.grad`` with respect
+to G's parameters, so the G loss leaves nothing in D's ``.grad``.
 
 The scheduled-sampling draws are an argument (``teacher_draws`` [steps, B]
 bool; the trainer draws them from a ``torch.Generator``): ``jax.random``
@@ -27,7 +36,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..losses import (contingency_counts, l1_loss, scores_from_counts,
+from ..losses import (contingency_counts, discriminator_loss,
+                      gan_generator_loss, l1_loss, scores_from_counts,
                       sharpness_sums, ssim_per_sample)
 
 ADAM_BETAS = (0.9, 0.999)
@@ -64,6 +74,19 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float
     return norm
 
 
+def _adam_update(optimizer, params, grads, lr: float, grad_clip_norm: float
+                 ) -> None:
+    """Clip ``grads`` by their global norm (optax's rule), then one Adam
+    step of ``params`` at ``lr``; leaves no ``.grad`` behind."""
+    clip_by_global_norm_(grads, grad_clip_norm)
+    for p, g in zip(params, grads):
+        p.grad = g
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+
+
 def forecaster_loss(model, inputs, targets, teacher_draws=None):
     """(L1 loss, predictions) of the rollout with scheduled sampling."""
     pred = model(inputs, targets, teacher_draws)
@@ -85,13 +108,95 @@ def forecaster_train_step(state: TrainState, batch, lr: float,
     total.backward()
     ok = bool(torch.isfinite(total))
     if ok:
-        clip_by_global_norm_([p.grad for p in params], grad_clip_norm)
-        for group in state.optimizer.param_groups:
-            group["lr"] = float(lr)
-        state.optimizer.step()
+        _adam_update(state.optimizer, params, [p.grad for p in params], lr,
+                     grad_clip_norm)
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
     return {"total": float(total.detach()), "skipped": int(not ok)}
+
+
+# ---------------------------------------------------------------------- GAN
+
+@dataclass
+class GANTrainState:
+    """The port's ``GANTrainState``: the generator and discriminator modules
+    hold the params, one Adam each holds the moments, ``step`` counts GAN
+    steps (skipped ones included)."""
+    gen: torch.nn.Module
+    disc: torch.nn.Module
+    gen_optimizer: torch.optim.Adam
+    disc_optimizer: torch.optim.Adam
+    step: int = 0
+
+
+GAN_IMPLS = ("default", "vjp")
+
+
+def gan_d_loss(disc, targets, fake, label_smoothing: float = 0.0):
+    """(D total, {"d_real", "d_fake"}) on the real targets and ``fake``
+    (which the caller detaches)."""
+    return discriminator_loss(disc(targets), disc(fake), label_smoothing)
+
+
+def gan_g_loss(disc, fake, targets, lambda_adv: float = 0.001,
+               lambda_l1: float = 1.0):
+    """(G total, {"g_adv", "g_l1"}) of ``fake`` against ``disc``."""
+    return gan_generator_loss(disc(fake), fake, targets, lambda_adv,
+                              lambda_l1)
+
+
+def gan_train_step(state: GANTrainState, batch, g_lr: float, d_lr: float,
+                   teacher_draws: Optional[torch.Tensor] = None,
+                   lambda_adv: float = 0.001, lambda_l1: float = 1.0,
+                   label_smoothing: float = 0.0, grad_clip_norm: float = 0.5,
+                   impl: str = "default") -> Dict[str, float]:
+    """One GAN step of ``state`` in place on batch = (inputs, targets):
+    G forward -> D update on (real, detached fake) -> G update against the
+    updated D. Each of D and G skips its own update when its loss is not
+    finite (params and Adam state, Adam's ``step`` included, unchanged).
+    Returns {"d_total", "g_total", "skipped" (D or G skipped), "d_real",
+    "d_fake", "g_adv", "g_l1"}.
+
+    ``impl`` "default": the G forward for the D update runs under
+    ``no_grad`` (on the kernel path: K1 without z), then a second forward
+    with gradients (K1 with z) and the same teacher draws. "vjp": one
+    forward with gradients; D reads ``fake.detach()``, and G's gradient
+    goes back through that forward's graph. Two host syncs, the D and G
+    finite-loss decisions, each after its backward is queued."""
+    if impl not in GAN_IMPLS:
+        raise ValueError(f"Unknown gan_step_impl: {impl!r} (valid: "
+                         f"{', '.join(GAN_IMPLS)})")
+    inputs, targets = batch
+    gen, disc = state.gen, state.disc
+    g_params, d_params = list(gen.parameters()), list(disc.parameters())
+    if impl == "vjp":
+        fake = gen(inputs, targets, teacher_draws)
+    else:
+        with torch.no_grad():
+            fake = gen(inputs, targets, teacher_draws)
+
+    d_total, d_parts = gan_d_loss(disc, targets, fake.detach(),
+                                  label_smoothing)
+    d_grads = list(torch.autograd.grad(d_total, d_params))
+    d_ok = bool(torch.isfinite(d_total))
+    if d_ok:
+        _adam_update(state.disc_optimizer, d_params, d_grads, d_lr,
+                     grad_clip_norm)
+    del d_grads
+
+    if impl == "default":
+        fake = gen(inputs, targets, teacher_draws)
+    g_total, g_parts = gan_g_loss(disc, fake, targets, lambda_adv, lambda_l1)
+    g_grads = list(torch.autograd.grad(g_total, g_params))
+    g_ok = bool(torch.isfinite(g_total))
+    if g_ok:
+        _adam_update(state.gen_optimizer, g_params, g_grads, g_lr,
+                     grad_clip_norm)
+    state.step += 1
+    names = ("d_total", "g_total", *d_parts, *g_parts)
+    values = torch.stack([t.detach().float() for t in (
+        d_total, g_total, *d_parts.values(), *g_parts.values())]).tolist()
+    return {**dict(zip(names, values)), "skipped": int(not (d_ok and g_ok))}
 
 
 @torch.no_grad()

@@ -21,6 +21,10 @@ state is ``(ClipByGlobalNormState(), ScaleByAdamState(count, mu, nu))``,
 whose ``mu`` and ``nu`` are params-shaped trees; ``torch.optim.Adam`` keeps
 ``step``, ``exp_avg`` and ``exp_avg_sq`` per parameter. The moments' conv
 kernels go HWIO <-> OIHW like the params; values are copied exactly.
+
+A whole JAX ``GANTrainState`` crosses with both (``load_gan_train_state`` /
+``gan_train_state_to_jax``): generator and discriminator params, both Adam
+states and the step.
 """
 from __future__ import annotations
 
@@ -102,7 +106,11 @@ def stream_state_to_numpy(state):
 
 def _adam_leaf(opt_state):
     """The ScaleByAdamState inside an optax chain state (the element with
-    ``count``, ``mu`` and ``nu``)."""
+    ``count``, ``mu`` and ``nu``), or the dict ``optax_adam_state``
+    returns."""
+    if isinstance(opt_state, Mapping) and \
+            {"count", "mu", "nu"} <= set(opt_state):
+        return opt_state["count"], opt_state["mu"], opt_state["nu"]
     if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
         return opt_state.count, opt_state.mu, opt_state.nu
     if isinstance(opt_state, (tuple, list)):
@@ -122,7 +130,8 @@ def _param_order(optimizer, model):
 
 
 def load_optax_adam_state(optimizer, model, opt_state) -> None:
-    """Load optax's Adam state (the chain state) into ``optimizer`` (a ``torch.optim.Adam`` over ``model``'s
+    """Load optax's Adam state (the chain state, or ``optax_adam_state``'s
+    dict) into ``optimizer`` (a ``torch.optim.Adam`` over ``model``'s
     parameters): step = count, exp_avg = mu, exp_avg_sq = nu."""
     count, mu, nu = _adam_leaf(opt_state)
     mu, nu = flax_to_state_dict(mu), flax_to_state_dict(nu)
@@ -150,3 +159,37 @@ def optax_adam_state(optimizer, model) -> Dict[str, Any]:
             count = int(st["step"])
     return {"count": np.int32(count), "mu": state_dict_to_flax(mu),
             "nu": state_dict_to_flax(nu)}
+
+
+def _field(state, name):
+    """``state.name`` or ``state[name]``: a JAX GANTrainState or a dict."""
+    return state[name] if isinstance(state, Mapping) else getattr(state, name)
+
+
+def load_gan_train_state(state, jax_state) -> None:
+    """Load a JAX ``GANTrainState`` (numpy leaves, e.g. after
+    ``jax.device_get``; or a dict of its five fields) into the port's
+    ``train.steps.GANTrainState``: ``gen_params`` / ``disc_params`` into the
+    two modules, ``gen_opt_state`` / ``disc_opt_state`` into their Adams,
+    and ``step``."""
+    state.gen.load_state_dict(flax_to_state_dict(_field(jax_state,
+                                                        "gen_params")))
+    state.disc.load_state_dict(flax_to_state_dict(_field(jax_state,
+                                                         "disc_params")))
+    load_optax_adam_state(state.gen_optimizer, state.gen,
+                          _field(jax_state, "gen_opt_state"))
+    load_optax_adam_state(state.disc_optimizer, state.disc,
+                          _field(jax_state, "disc_opt_state"))
+    state.step = int(np.asarray(_field(jax_state, "step")))
+
+
+def gan_train_state_to_jax(state) -> Dict[str, Any]:
+    """Inverse of ``load_gan_train_state``: {"gen_params", "disc_params"
+    (``{"params": ...}`` trees), "gen_opt_state", "disc_opt_state" (as
+    ``optax_adam_state`` gives them), "step" (int32)}."""
+    return {"gen_params": state_dict_to_flax(state.gen.state_dict()),
+            "disc_params": state_dict_to_flax(state.disc.state_dict()),
+            "gen_opt_state": optax_adam_state(state.gen_optimizer, state.gen),
+            "disc_opt_state": optax_adam_state(state.disc_optimizer,
+                                               state.disc),
+            "step": np.int32(state.step)}

@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX, flax, optax, orbax or the JAX package.
+"""The port imports nothing of JAX, flax, optax, orbax, the JAX package or
+the repository's ``experiments/`` scripts.
 
 A subprocess blocks those imports (``sys.modules[name] = None`` makes any
 ``import name`` raise), then imports every module of the port and the
@@ -12,7 +13,8 @@ from pathlib import Path
 import pl_convlstm_gan_tpu_torch
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pl_convlstm_gan_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pl_convlstm_gan_tpu",
+           "experiments")
 
 _PROBE = """
 import importlib, json, runpy, sys
@@ -42,7 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "pl_convlstm_gan_tpu_torch.cli" in modules
     assert "pl_convlstm_gan_tpu_torch.streaming" in modules
     for mod in ("train.sequence_trainer", "train.steps", "train.checkpoint",
-                "losses", "data"):
+                "losses", "data", "models.discriminator",
+                "ops.kernels.tap_structure_kernel", "experiments.tap_structure"):
         assert f"pl_convlstm_gan_tpu_torch.{mod}" in modules
     code = _PROBE.format(blocked=BLOCKED, modules=modules,
                          chip_smoke=str(REPO / "chip_smoke.py"))

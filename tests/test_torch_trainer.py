@@ -156,7 +156,7 @@ def test_plateau_and_early_stopping_match_jax(metrics):
 
 
 @pytest.mark.parametrize("setting,value,item", [
-    ("model.family", "gan", "A7"),
+    ("model.family", "generator", "A8"),
     ("mesh.model_axis", 2, "A10"),
     ("mesh.data_axis", 4, "A9"),
     ("model.remat", True, "A3"),
