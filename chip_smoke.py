@@ -10,7 +10,11 @@ own line:
 2. cell kernel (K1) against its plain PyTorch version at the nowcast_128 cell
    shapes (B 4, 128x128, (Cx, Ch) = (1, 64) and (64, 64)) in float32 and
    bfloat16, plus a ragged shape (odd H/W, Ch not a multiple of the block's
-   channels, K=5); kernel, plain and library (one F.conv2d) times;
+   channels, K=5); bfloat16 also at B 1 and at (256, 256) on 64x64 (four
+   N-blocks of the wgmma kernel); kernel, plain and library (one F.conv2d)
+   times, TFLOP/s and the share of the bound; the bfloat16 kernel is timed
+   on a weight packed outside the timed loop, and pack_cell_weight's own
+   time is printed on a line of its own;
 3. head kernel (K2) the same way at the head's shape (Ch 64 -> 1 channel);
 4. main path: load_predictor on configs/nowcast_128.yaml at full width, with
    weights made from a seed and carried through weights.py, in float32 and
@@ -32,7 +36,8 @@ own line:
    and forecast(30) against the plain path, timed;
 7. cell_save_z: K1 writing z (the training form, save_z=True) against its
    plain version at the cell shapes of 2 in both dtypes (h', c' and z),
-   timed beside K1 without z, its bound, plain and library times; then
+   timed beside K1 without z, its bound, plain and library times, TFLOP/s
+   and the share of the bound; then
    ConvLSTMCellFn's backward on the card against torch autograd through
    convlstm_step_torch at the (64, 64) shape: all five gradients;
 8. train: configs/nowcast_128_pallas.yaml at full width (3x64, 128x128, B
@@ -92,7 +97,7 @@ from pl_convlstm_gan_tpu_torch.ops.kernels import build
 from pl_convlstm_gan_tpu_torch.ops.kernels import convlstm_kernel as cell_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels import rollout_kernel as head_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
-    ConvLSTMCellFn, convlstm_cell_fwd, convlstm_cell_plain)
+    ConvLSTMCellFn, convlstm_cell_fwd, convlstm_cell_plain, pack_cell_weight)
 from pl_convlstm_gan_tpu_torch.ops.kernels import tap_structure_kernel as tap_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain)
@@ -271,7 +276,8 @@ def phase_build():
         per_source={k: round(v["seconds"], 3) for k, v in report.items()})
     for name, rep in report.items():
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(word in line for word in ("registers", "spill", "wgmma",
+                                             "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
 
@@ -286,38 +292,75 @@ def cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype):
         u((4 * ch,), -bnd, bnd))]
 
 
-def phase_cell(gen, shapes, dtypes):
-    """K1 against its plain version; returns {dtype: [per-shape records]}."""
+def cell_launcher(dtype, x, h, c, w, packed, bias, h_out, c_out, z):
+    """K1's raw launch on fixed operands: the bfloat16 kernel reads the
+    packed weight (packed beforehand, outside any timed loop), float32 the
+    HWIO one."""
+    b, hgt, wid, cx = x.shape
+    return raw_launcher(
+        "convlstm_cell", cell_mod._SYMBOLS[dtype], cell_mod._ARGTYPES,
+        (x, h, c, w if packed is None else packed, bias, h_out, c_out, z),
+        (b, hgt, wid, cx, h.shape[-1], w.shape[0]))
+
+
+def cell_costs(rec, x, h, w, bias, z, name):
+    """The bound and achieved rate of one timed K1 record: operations
+    2*B*H*W*K*K*Cin*4Ch; bytes x, h, c, h', c' (and z), the HWIO weight
+    and the bias, each once."""
+    b, hgt, wid, cx = x.shape
+    k, ch = w.shape[0], h.shape[-1]
+    flops = 2 * b * hgt * wid * k * k * (cx + ch) * 4 * ch
+    nbytes = x.element_size() * (x.numel() + 4 * h.numel() + w.numel()
+                                 + bias.numel() + (0 if z is None else z.numel()))
+    rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
+    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+
+
+def time_pack(w, name, shape, phase):
+    """pack_cell_weight's time on the card (the bfloat16 kernel's weight
+    layout, made once per predictor, stream or training cell call), printed
+    on its own line. Returns (packed, ms)."""
+    packed = pack_cell_weight(w)
+    ms = time_ms(lambda: pack_cell_weight(w), 20)
+    say(phase=phase + "_pack", dtype=name, shape=shape, pack_ms=ms)
+    return packed, ms
+
+
+def phase_cell(gen, shapes):
+    """K1 against its plain version; returns {dtype: [per-shape records]}.
+    ``shapes`` = {dtype: [(B, H, W, Cx, Ch, K, role)]}, role "mix" (timed,
+    in the kernels line's per-request mix), "timed" or None (checked only)."""
     out = {}
-    for dtype in dtypes:
+    for dtype, dtype_shapes in shapes.items():
         name = str(dtype).split(".")[-1]
         atol, rtol = KERNEL_TOL[name]
         recs = []
-        for (b, hgt, wid, cx, ch, k, timed) in shapes:
+        for (b, hgt, wid, cx, ch, k, role) in dtype_shapes:
             x, h, c, w, bias = cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype)
             hk, ck = convlstm_cell_fwd(x, h, c, w, bias)
             hp, cp = convlstm_cell_plain(x, h, c, w, bias)
             torch.cuda.synchronize()
-            err = max(check_close(f"K1 h' {name} {(cx, ch, k)}", hk, hp, atol, rtol),
-                      check_close(f"K1 c' {name} {(cx, ch, k)}", ck, cp, atol, rtol))
-            rec = dict(shape=[b, hgt, wid, cx, ch, k], max_abs_err=err)
-            if timed:
+            err = max(check_close(f"K1 h' {name} {(b, cx, ch, k)}", hk, hp, atol, rtol),
+                      check_close(f"K1 c' {name} {(b, cx, ch, k)}", ck, cp, atol, rtol))
+            rec = dict(shape=[b, hgt, wid, cx, ch, k], max_abs_err=err,
+                       mix=role == "mix")
+            if role is not None:
+                packed = None
+                if dtype == torch.bfloat16:
+                    packed, rec["pack_ms"] = time_pack(w, name, rec["shape"],
+                                                       "cell_kernel")
                 h_out, c_out = torch.empty_like(h), torch.empty_like(c)
-                launch = raw_launcher(
-                    "convlstm_cell", cell_mod._SYMBOLS[dtype], cell_mod._ARGTYPES,
-                    (x, h, c, w, bias, h_out, c_out, None),
-                    (b, hgt, wid, cx, ch, k))
-                rec["ms"] = time_ms(launch, 5)
+                launch = cell_launcher(dtype, x, h, c, w, packed, bias, h_out,
+                                       c_out, None)
+                rec["ms"] = time_ms(launch, 20)
                 rec["plain_ms"] = time_ms(
                     lambda: convlstm_cell_plain(x, h, c, w, bias), 5)
                 xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)  # channels_last
                 w_oihw = w.permute(3, 2, 0, 1).contiguous()
                 rec["library_ms"] = time_ms(
-                    lambda: F.conv2d(xh, w_oihw, bias, padding=k // 2), 5)
-                flops = 2 * b * hgt * wid * k * k * (cx + ch) * 4 * ch
-                nbytes = x.element_size() * (x.numel() + 4 * h.numel()
-                                             + w.numel() + bias.numel())
-                rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
+                    lambda: F.conv2d(xh, w_oihw, bias, padding=k // 2), 20)
+                cell_costs(rec, x, h, w, bias, None, name)
             say(phase="cell_kernel", dtype=name, tol=[atol, rtol], **rec)
             recs.append(rec)
         out[name] = recs
@@ -362,56 +405,56 @@ def phase_head(gen, shapes, dtypes):
     return out
 
 
-def phase_cell_save_z(gen, shapes, dtypes):
+def phase_cell_save_z(gen, shapes, grad_shape):
     """K1 writing z against its plain version (h', c' and z), timed beside
-    K1 without z on the same operands; then ConvLSTMCellFn's gradients
-    against autograd at the (64, 64) shape. Returns {dtype: [records]}."""
+    K1 without z on the same operands (``shapes`` as phase_cell's); then
+    ConvLSTMCellFn's gradients against autograd at ``grad_shape``. Returns
+    {dtype: [records]}."""
     out = {}
-    for dtype in dtypes:
+    for dtype, dtype_shapes in shapes.items():
         name = str(dtype).split(".")[-1]
         recs = []
-        for (b, hgt, wid, cx, ch, k, timed) in shapes:
+        for (b, hgt, wid, cx, ch, k, role) in dtype_shapes:
             x, h, c, w, bias = cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype)
             z_k = torch.empty((b, hgt, wid, 4 * ch), dtype=dtype, device=DEVICE)
             z_p = torch.empty_like(z_k)
             hk, ck = convlstm_cell_fwd(x, h, c, w, bias, z_out=z_k)
             hp, cp = convlstm_cell_plain(x, h, c, w, bias, z_out=z_p)
             torch.cuda.synchronize()
-            what = f"K1+z {name} {(cx, ch, k)}"
+            what = f"K1+z {name} {(b, cx, ch, k)}"
             err = max(check_close(f"{what} h'", hk, hp, *KERNEL_TOL[name]),
                       check_close(f"{what} c'", ck, cp, *KERNEL_TOL[name]))
             err_z = check_close(f"{what} z", z_k, z_p, *Z_TOL[name])
             rec = dict(shape=[b, hgt, wid, cx, ch, k], max_abs_err=err,
-                       max_abs_err_z=err_z, max_abs_z=float(z_p.abs().max()))
-            if timed:
+                       max_abs_err_z=err_z, max_abs_z=float(z_p.abs().max()),
+                       mix=role == "mix")
+            if role is not None:
+                packed = None
+                if dtype == torch.bfloat16:
+                    packed, rec["pack_ms"] = time_pack(w, name, rec["shape"],
+                                                       "cell_save_z")
                 h_out, c_out = torch.empty_like(h), torch.empty_like(c)
-                ints = (b, hgt, wid, cx, ch, k)
-                launch = {z: raw_launcher(
-                    "convlstm_cell", cell_mod._SYMBOLS[dtype], cell_mod._ARGTYPES,
-                    (x, h, c, w, bias, h_out, c_out, z), ints)
-                    for z in (None, z_k)}
+                launch = {z: cell_launcher(dtype, x, h, c, w, packed, bias,
+                                           h_out, c_out, z)
+                          for z in (None, z_k)}
                 # in turns within one call: without z, with z, with, without
                 times = {"ms_no_z": [], "ms": []}
                 for key, z in (("ms_no_z", None), ("ms", z_k), ("ms", z_k),
                                ("ms_no_z", None)):
-                    times[key].append(time_ms(launch[z], 5))
+                    times[key].append(time_ms(launch[z], 20))
                 rec.update({key: statistics.mean(v) for key, v in times.items()})
                 rec["plain_ms"] = time_ms(
                     lambda: convlstm_cell_plain(x, h, c, w, bias, z_out=z_p), 5)
                 xh = torch.cat([x, h], -1).permute(0, 3, 1, 2)  # channels_last
                 w_oihw = w.permute(3, 2, 0, 1).contiguous()
                 rec["library_ms"] = time_ms(
-                    lambda: F.conv2d(xh, w_oihw, bias, padding=k // 2), 5)
-                flops = 2 * b * hgt * wid * k * k * (cx + ch) * 4 * ch
-                nbytes = x.element_size() * (x.numel() + 4 * h.numel()
-                                             + w.numel() + bias.numel()
-                                             + z_k.numel())
-                rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
+                    lambda: F.conv2d(xh, w_oihw, bias, padding=k // 2), 20)
+                cell_costs(rec, x, h, w, bias, z_k, name)
             say(phase="cell_save_z", dtype=name, tol=KERNEL_TOL[name],
                 tol_z=Z_TOL[name], **rec)
             recs.append(rec)
         out[name] = recs
-        out[name + "_grad"] = phase_cell_grad(gen, shapes[1], dtype, name)
+        out[name + "_grad"] = phase_cell_grad(gen, grad_shape, dtype, name)
     return out
 
 
@@ -419,7 +462,7 @@ def phase_cell_grad(gen, shape, dtype, name):
     """ConvLSTMCellFn (K1 with z, the hand-written backward) against torch
     autograd through convlstm_step_torch: the five gradients of one
     random-cotangent loss, each as max |diff| / max |reference|."""
-    b, hgt, wid, cx, ch, k, _ = shape
+    b, hgt, wid, cx, ch, k = shape
     x, h, c, w, bias = cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype)
     operands = (w, bias, x, h, c)
     gh = torch.randn((b, hgt, wid, ch), device=DEVICE, generator=gen)
@@ -1421,7 +1464,7 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
         gan_trainer["train_launches"]["convlstm_cell_fwd_save_z"]
     weights = [1, n_cells - 1]
     for name, path in paths.items():
-        c_recs = [r for r in cell[name] if "ms" in r]
+        c_recs = [r for r in cell[name] if r["mix"]]
         mix = lambda key: sum(w * r[key] for w, r in zip(weights, c_recs)) / sum(weights)
         entries.append(dict(
             name="convlstm_cell_fwd", dtype=name, route="cuda", source=K1_SOURCE,
@@ -1435,8 +1478,8 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             max_abs_err=max(r["max_abs_err"] for r in cell[name]),
             ms=mix("ms"), plain_ms=mix("plain_ms"), bound_ms=mix("bound_ms"),
             bound_by=c_recs[0]["bound_by"], library_ms=mix("library_ms"),
-            per_shape=c_recs))
-        z_recs = [r for r in cell_z[name] if "ms" in r]
+            per_shape=[r for r in cell[name] if "ms" in r]))
+        z_recs = [r for r in cell_z[name] if r["mix"]]
         zmix = lambda key: sum(w * r[key] for w, r in zip(weights, z_recs)) / sum(weights)
         by_path = {"train": trains[name]["launches_train"],
                    "train_per_step": trains[name]["launches_per_step"][
@@ -1454,7 +1497,8 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             plain_ms=zmix("plain_ms"), bound_ms=zmix("bound_ms"),
             # the bound of the shape of two of the three cells, (64, 64)
             bound_by=z_recs[-1]["bound_by"], library_ms=zmix("library_ms"),
-            grad_rel_err=cell_z[name + "_grad"], per_shape=z_recs))
+            grad_rel_err=cell_z[name + "_grad"],
+            per_shape=[r for r in cell_z[name] if "ms" in r]))
         h = [r for r in head[name] if "ms" in r][0]
         entries.append(dict(
             name="conv_head_fwd", dtype=name, route="cuda", source=K2_SOURCE,
@@ -1498,14 +1542,22 @@ def main() -> int:
     cfg = load_config("nowcast_128")
     b, size = cfg.training.batch_size, 128
     hidden = cfg.model.hidden_dims
-    cell_shapes = [(b, size, size, cfg.model.in_channels, hidden[0], 3, True),
-                   (b, size, size, hidden[0], hidden[1], 3, True),
-                   (2, 13, 21, 3, 40, 5, False)]           # ragged, K=5
+    nowcast = [(cfg.model.in_channels, hidden[0]), (hidden[0], hidden[1])]
+    ragged = (2, 13, 21, 3, 40, 5, None)                   # odd H/W, Ch 40, K=5
+    cell_shapes = {
+        torch.float32: [(b, size, size, cx, ch, 3, "mix") for cx, ch in nowcast]
+        + [ragged],
+        # bf16 adds B 1 (a stream's forecast) and (256, 256) at 64^2
+        # (tp_nowcast_128's width: four N-blocks)
+        torch.bfloat16: [(b, size, size, cx, ch, 3, "mix") for cx, ch in nowcast]
+        + [(1, size, size, cx, ch, 3, "timed") for cx, ch in nowcast]
+        + [ragged, (b, 64, 64, 256, 256, 3, "timed")]}
     head_shapes = [(b, size, size, hidden[-1], cfg.model.in_channels, 3, True),
                    (2, 13, 21, 40, 5, 3, False)]           # ragged, Cout=5
-    cell = phase_cell(gen, cell_shapes, dtypes)
+    cell = phase_cell(gen, cell_shapes)
     head = phase_head(gen, head_shapes, dtypes)
-    cell_z = phase_cell_save_z(gen, cell_shapes, dtypes)
+    cell_z = phase_cell_save_z(gen, cell_shapes,
+                               (b, size, size, hidden[0], hidden[1], 3))
 
     rng = np.random.default_rng(SEED)
     requests = [torch.from_numpy(rng.random(

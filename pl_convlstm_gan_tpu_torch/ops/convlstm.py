@@ -46,15 +46,26 @@ def convlstm_step(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     autograd) or 'kernel' (the fused CUDA cell on CUDA tensors, its plain
     version on CPU tensors). With 'kernel', a step that needs gradients runs
     ``ConvLSTMCellFn`` (K1 writing z, then the custom backward); a step
-    under ``no_grad`` / ``inference_mode`` launches K1 without z."""
+    under ``no_grad`` / ``inference_mode`` launches K1 without z. The
+    bfloat16 kernel on the card reads the weight packed once per call
+    (``pack_cell_weight``) in place of an HWIO copy; the HWIO view of the
+    weight goes to the backward."""
     if impl == "torch":
         return convlstm_step_torch(x, h, c, weight, bias)
     if impl == "kernel":
-        from .kernels.convlstm_kernel import ConvLSTMCellFn, convlstm_cell_fwd
-        operands = (hwio_from_oihw(weight).contiguous(), bias.contiguous(),
-                    x.contiguous(), h.contiguous(), c.contiguous())
+        from .kernels.convlstm_kernel import (ConvLSTMCellFn,
+                                              convlstm_cell_fwd,
+                                              pack_cell_weight)
+        w = hwio_from_oihw(weight)
+        packed = None
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            packed = pack_cell_weight(w)
+        else:
+            w = w.contiguous()
+        operands = (w, bias.contiguous(), x.contiguous(), h.contiguous(),
+                    c.contiguous())
         if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-            return ConvLSTMCellFn.apply(*operands)
+            return ConvLSTMCellFn.apply(*operands, packed)
         w, b, x, h, c = operands
-        return convlstm_cell_fwd(x, h, c, w, b)
+        return convlstm_cell_fwd(x, h, c, w, b, packed=packed)
     raise ValueError(f"Unknown convlstm impl: {impl!r} (valid: 'torch', 'kernel')")

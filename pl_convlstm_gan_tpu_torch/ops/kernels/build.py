@@ -25,6 +25,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("convlstm_cell", "conv_head", "tap_structure")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# after the source: the driver API (cuTensorMapEncodeTiled, for TMA maps)
+LINK_FLAGS = ("-lcuda",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -50,7 +52,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Content-addressed path of the built library for ``csrc/<name>.cu``."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -71,7 +73,7 @@ def build_all() -> dict[str, dict]:
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
+               str(CSRC_DIR / f"{name}.cu"), *LINK_FLAGS]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)

@@ -9,8 +9,9 @@ custom VJP ``convlstm_step_pallas_core`` (``_fwd`` / ``_bwd``). The kernel is
 laid out. Here are its wrapper ``convlstm_cell_fwd``, its plain PyTorch
 version ``convlstm_cell_plain``, its launch counts
 (``convlstm_cell_fwd.launches`` without ``z``, ``convlstm_cell_fwd.launches_z``
-with it) and ``ConvLSTMCellFn``, the training step as a
-``torch.autograd.Function``.
+with it), ``pack_cell_weight`` (the bfloat16 kernel's weight layout, made
+once per predictor, stream or training cell call) and ``ConvLSTMCellFn``,
+the training step as a ``torch.autograd.Function``.
 
 On CUDA tensors the wrapper launches the kernel or raises; it takes the plain
 version only for tensors on the CPU.
@@ -30,16 +31,71 @@ _I = ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
 _SYMBOLS = {torch.float32: "convlstm_cell_fwd_f32",
             torch.bfloat16: "convlstm_cell_fwd_bf16"}
+BK = 64                 # k-block of the bfloat16 kernel: 64 input channels
+_SMEM_LIMIT = 232448    # shared memory one Hopper block may use (227 KB)
+_STAGE_BYTES = 128 * BK * 2 + 256 * BK * 2   # A tile + B tile of one k-block
+_FOLD_BYTES = 128 * BK * 2                  # one k-block of folded x
+
+
+def k_blocks(cx: int, ch: int, k: int):
+    """The bfloat16 kernel's k-blocks of 64: (n_fold, n_x, n_h).
+
+    x whose rows are not a multiple of 16 bytes (``cx % 8 != 0``, e.g. the
+    1-channel frames of cell 1) cannot be read by TMA; it is folded over all
+    K*K taps (tap-major, channel-minor) into ``n_fold`` k-blocks that the
+    kernel gathers itself. Otherwise each tap has ``n_x`` k-blocks of x and,
+    always, ``n_h`` of h (channels zero-padded to 64)."""
+    fold = cx % 8 != 0
+    n_fold = -(-(k * k * cx) // BK) if fold else 0
+    return n_fold, 0 if fold else -(-cx // BK), -(-ch // BK)
+
+
+def packed_shape(cx: int, ch: int, k: int):
+    """Shape of ``pack_cell_weight``'s result: [4Ch, K_total]."""
+    n_fold, n_x, n_h = k_blocks(cx, ch, k)
+    return 4 * ch, BK * (n_fold + k * k * (n_x + n_h))
+
+
+def pack_cell_weight(weight):
+    """HWIO [K, K, Cx+Ch, 4Ch] -> the bfloat16 kernel's B operand
+    [4Ch, K_total], K-major, in ``weight``'s dtype, not differentiable.
+
+    Rows (GEMM columns) are gate-interleaved in groups of 32: row
+    ``32q + 8g + e`` holds gate g (i|f|o|g) of hidden channel ``8q + e``, so a
+    thread of the kernel's ``wgmma`` accumulator holds all four gates of its
+    (pixel, channel) pairs. K runs over the k-blocks of ``k_blocks``: the
+    folded x of every tap first (when ``Cx % 8 != 0``), then per tap (row
+    major over (di, dj)) x's channels padded to a multiple of 64 (when x is
+    not folded) and h's channels padded to a multiple of 64. Padding is
+    zero. Raises ValueError when Ch is not a multiple of 8."""
+    k, _, cin, n = weight.shape
+    ch = n // 4
+    cx = cin - ch
+    if ch % 8 != 0 or n != 4 * ch:
+        raise ValueError(f"the bfloat16 cell kernel needs Ch a multiple of 8, "
+                         f"got weight {tuple(weight.shape)} (Ch {n / 4:g})")
+    n_fold, n_x, n_h = k_blocks(cx, ch, k)
+    w = weight.detach().reshape(k * k, cin, 4, ch // 8, 8).transpose(2, 3)
+    w = w.reshape(k * k, cin, n).permute(2, 0, 1)          # [N, taps, Cin]
+    out = weight.new_zeros(packed_shape(cx, ch, k))
+    taps = out[:, BK * n_fold:].view(n, k * k, BK * (n_x + n_h))
+    if n_fold:
+        out[:, :k * k * cx] = w[:, :, :cx].reshape(n, k * k * cx)
+    else:
+        taps[:, :, :cx] = w[:, :, :cx]
+    taps[:, :, BK * n_x:BK * n_x + ch] = w[:, :, cx:]
+    return out
 
 
 def convlstm_cell_plain(x, h, c, weight, bias, h_out=None, c_out=None,
-                        z_out=None):
+                        z_out=None, packed=None):
     """Plain PyTorch version of K1 with the same arguments and rounding points
     (those of ``ops.convlstm.convlstm_step_torch``): the conv and bias in
     float32, the gates in float32, h' and c' (and z) rounded once to x's
-    type. ``weight`` is HWIO [K, K, Cx+Ch, 4Ch]. Writes into
-    ``h_out``/``c_out`` when given (``c_out`` may be ``c``) and z into
-    ``z_out`` when given; returns (h', c')."""
+    type. ``weight`` is HWIO [K, K, Cx+Ch, 4Ch]; ``packed`` (the kernel's
+    layout of the same weight) is not read. Writes into ``h_out``/``c_out``
+    when given (``c_out`` may be ``c``) and z into ``z_out`` when given;
+    returns (h', c')."""
     z = conv2d_nhwc_f32(torch.cat([x, h], dim=-1), oihw_from_hwio(weight),
                         bias)
     h_new, c_new = convlstm_gates(z, c.float())
@@ -53,7 +109,13 @@ def convlstm_cell_plain(x, h, c, weight, bias, h_out=None, c_out=None,
     return h_out, c_out
 
 
-def _check_args(x, h, c, weight, bias, h_out, c_out, z_out):
+def _check_args(x, h, c, weight, bias, h_out, c_out, z_out, packed=None):
+    """Raise ValueError on what the kernel of x's dtype does not take. The
+    bfloat16 kernel reads ``packed`` in place of ``weight`` (which it then
+    needs neither contiguous nor one dtype with the rest), needs Ch a
+    multiple of 8, and reads or writes every operand but ``bias`` (and x
+    when it is folded) by TMA or 16-byte accesses, so they must be 16-byte
+    aligned."""
     b, hgt, wid, cx = x.shape
     ch = h.shape[-1]
     k = weight.shape[0]
@@ -67,7 +129,22 @@ def _check_args(x, h, c, weight, bias, h_out, c_out, z_out):
                            ("c_out", c_out, (b, hgt, wid, ch))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    tensors = (x, h, c, weight, bias, h_out, c_out)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        if ch % 8 != 0:
+            raise ValueError(f"the bfloat16 cell kernel needs Ch a multiple "
+                             f"of 8, got Ch {ch}")
+        n_fold = k_blocks(cx, ch, k)[0]
+        if n_fold and 2 * _STAGE_BYTES + n_fold * _FOLD_BYTES + 2048 > _SMEM_LIMIT:
+            raise ValueError(f"x of {cx} channels folded over {k}x{k} taps "
+                             f"takes {n_fold} k-blocks; the kernel holds 8")
+        if packed is None:
+            raise ValueError("the bfloat16 cell kernel reads the packed "
+                             "weight: pass packed=pack_cell_weight(weight)")
+        if tuple(packed.shape) != packed_shape(cx, ch, k):
+            raise ValueError(f"packed must be {packed_shape(cx, ch, k)}, got "
+                             f"{tuple(packed.shape)}")
+    tensors = (x, h, c, packed if bf16 else weight, bias, h_out, c_out)
     if z_out is not None:
         if tuple(z_out.shape) != (b, hgt, wid, 4 * ch):
             raise ValueError(f"z_out must be {(b, hgt, wid, 4 * ch)}, got "
@@ -82,10 +159,16 @@ def _check_args(x, h, c, weight, bias, h_out, c_out, z_out):
         raise ValueError("cell kernel operands must be contiguous")
     if h_out.data_ptr() in (h.data_ptr(), x.data_ptr()):
         raise ValueError("h_out must not alias h or x: neighbours read h's halo")
+    if bf16:
+        aligned = [t for t in tensors if t is not bias and
+                   (t is not x or cx % 8 == 0)]
+        if any(t.data_ptr() % 16 for t in aligned):
+            raise ValueError("the bfloat16 cell kernel needs 16-byte aligned "
+                             "operands (TMA and 16-byte stores)")
 
 
 def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
-                      z_out=None):
+                      z_out=None, packed=None):
     """One ConvLSTM step. x [B,H,W,Cx], h/c [B,H,W,Ch], weight HWIO
     [K,K,Cx+Ch,4Ch] (odd K), bias [4Ch], all one dtype (float32 or bfloat16).
 
@@ -94,7 +177,9 @@ def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
     ``h`` or ``x``) and returns (h_out, c_out). With ``z_out``
     [B,H,W,4Ch] (the training form, save_z=True) the kernel also writes the
     pre-activation z there; such launches count in ``launches_z``, the
-    others in ``launches``."""
+    others in ``launches``. The bfloat16 kernel reads ``packed``
+    (``pack_cell_weight(weight)``, made here when None: callers that launch
+    repeatedly pack once) and needs Ch a multiple of 8."""
     if (h_out is None) != (c_out is None):
         raise ValueError("pass both h_out and c_out, or neither")
     tensors = (x, h, c, weight, bias)
@@ -103,18 +188,21 @@ def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
         return convlstm_cell_plain(x, h, c, weight, bias, h_out, c_out, z_out)
     if h_out is None:
         h_out, c_out = torch.empty_like(h), torch.empty_like(c)
-    tensors += (h_out, c_out)
     if any(t.device != x.device or t.device.type != "cuda"
-           for t in tensors + (z_out,) if t is not None):
+           for t in tensors + (h_out, c_out, z_out, packed) if t is not None):
         raise ValueError("cell kernel operands must all lie on one CUDA device")
     if x.dtype not in _SYMBOLS:
         raise ValueError(f"cell kernel takes float32 or bfloat16, got {x.dtype}")
-    _check_args(x, h, c, weight, bias, h_out, c_out, z_out)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and packed is None:
+        packed = pack_cell_weight(weight)
+    _check_args(x, h, c, weight, bias, h_out, c_out, z_out, packed)
     b, hgt, wid, cx = x.shape
     fn = build.load_function("convlstm_cell", _SYMBOLS[x.dtype], _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors),
+        err = fn(*(t.data_ptr() for t in (x, h, c, packed if bf16 else weight,
+                                          bias, h_out, c_out)),
                  None if z_out is None else z_out.data_ptr(), b, hgt, wid, cx,
                  h.shape[-1], weight.shape[0], stream)
     build.check(err, "convlstm_cell", "convlstm_cell_fwd launch")
@@ -135,9 +223,12 @@ class ConvLSTMCellFn(torch.autograd.Function):
     (``_fwd`` / ``_bwd``, ``ops/pallas/convlstm_kernel.py:325-388``).
 
     apply(weight HWIO [K,K,Cx+Ch,4Ch], bias [4Ch], x [B,H,W,Cx], h, c
-    [B,H,W,Ch]) -> (h', c'). On CUDA tensors the forward launches K1 (all
-    operands one dtype); on CPU tensors it runs K1's plain version, which
-    also takes mixed dtypes, and the backward is the same code either way.
+    [B,H,W,Ch], packed=None) -> (h', c'). On CUDA tensors the forward
+    launches K1 (all operands one dtype; bfloat16 reads ``packed``, the
+    non-differentiable ``pack_cell_weight(weight)``, made by the caller once
+    per cell call, while ``weight`` itself, which may be a view, is kept for
+    the backward); on CPU tensors it runs K1's plain version, which also
+    takes mixed dtypes, and the backward is the same code either way.
 
     The residuals are those of ``_fwd``: (weight, bias, x, h, c, z, c'). The
     backward recomputes the gates from the stored z in float32 and tanh from
@@ -150,14 +241,15 @@ class ConvLSTMCellFn(torch.autograd.Function):
     z: c is a residual here, so it is never updated in place."""
 
     @staticmethod
-    def forward(ctx, weight, bias, x, h, c):
+    def forward(ctx, weight, bias, x, h, c, packed=None):
         if weight.shape[0] % 2 == 0:
             raise ValueError(f"the cell's custom backward needs an odd kernel "
                              f"size, got {tuple(weight.shape[:2])}")
         b, hgt, wid, _ = x.shape
         z = torch.empty((b, hgt, wid, 4 * h.shape[-1]), dtype=x.dtype,
                         device=x.device)
-        h_next, c_next = convlstm_cell_fwd(x, h, c, weight, bias, z_out=z)
+        h_next, c_next = convlstm_cell_fwd(x, h, c, weight, bias, z_out=z,
+                                           packed=packed)
         ctx.save_for_backward(weight, bias, x, h, c, z, c_next)
         return h_next, c_next
 
@@ -204,4 +296,4 @@ class ConvLSTMCellFn(torch.autograd.Function):
         if need_dw:
             dw = dw.permute(2, 3, 1, 0).to(weight.dtype)  # OIHW -> HWIO
         db = dz.sum(dim=(0, 2, 3)).to(bias.dtype)
-        return dw, db, dx, dh_prev, dc_prev.to(c.dtype)
+        return dw, db, dx, dh_prev, dc_prev.to(c.dtype), None

@@ -30,7 +30,8 @@ path serves 128 px and 256 px frames alike.
 This module holds:
 - K2's wrapper ``conv_head_fwd``, its plain version ``conv_head_plain`` and
   its launch count ``conv_head_fwd.launches``;
-- ``pack_weights``: the model's state_dict -> the kernels' HWIO layout;
+- ``pack_weights``: the model's state_dict -> the kernels' HWIO layout, and
+  in bfloat16 each cell's weight packed once for K1 (``pack_cell_weight``);
 - ``rollout_kernel`` (the counterpart of ``rollout_pallas``) and
   ``rollout_plain``: the same loop through the wrappers or the plain versions;
 - ``rollout_kernel_from_state`` (the counterpart of
@@ -46,7 +47,8 @@ import torch
 
 from ..nn import conv2d_nhwc_f32, hwio_from_oihw, oihw_from_hwio
 from . import build
-from .convlstm_kernel import convlstm_cell_fwd, convlstm_cell_plain
+from .convlstm_kernel import (convlstm_cell_fwd, convlstm_cell_plain,
+                             pack_cell_weight)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -107,16 +109,21 @@ conv_head_fwd.launches = 0
 class RolloutWeights(NamedTuple):
     """Forecaster weights in the kernels' layout and the compute dtype:
     ``cells`` = ((HWIO [K,K,Cin,4Ch], bias [4Ch]), ...) bottom-up, ``head`` =
-    (HWIO [3,3,Ch_top,C], bias [C])."""
+    (HWIO [3,3,Ch_top,C], bias [C]), ``packed`` = per cell the bfloat16 K1's
+    weight (``pack_cell_weight``), or None (float32, or weights on the CPU,
+    where K1's plain version runs)."""
     cells: tuple
     head: tuple
+    packed: tuple
 
 
 def pack_weights(state_dict, compute_dtype=torch.bfloat16) -> RolloutWeights:
     """A ConvLSTMForecaster state_dict (``core.cell_<i>.weight`` OIHW, ...)
     -> RolloutWeights. Weights AND biases are cast to the compute dtype, as
-    the TPU kernel's ``_pack_weights`` does. Raises on what K1 and K2 do not
-    take (an even kernel size)."""
+    the TPU kernel's ``_pack_weights`` does; bfloat16 weights on the card
+    are also packed for K1, once here. Raises on what K1 and K2 do not take
+    (an even kernel size; bfloat16 on the card: a hidden width that is not a
+    multiple of 8)."""
     n = sum(1 for k in state_dict if k.startswith("core.cell_")
             and k.endswith(".weight"))
     if n == 0:
@@ -130,8 +137,10 @@ def pack_weights(state_dict, compute_dtype=torch.bfloat16) -> RolloutWeights:
         return (hwio_from_oihw(w).to(compute_dtype).contiguous(),
                 state_dict[f"{prefix}.bias"].to(compute_dtype).contiguous())
 
-    return RolloutWeights(tuple(conv(f"core.cell_{i}") for i in range(n)),
-                          conv("core.head"))
+    cells = tuple(conv(f"core.cell_{i}") for i in range(n))
+    packed = tuple(pack_cell_weight(w) if w.is_cuda and
+                   compute_dtype == torch.bfloat16 else None for w, _ in cells)
+    return RolloutWeights(cells, conv("core.head"), packed)
 
 
 def _time_major(weights: RolloutWeights, frames, compute_dtype):
@@ -186,9 +195,10 @@ def _steps(weights: RolloutWeights, fr, steps: int, emit_from: int, seeds,
     c_bufs = [torch.empty_like(c_seed) for _, c_seed in seeds]
     for t in range(steps):
         x = fr[t] if t < t_in else out[t - 1 - emit_from]
-        for k, (w, bias) in enumerate(weights.cells):
+        for k, ((w, bias), packed) in enumerate(zip(weights.cells,
+                                                    weights.packed)):
             h_new = h_bufs[k][t % 2]
-            cell_fn(x, *state[k], w, bias, h_new, c_bufs[k])
+            cell_fn(x, *state[k], w, bias, h_new, c_bufs[k], packed=packed)
             state[k] = (h_new, c_bufs[k])
             x = h_new
         if t >= emit_from:
