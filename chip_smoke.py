@@ -8,14 +8,15 @@ own line:
 1. build: nvcc builds the kernels of pl_convlstm_gan_tpu_torch/csrc/ for
    sm_90a (all sources in parallel), with ptxas' register/spill report;
 2. cell kernel (K1) against its plain PyTorch version at the nowcast_128 cell
-   shapes (B 4, 128x128, (Cx, Ch) = (1, 64) and (64, 64)) in float32 and
-   bfloat16, plus a ragged shape (odd H/W, Ch not a multiple of the block's
-   channels, K=5); bfloat16 also at B 1 and at (256, 256) on 64x64 (four
-   N-blocks of the wgmma kernel); kernel, plain and library (one F.conv2d)
-   times, TFLOP/s and the share of the bound; the bfloat16 kernel is timed
-   on a weight packed outside the timed loop, and pack_cell_weight's own
-   time is printed on a line of its own;
-3. head kernel (K2) the same way at the head's shape (Ch 64 -> 1 channel);
+   shapes (B 4, 128x128, (Cx, Ch) = (1, 64) and (64, 64)) and at B 1 in
+   float32 and bfloat16, plus a ragged shape (odd H/W, Ch not a multiple of
+   the block's channels, K=5); float32 also at gan_64's cells (B 8, 64x64),
+   bfloat16 at (256, 256) on 64x64 (four N-blocks of the wgmma kernel);
+   kernel, plain and library (one F.conv2d) times, TFLOP/s and the share of
+   the bound; each kernel is timed on a weight packed outside the timed
+   loop (kernel_pack), and the pack's own time is printed on its own line;
+3. head kernel (K2) the same way in both dtypes at the head's shape (Ch 64
+   -> 1 channel) at B 4 and B 1, and at a ragged shape with Cout 5;
 4. main path: load_predictor on configs/nowcast_128.yaml at full width, with
    weights made from a seed and carried through weights.py, in float32 and
    bfloat16; each serves 3 requests of [4, 5, 1, 128, 128] through the
@@ -33,7 +34,12 @@ own line:
    observe and of forecast(30), kernel and plain, beside the forecast's
    bound; torch.profiler over one B 1 forecast(30) (idle share);
 6. precip_256 (2x64 cells, 256x256, bf16, B 1): observe_window of 5 frames
-   and forecast(30) against the plain path, timed;
+   and forecast(30) against the plain path, timed; then fit: rollout_impl
+   auto on models that K1 or K2 refuse (bf16 Ch 12, f32 7x7 cells, f32 head
+   of 6 channels) serves a request and a stream on the plain path with zero
+   K1/K2 launches and the bits of rollout_impl torch, rollout_impl kernel
+   and pallas raise naming the rule, and nowcast_128 in both dtypes still
+   takes the kernels with exact launch counts;
 7. cell_save_z: K1 writing z (the training form, save_z=True) against its
    plain version at the cell shapes of 2 in both dtypes (h', c' and z),
    timed beside K1 without z, its bound, plain and library times, TFLOP/s
@@ -97,15 +103,16 @@ from pl_convlstm_gan_tpu_torch.ops.kernels import build
 from pl_convlstm_gan_tpu_torch.ops.kernels import convlstm_kernel as cell_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels import rollout_kernel as head_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
-    ConvLSTMCellFn, convlstm_cell_fwd, convlstm_cell_plain, pack_cell_weight)
+    ConvLSTMCellFn, convlstm_cell_fwd, convlstm_cell_plain, kernel_pack)
 from pl_convlstm_gan_tpu_torch.ops.kernels import tap_structure_kernel as tap_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain)
 from pl_convlstm_gan_tpu_torch.ops.kernels.tap_structure_kernel import (
     big_plain, tap_k1152, tap_loop, taps_plain)
 from pl_convlstm_gan_tpu_torch.ops.nn import oihw_from_hwio
-from pl_convlstm_gan_tpu_torch.predict import (build_discriminator,
-                                               build_model, load_predictor)
+from pl_convlstm_gan_tpu_torch.predict import (
+    build_discriminator, build_model, build_predict_fn, load_predictor,
+    rollout_choice)
 from pl_convlstm_gan_tpu_torch.streaming import StreamingForecaster
 from pl_convlstm_gan_tpu_torch.train.steps import (
     GANTrainState, TrainState, forecaster_eval_step, forecaster_loss,
@@ -248,17 +255,43 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters):
+    """Mean device time of fn over `iters` calls captured in one CUDA graph
+    and replayed (after a warm-up call and a warm-up replay): the launches
+    back to back on the device without the host's launch gaps, for kernels
+    shorter than one Python launch."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def raw_launcher(lib, symbol, argtypes, tensors, ints):
     """The kernel's C entry bound to fixed operands: a launch without the
     wrapper's Python checks (for timing, after the wrapper has checked them
-    once); a None operand passes a null pointer. It does not touch the
-    wrapper's launch counts."""
+    once) on the current stream; a None operand passes a null pointer. It
+    does not touch the wrapper's launch counts."""
     fn = build.load_function(lib, symbol, argtypes)
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        build.check(fn(*ptrs, *ints, stream), lib, symbol)
+        build.check(fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream),
+                    lib, symbol)
     return launch
 
 
@@ -293,13 +326,13 @@ def cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype):
 
 
 def cell_launcher(dtype, x, h, c, w, packed, bias, h_out, c_out, z):
-    """K1's raw launch on fixed operands: the bfloat16 kernel reads the
-    packed weight (packed beforehand, outside any timed loop), float32 the
-    HWIO one."""
+    """K1's raw launch on fixed operands: it reads the weight packed in its
+    dtype's layout (kernel_pack, packed beforehand, outside any timed
+    loop)."""
     b, hgt, wid, cx = x.shape
     return raw_launcher(
         "convlstm_cell", cell_mod._SYMBOLS[dtype], cell_mod._ARGTYPES,
-        (x, h, c, w if packed is None else packed, bias, h_out, c_out, z),
+        (x, h, c, packed, bias, h_out, c_out, z),
         (b, hgt, wid, cx, h.shape[-1], w.shape[0]))
 
 
@@ -318,11 +351,11 @@ def cell_costs(rec, x, h, w, bias, z, name):
 
 
 def time_pack(w, name, shape, phase):
-    """pack_cell_weight's time on the card (the bfloat16 kernel's weight
-    layout, made once per predictor, stream or training cell call), printed
-    on its own line. Returns (packed, ms)."""
-    packed = pack_cell_weight(w)
-    ms = time_ms(lambda: pack_cell_weight(w), 20)
+    """kernel_pack's time on the card (K1's weight layout of w's dtype, made
+    once per predictor, stream or training forward pass), printed on its own
+    line. Returns (packed, ms)."""
+    packed = kernel_pack(w, w.dtype)
+    ms = time_ms(lambda: kernel_pack(w, w.dtype), 20)
     say(phase=phase + "_pack", dtype=name, shape=shape, pack_ms=ms)
     return packed, ms
 
@@ -346,10 +379,8 @@ def phase_cell(gen, shapes):
             rec = dict(shape=[b, hgt, wid, cx, ch, k], max_abs_err=err,
                        mix=role == "mix")
             if role is not None:
-                packed = None
-                if dtype == torch.bfloat16:
-                    packed, rec["pack_ms"] = time_pack(w, name, rec["shape"],
-                                                       "cell_kernel")
+                packed, rec["pack_ms"] = time_pack(w, name, rec["shape"],
+                                                   "cell_kernel")
                 h_out, c_out = torch.empty_like(h), torch.empty_like(c)
                 launch = cell_launcher(dtype, x, h, c, w, packed, bias, h_out,
                                        c_out, None)
@@ -389,16 +420,22 @@ def phase_head(gen, shapes, dtypes):
                 launch = raw_launcher("conv_head", head_mod._SYMBOLS[dtype],
                                       head_mod._ARGTYPES, (h, w, bias, o),
                                       (b, hgt, wid, cin, cout, k))
-                rec["ms"] = time_ms(launch, 50)
-                rec["plain_ms"] = time_ms(lambda: conv_head_plain(h, w, bias), 50)
+                # K2 and its library call take ~10 us: the eager loop (ms,
+                # library_ms, as in earlier records) includes the host's
+                # launch rate; a graph of the launches (graph_ms,
+                # library_graph_ms) gives the device time alone
                 h_nchw = h.permute(0, 3, 1, 2)                    # channels_last
                 w_oihw = w.permute(3, 2, 0, 1).contiguous()
-                rec["library_ms"] = time_ms(
-                    lambda: F.conv2d(h_nchw, w_oihw, bias, padding=k // 2), 50)
+                library = lambda: F.conv2d(h_nchw, w_oihw, bias, padding=k // 2)
+                rec["ms"], rec["graph_ms"] = time_ms(launch, 50), graph_ms(launch, 50)
+                rec["plain_ms"] = time_ms(lambda: conv_head_plain(h, w, bias), 50)
+                rec["library_ms"] = time_ms(library, 50)
+                rec["library_graph_ms"] = graph_ms(library, 50)
                 flops = 2 * b * hgt * wid * k * k * cin * cout
                 nbytes = h.element_size() * (h.numel() + w.numel() + bias.numel()
                                              + o.numel())
                 rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, name)
+                rec["bound_share"] = rec["bound_ms"] / rec["graph_ms"]
             say(phase="head_kernel", dtype=name, tol=[atol, rtol], **rec)
             recs.append(rec)
         out[name] = recs
@@ -429,10 +466,8 @@ def phase_cell_save_z(gen, shapes, grad_shape):
                        max_abs_err_z=err_z, max_abs_z=float(z_p.abs().max()),
                        mix=role == "mix")
             if role is not None:
-                packed = None
-                if dtype == torch.bfloat16:
-                    packed, rec["pack_ms"] = time_pack(w, name, rec["shape"],
-                                                       "cell_save_z")
+                packed, rec["pack_ms"] = time_pack(w, name, rec["shape"],
+                                                   "cell_save_z")
                 h_out, c_out = torch.empty_like(h), torch.empty_like(c)
                 launch = {z: cell_launcher(dtype, x, h, c, w, packed, bias,
                                            h_out, c_out, z)
@@ -1334,6 +1369,12 @@ def phase_gan(name, dtype_name, step_impl, tf_prob, steps, cuts, seed):
                              f"{impl_param:.3e} > 2 lr")
     del pair
 
+    # the two paths' steps again, taken in turns on one batch, so that a
+    # slower host weighs on both alike (the p50s above run one path, then
+    # the other)
+    turns = p50_ms({p: (lambda s=gan_step_fn(st, cfgs[p], lr, d_lr, draws[0]):
+                        s(batches[0])) for p, st in paths.items()})
+
     prof = profile_gan_step(gan_step_fn(paths["kernel"], cfg, lr, d_lr,
                                         draws[0]), batches[0],
                             statistics.median(times["kernel"]))
@@ -1350,6 +1391,8 @@ def phase_gan(name, dtype_name, step_impl, tf_prob, steps, cuts, seed):
                kernel_p50_ms=statistics.median(times["kernel"]),
                plain_p50_ms=statistics.median(times["plain"]),
                kernel_ms=times["kernel"], plain_ms=times["plain"],
+               kernel_p50_ms_in_turns=turns["kernel"][0],
+               plain_p50_ms_in_turns=turns["plain"][0],
                errors=errs, tol=tol,
                impl_check={"other": other, "loss_err": impl_err,
                            "param_err": impl_param},
@@ -1426,6 +1469,82 @@ def phase_gan_trainer(tmp, seed):
                d_loss=h3["d_loss"], val_l1=h3["val_l1"], test_metrics=metrics)
     say(phase="gan_trainer", **rec)
     return rec
+
+
+# models that K1 or K2 refuse on the card (config nowcast_128 with these
+# changes, 32x32 frames, B 2): (what, dtype, hidden_dims, kernel_size, the
+# words of the rule that must name the refusal)
+REFUSED_MODELS = (
+    ("bf16 Ch 12", "bfloat16", [12, 12], 3, "multiple of 8"),
+    ("f32 7x7 cells", "float32", [16], 7, "kernel sizes"),
+    ("f32 head Cin 6", "float32", [6], 3, "multiple of 4"),
+)
+
+
+def phase_fit(tmp, seed):
+    """C1 on the card: rollout_impl auto routes a model that K1 or K2
+    refuses to the plain path before any launch (zero K1/K2 launches in a
+    request and in a stream, the same bits as rollout_impl torch), and
+    rollout_impl kernel (and JAX's pallas) raises naming the rule; the
+    nowcast_128 configs, f32 and bf16, still take the kernels, with exact
+    launch counts."""
+    recs = []
+    rng = np.random.default_rng(seed)
+    for what, dtype_name, hidden, k, rule in REFUSED_MODELS:
+        cfg = load_config("nowcast_128")
+        cfg.precision.compute_dtype = dtype_name
+        cfg.model.hidden_dims, cfg.model.kernel_size = hidden, k
+        cfg.validate()
+        ckpt = write_checkpoint(os.path.join(tmp, f"fit_{len(recs)}.npz"),
+                                cfg, seed)
+        if rollout_choice(cfg, torch.device("cuda")) != "torch":
+            raise AssertionError(f"fit {what}: auto did not choose torch")
+        frames = torch.from_numpy(rng.random(
+            (2, cfg.model.input_frames, 1, 32, 32), dtype=np.float32)).cuda()
+        reset_counts()
+        out = load_predictor(cfg, ckpt)(frames)
+        sf = StreamingForecaster.from_checkpoint(cfg, ckpt)
+        state, _ = sf.observe_window(sf.init_state(2, 32, 32), frames)
+        sf.forecast(state, 3)
+        expect_counts(f"fit {what} auto", 0, 0)
+        cfg_torch = load_config("nowcast_128")
+        cfg_torch.precision.compute_dtype = dtype_name
+        cfg_torch.model.hidden_dims, cfg_torch.model.kernel_size = hidden, k
+        cfg_torch.model.rollout_impl = "torch"
+        if not torch.equal(out, load_predictor(cfg_torch, ckpt)(frames)):
+            raise AssertionError(f"fit {what}: auto differs from torch")
+        refusals = {}
+        for impl in ("kernel", "pallas"):
+            try:
+                build_predict_fn(cfg, ckpt, rollout_impl=impl)
+            except ValueError as err:
+                refusals[impl] = str(err)
+            if rule not in refusals.get(impl, ""):
+                raise AssertionError(f"fit {what}: rollout_impl {impl} did "
+                                     f"not refuse by its rule: {refusals}")
+        recs.append(dict(model=what, dtype=dtype_name, hidden=hidden,
+                         kernel_size=k, auto="torch", auto_launches=[0, 0],
+                         refusal=refusals["kernel"]))
+    fits = {}
+    cfg = load_config("nowcast_128")
+    steps = cfg.model.input_frames + cfg.model.output_frames - 1
+    n_cells = len(cfg.model.hidden_dims)
+    ckpt = write_checkpoint(os.path.join(tmp, "fit_nowcast.npz"), cfg, seed)
+    request = torch.from_numpy(rng.random(
+        (1, cfg.model.input_frames, 1, 128, 128), dtype=np.float32)).cuda()
+    for dtype_name in ("float32", "bfloat16"):
+        cfg.precision.compute_dtype = dtype_name
+        if rollout_choice(cfg, torch.device("cuda")) != "kernel":
+            raise AssertionError(f"fit nowcast_128 {dtype_name}: auto did "
+                                 f"not choose the kernels")
+        predict = load_predictor(cfg, ckpt)
+        reset_counts()
+        predict(request)
+        fits[dtype_name] = expect_counts(f"fit nowcast_128 {dtype_name}",
+                                         steps * n_cells,
+                                         cfg.model.output_frames)
+    say(phase="fit", refused=recs, nowcast_128_launches=fits)
+    return recs
 
 
 def write_checkpoint(path, cfg, seed):
@@ -1508,8 +1627,11 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                 "predict": path["launches"]["conv_head_fwd"],
                 "stream": streams[name]["launches"]["conv_head_fwd"]},
             max_abs_err=max(r["max_abs_err"] for r in head[name]),
-            ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
-            bound_by=h["bound_by"], library_ms=h["library_ms"]))
+            ms=h["ms"], graph_ms=h["graph_ms"], plain_ms=h["plain_ms"],
+            bound_ms=h["bound_ms"], bound_by=h["bound_by"],
+            library_ms=h["library_ms"],
+            library_graph_ms=h["library_graph_ms"],
+            per_shape=[r for r in head[name] if "ms" in r]))
     for name, source, replaces, stands_for in (
             ("tap_loop", K3_SOURCE, K3_REPLACES, K3_STANDS_FOR),
             ("tap_k1152", K4_SOURCE, K4_REPLACES, K4_STANDS_FOR)):
@@ -1544,8 +1666,16 @@ def main() -> int:
     hidden = cfg.model.hidden_dims
     nowcast = [(cfg.model.in_channels, hidden[0]), (hidden[0], hidden[1])]
     ragged = (2, 13, 21, 3, 40, 5, None)                   # odd H/W, Ch 40, K=5
+    gan = load_config("gan_64")
+    gan_b, gan_size = gan.training.batch_size, gan.data.synthetic_image_size
+    gan_cells = [(gan.model.in_channels, gan.model.hidden_dims[0]),
+                 (gan.model.hidden_dims[0], gan.model.hidden_dims[1])]
     cell_shapes = {
+        # f32 adds B 1 (a stream's forecast) and gan_64's cells (B 8, 64^2)
         torch.float32: [(b, size, size, cx, ch, 3, "mix") for cx, ch in nowcast]
+        + [(1, size, size, cx, ch, 3, "timed") for cx, ch in nowcast]
+        + [(gan_b, gan_size, gan_size, cx, ch, 3, "timed")
+           for cx, ch in gan_cells]
         + [ragged],
         # bf16 adds B 1 (a stream's forecast) and (256, 256) at 64^2
         # (tp_nowcast_128's width: four N-blocks)
@@ -1553,7 +1683,8 @@ def main() -> int:
         + [(1, size, size, cx, ch, 3, "timed") for cx, ch in nowcast]
         + [ragged, (b, 64, 64, 256, 256, 3, "timed")]}
     head_shapes = [(b, size, size, hidden[-1], cfg.model.in_channels, 3, True),
-                   (2, 13, 21, 40, 5, 3, False)]           # ragged, Cout=5
+                   (1, size, size, hidden[-1], cfg.model.in_channels, 3, True),
+                   (2, 13, 21, 40, 5, 3, True)]            # ragged, Cout=5
     cell = phase_cell(gen, cell_shapes)
     head = phase_head(gen, head_shapes, dtypes)
     cell_z = phase_cell_save_z(gen, cell_shapes,
@@ -1580,6 +1711,7 @@ def main() -> int:
         profile_request(lambda st: sf.forecast(st, STREAM_HORIZON), warm_b1,
                         phase="stream_profile")
         phase_precip_256(tmp, SEED)
+        phase_fit(tmp, SEED)
         trains = {dtype_name: phase_train(dtype_name, SEED)
                   for dtype_name in ("bfloat16", "float32")}
         trainer = phase_trainer(tmp, requests[0])

@@ -10,7 +10,8 @@
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode stream \\
         --input frames.npy --checkpoint params.npz [--horizons 10,30]
 
-Train mode runs ``SequenceTrainer`` (forecaster and GAN families); ``--resume``
+Train mode, the default (as in the JAX CLI), runs ``SequenceTrainer``
+(forecaster and GAN families); ``--resume``
 continues from ``<output_dir>/latest``, else ``best_model``, recovering a
 checkpoint a crash left at ``.pending`` or ``.old``. Eval mode restores a
 checkpoint (default ``<output_dir>/best_model``) and prints the test-split
@@ -127,8 +128,10 @@ def main(argv=None):
     parser.add_argument("--config", type=str, default="default",
                         help="configuration name (configs/<name>.yaml) or a "
                              "direct path to a .yaml file")
-    parser.add_argument("--mode", choices=("predict", "stream", "train",
-                                           "eval"), default="predict")
+    parser.add_argument("--mode", choices=("train", "eval", "predict",
+                                           "stream"), default="train",
+                        help="train (the default, as in the JAX CLI); eval; "
+                             "predict; stream")
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="weights: .npz of flattened flax params, a "
                              "torch .pt state_dict or a checkpoint directory "

@@ -7,7 +7,9 @@ fallback (``CONFIG_NAME``), round-trip ``to_yaml`` and ``validate()``.
 
 Differences from the JAX copy: no ``apply_debug_flags`` (it drives JAX's own
 debug switches), ``model.rollout_impl`` takes the port's values
-``auto | torch | kernel``, and ``model.convlstm_impl`` keeps the JAX values
+``auto | torch | kernel`` and the JAX package's ``xla`` (= torch) and
+``pallas`` (= kernel) through one mapping (``rollout_path``; ``int8`` is
+refused by name), and ``model.convlstm_impl`` keeps the JAX values
 with the port's meaning (``convlstm_cell_impl``): ``pallas`` runs the cells
 on the hand-written CUDA kernel K1 (in training: K1 writing z and the custom
 backward, ``ops.kernels.convlstm_kernel.ConvLSTMCellFn``); ``xla`` and
@@ -77,10 +79,12 @@ class ModelConfig:
     convlstm_impl: str = "auto"
     # inference path of predict and streaming (sequence families):
     # "auto" = the hand-written CUDA kernels (fused cell + head, launched per
-    # step by ops.kernels.rollout_kernel) when the model is on a GPU, else
-    # the plain PyTorch forward; "kernel" forces the kernel path (on CPU
-    # tensors each kernel wrapper runs its plain version); "torch" = the
-    # plain ConvLSTMForecaster.forward.
+    # step by ops.kernels.rollout_kernel) when the model is on a GPU and the
+    # kernels take its widths (rollout_kernel_misfit), else the plain PyTorch
+    # forward; "kernel" (or JAX's "pallas") forces the kernel path and
+    # raises on widths the kernels refuse (on CPU tensors each kernel
+    # wrapper runs its plain version); "torch" (or JAX's "xla") = the plain
+    # ConvLSTMForecaster.forward. JAX's "int8" is not ported (ROADMAP A13).
     rollout_impl: str = "auto"
     remat: bool = False            # rematerialized scan body (O(1) memory in T)
     remat_policy: str = ""         # "" (full) | "save_z" | "dots" (selective)
@@ -249,10 +253,7 @@ class Config:
         if self.precision.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype: {self.precision.compute_dtype}")
         convlstm_cell_impl(self.model.convlstm_impl)   # raises if unknown
-        if self.model.rollout_impl not in ("auto", "torch", "kernel"):
-            raise ValueError(
-                f"Unknown rollout_impl: {self.model.rollout_impl!r} "
-                f"(valid: 'auto', 'torch', 'kernel')")
+        rollout_path(self.model.rollout_impl)          # raises if unknown
         if self.training.gan_step_impl not in ("default", "vjp"):
             raise ValueError(
                 f"Unknown gan_step_impl: {self.training.gan_step_impl!r} "
@@ -336,6 +337,25 @@ def convlstm_cell_impl(convlstm_impl: str) -> str:
         raise ValueError(f"Unknown convlstm_impl: {convlstm_impl!r} "
                          f"(valid: {', '.join(CONVLSTM_IMPLS)})")
     return "kernel" if convlstm_impl == "pallas" else "torch"
+
+
+# model.rollout_impl -> the port's path: its own values and the JAX
+# package's (xla: the plain scan, pallas: the TPU rollout kernel)
+ROLLOUT_IMPLS = {"auto": "auto", "torch": "torch", "kernel": "kernel",
+                 "xla": "torch", "pallas": "kernel"}
+
+
+def rollout_path(rollout_impl: str) -> str:
+    """The port's inference path for a ``model.rollout_impl``: 'auto',
+    'torch' or 'kernel' (JAX's 'xla' -> 'torch', 'pallas' -> 'kernel').
+    Refuses JAX's 'int8' by name and any other value."""
+    if rollout_impl == "int8":
+        raise ValueError("rollout_impl 'int8' (the post-training-quantized "
+                         "rollout) is not ported yet: ROADMAP A13")
+    if rollout_impl not in ROLLOUT_IMPLS:
+        raise ValueError(f"Unknown rollout_impl: {rollout_impl!r} (valid: "
+                         f"{', '.join(ROLLOUT_IMPLS)})")
+    return ROLLOUT_IMPLS[rollout_impl]
 
 
 def config_dir() -> str:

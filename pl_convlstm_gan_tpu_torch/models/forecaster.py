@@ -11,7 +11,9 @@ replayed in torch, so a caller (or a test) supplies the draws.
 
 ``convlstm_impl`` picks each cell's step: 'torch' (plain, autograd) or
 'kernel' (K1; under autograd ``ConvLSTMCellFn``: K1 writing z and the custom
-backward), the port's meaning of the config's ``xla`` and ``pallas``.
+backward), the port's meaning of the config's ``xla`` and ``pallas``. With
+'kernel' on the card each cell's weight is packed for K1 once per forward
+pass, not once per step.
 """
 from __future__ import annotations
 
@@ -94,6 +96,7 @@ class ConvLSTMForecaster(nn.Module):
         states = [(zeros(f), zeros(f)) for f in self.hidden_dims]
         prev_out = None       # set by the head at step t_in - 1, read after
         cells = self.core.cells()
+        packed = [cell.pack(cdtype) for cell in cells]
         preds = []
         for s in range(steps):
             if s < t_in:
@@ -104,7 +107,7 @@ class ConvLSTMForecaster(nn.Module):
             else:
                 x = prev_out
             for li, cell in enumerate(cells):
-                h, cst = cell(x, *states[li])
+                h, cst = cell(x, *states[li], packed=packed[li])
                 states[li] = (h, cst)
                 x = h
             # the head's output is read only from step t_in - 1 on

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.convlstm import convlstm_step
+from ..ops.convlstm import convlstm_step, pack_step_weight
 from ..ops.nn import conv2d_nhwc_f32, torch_init_bound
 
 
@@ -69,8 +69,14 @@ class ConvLSTMCell(nn.Module):
         _init_uniform(self.weight.data, fan_in)
         _init_uniform(self.bias.data, fan_in)
 
-    def forward(self, x, h, c):
+    def pack(self, dtype: torch.dtype):
+        """K1's packed weight at the compute ``dtype`` (``pack_step_weight``;
+        None when this cell launches no K1), for a loop over a sequence to
+        make once per forward pass and hand to every step."""
+        return pack_step_weight(self.weight.detach().to(dtype), self.impl)
+
+    def forward(self, x, h, c, packed=None):
         dtype = self.dtype or x.dtype
         return convlstm_step(x.to(dtype), h.to(dtype), c.to(dtype),
                              self.weight.to(dtype), self.bias.to(dtype),
-                             impl=self.impl)
+                             impl=self.impl, packed=packed)

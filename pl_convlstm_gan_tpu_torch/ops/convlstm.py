@@ -40,26 +40,37 @@ def convlstm_step_torch(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     return h_next.to(x.dtype), c_next.to(x.dtype)
 
 
+def pack_step_weight(weight: torch.Tensor, impl: str = "torch"):
+    """K1's packed form of the OIHW ``weight`` (``kernel_pack`` in the
+    weight's dtype), or None where ``convlstm_step`` launches no K1 (impl
+    'torch', a weight on the CPU). A cell's weight is the same at every step
+    of a forward pass, so a loop over a sequence packs once and hands the
+    result to every step."""
+    if impl != "kernel" or not weight.is_cuda:
+        return None
+    from .kernels.convlstm_kernel import kernel_pack
+    return kernel_pack(hwio_from_oihw(weight), weight.dtype)
+
+
 def convlstm_step(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                  weight: torch.Tensor, bias: torch.Tensor, impl: str = "torch"):
+                  weight: torch.Tensor, bias: torch.Tensor, impl: str = "torch",
+                  packed=None):
     """Impl-dispatching cell step: 'torch' (plain, differentiated by
     autograd) or 'kernel' (the fused CUDA cell on CUDA tensors, its plain
     version on CPU tensors). With 'kernel', a step that needs gradients runs
     ``ConvLSTMCellFn`` (K1 writing z, then the custom backward); a step
-    under ``no_grad`` / ``inference_mode`` launches K1 without z. The
-    bfloat16 kernel on the card reads the weight packed once per call
-    (``pack_cell_weight``) in place of an HWIO copy; the HWIO view of the
-    weight goes to the backward."""
+    under ``no_grad`` / ``inference_mode`` launches K1 without z. K1 on the
+    card reads ``packed`` (``pack_step_weight(weight, impl)``, made here
+    when None) in place of an HWIO copy; the HWIO view of the weight goes to
+    the backward."""
     if impl == "torch":
         return convlstm_step_torch(x, h, c, weight, bias)
     if impl == "kernel":
-        from .kernels.convlstm_kernel import (ConvLSTMCellFn,
-                                              convlstm_cell_fwd,
-                                              pack_cell_weight)
+        from .kernels.convlstm_kernel import ConvLSTMCellFn, convlstm_cell_fwd
         w = hwio_from_oihw(weight)
-        packed = None
-        if x.is_cuda and x.dtype == torch.bfloat16:
-            packed = pack_cell_weight(w)
+        if x.is_cuda:
+            if packed is None:
+                packed = pack_step_weight(weight, impl)
         else:
             w = w.contiguous()
         operands = (w, bias.contiguous(), x.contiguous(), h.contiguous(),

@@ -9,9 +9,11 @@ custom VJP ``convlstm_step_pallas_core`` (``_fwd`` / ``_bwd``). The kernel is
 laid out. Here are its wrapper ``convlstm_cell_fwd``, its plain PyTorch
 version ``convlstm_cell_plain``, its launch counts
 (``convlstm_cell_fwd.launches`` without ``z``, ``convlstm_cell_fwd.launches_z``
-with it), ``pack_cell_weight`` (the bfloat16 kernel's weight layout, made
-once per predictor, stream or training cell call) and ``ConvLSTMCellFn``,
-the training step as a ``torch.autograd.Function``.
+with it), the kernels' weight layouts ``pack_cell_weight`` (bfloat16) and
+``pack_cell_weight_f32`` (float32), made once per predictor, stream or
+training forward pass, ``cell_kernel_misfit`` (the shapes K1 does not take,
+each rule stated once) and ``ConvLSTMCellFn``, the training step as a
+``torch.autograd.Function``.
 
 On CUDA tensors the wrapper launches the kernel or raises; it takes the plain
 version only for tensors on the CPU.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..convlstm import convlstm_gates
 from ..nn import conv2d_nhwc_f32, oihw_from_hwio
@@ -35,6 +38,9 @@ BK = 64                 # k-block of the bfloat16 kernel: 64 input channels
 _SMEM_LIMIT = 232448    # shared memory one Hopper block may use (227 KB)
 _STAGE_BYTES = 128 * BK * 2 + 256 * BK * 2   # A tile + B tile of one k-block
 _FOLD_BYTES = 128 * BK * 2                  # one k-block of folded x
+F32_CK = 8              # chunk of the float32 kernel: 8 input channels
+F32_BN = 128            # packed columns of a float32 block: 32 channels
+F32_KERNEL_SIZES = (1, 3, 5)   # the float32 kernel's template instances
 
 
 def k_blocks(cx: int, ch: int, k: int):
@@ -87,6 +93,94 @@ def pack_cell_weight(weight):
     return out
 
 
+def f32_chunks(cx: int, ch: int, k: int):
+    """The float32 kernel's chunks of 8 rows: (n_fold, n_x, n_h).
+
+    x whose channels are not a multiple of 8 (e.g. cell 1's 1 channel) is
+    folded over all K*K taps (tap-major, channel-minor) into ``n_fold``
+    chunks of 8 rows; otherwise x takes ``n_x`` chunks of 8 channels. h
+    takes ``n_h`` chunks of 8 channels (zero-padded). A chunk of x or h
+    holds the K*K taps' rows of its 8 channels, tap-major."""
+    fold = cx % F32_CK != 0
+    return (-(-(k * k * cx) // F32_CK) if fold else 0,
+            0 if fold else cx // F32_CK, -(-ch // F32_CK))
+
+
+def packed_shape_f32(cx: int, ch: int, k: int):
+    """Shape of ``pack_cell_weight_f32``'s result: [K_rows, N_pad], N_pad =
+    4Ch rounded up to whole blocks of 128 columns (32 channels)."""
+    n_fold, n_x, n_h = f32_chunks(cx, ch, k)
+    return (F32_CK * (n_fold + k * k * (n_x + n_h)),
+            F32_BN * -(-4 * ch // F32_BN))
+
+
+def pack_cell_weight_f32(weight):
+    """HWIO [K, K, Cx+Ch, 4Ch] -> the float32 kernel's B operand [K_rows,
+    N_pad], K-major, in ``weight``'s dtype, not differentiable.
+
+    Column ``4j + g`` holds gate g (i|f|o|g) of hidden channel j: one
+    16-byte load gives a thread all four gates of a channel. Rows run over
+    the chunks of ``f32_chunks``: the folded x rows ``tap * Cx + ci`` first
+    (when ``Cx % 8 != 0``), then per chunk of 8 channels of x, then of h,
+    its K*K taps (row major over (di, dj)) x 8 channels. Padding (rows past
+    the folded values or past Ch, columns past 4Ch) is zero. Where nothing
+    is padded (Cx and Ch multiples of 8, Ch of 32) it is one permute-copy."""
+    k, _, cin, n = weight.shape
+    ch = n // 4
+    cx = cin - ch
+    if n != 4 * ch:
+        raise ValueError(f"a cell weight has 4Ch columns, got weight "
+                         f"{tuple(weight.shape)}")
+    n_fold, n_x, n_h = f32_chunks(cx, ch, k)
+    n_pad = packed_shape_f32(cx, ch, k)[1]
+    # [taps, Cin, gate, Ch], h's channels zero-padded to whole chunks and Ch
+    # to whole blocks of 32
+    w = weight.detach().reshape(k * k, cin, 4, ch)
+    if n_pad != n or F32_CK * n_h != ch:
+        w = F.pad(w, (0, n_pad // 4 - ch, 0, 0, 0, F32_CK * n_h - ch))
+    # gate-major columns g*Ch + j -> gate-interleaved 4j + g, chunk-major rows
+    chunked = w[:, cx:] if n_fold else w
+    body = chunked.reshape(k * k, n_x + n_h, F32_CK, 4, n_pad // 4).permute(
+        1, 0, 2, 4, 3).reshape(-1, n_pad)
+    if not n_fold:
+        return body
+    fold = w[:, :cx].permute(0, 1, 3, 2).reshape(k * k * cx, n_pad)
+    return torch.cat([F.pad(fold, (0, 0, 0, F32_CK * n_fold - k * k * cx)),
+                      body])
+
+
+def kernel_pack(weight, dtype):
+    """The packed weight that K1 of ``dtype`` reads in place of the HWIO
+    ``weight``: ``pack_cell_weight`` (bfloat16), ``pack_cell_weight_f32``
+    (float32)."""
+    return (pack_cell_weight(weight) if dtype == torch.bfloat16
+            else pack_cell_weight_f32(weight))
+
+
+def cell_kernel_misfit(cx: int, ch: int, k: int, dtype):
+    """Why K1 of ``dtype`` does not take a cell of Cx input and Ch hidden
+    channels with a KxK kernel, or None when it does. Each rule is stated
+    here once; the wrapper raises with it and ``rollout_kernel_misfit``
+    routes ``rollout_impl: auto`` around it."""
+    if k % 2 == 0:
+        return f"K1 needs an odd kernel size, got {k}"
+    if dtype == torch.float32:
+        if k not in F32_KERNEL_SIZES:
+            return (f"the float32 K1 takes kernel sizes {F32_KERNEL_SIZES} "
+                    f"(two stages of K*K*8 weight rows in shared memory), "
+                    f"got {k}")
+        return None
+    if dtype != torch.bfloat16:
+        return f"K1 takes float32 or bfloat16, got {dtype}"
+    if ch % 8 != 0:
+        return f"the bfloat16 K1 needs Ch a multiple of 8, got Ch {ch}"
+    n_fold = k_blocks(cx, ch, k)[0]
+    if n_fold and 2 * _STAGE_BYTES + n_fold * _FOLD_BYTES + 2048 > _SMEM_LIMIT:
+        return (f"x of {cx} channels folded over {k}x{k} taps takes {n_fold} "
+                f"k-blocks; the bfloat16 K1 holds 8")
+    return None
+
+
 def convlstm_cell_plain(x, h, c, weight, bias, h_out=None, c_out=None,
                         z_out=None, packed=None):
     """Plain PyTorch version of K1 with the same arguments and rounding points
@@ -110,18 +204,23 @@ def convlstm_cell_plain(x, h, c, weight, bias, h_out=None, c_out=None,
 
 
 def _check_args(x, h, c, weight, bias, h_out, c_out, z_out, packed=None):
-    """Raise ValueError on what the kernel of x's dtype does not take. The
-    bfloat16 kernel reads ``packed`` in place of ``weight`` (which it then
-    needs neither contiguous nor one dtype with the rest), needs Ch a
-    multiple of 8, and reads or writes every operand but ``bias`` (and x
-    when it is folded) by TMA or 16-byte accesses, so they must be 16-byte
-    aligned."""
+    """Raise ValueError on what the kernel of x's dtype does not take: the
+    rules of ``cell_kernel_misfit``, then the operands. The kernel reads
+    ``packed`` (``kernel_pack(weight, x.dtype)``) in place of ``weight``,
+    which it then needs neither contiguous nor one dtype with the rest. The
+    packed weight is read by 16-byte copies (float32) or TMA (bfloat16);
+    the bfloat16 kernel also reads or writes every operand but ``bias``
+    (and x when it is folded) by TMA or 16-byte accesses, so those must be
+    16-byte aligned."""
     b, hgt, wid, cx = x.shape
     ch = h.shape[-1]
     k = weight.shape[0]
     if k % 2 == 0 or weight.shape != (k, k, cx + ch, 4 * ch):
         raise ValueError(f"cell kernel needs an odd-sized HWIO weight "
                          f"[K, K, {cx + ch}, {4 * ch}], got {tuple(weight.shape)}")
+    misfit = cell_kernel_misfit(cx, ch, k, x.dtype)
+    if misfit:
+        raise ValueError(misfit)
     if bias.shape != (4 * ch,):
         raise ValueError(f"bias must be [{4 * ch}], got {tuple(bias.shape)}")
     for name, t, shape in (("h", h, (b, hgt, wid, ch)), ("c", c, (b, hgt, wid, ch)),
@@ -129,26 +228,18 @@ def _check_args(x, h, c, weight, bias, h_out, c_out, z_out, packed=None):
                            ("c_out", c_out, (b, hgt, wid, ch))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if z_out is not None and tuple(z_out.shape) != (b, hgt, wid, 4 * ch):
+        raise ValueError(f"z_out must be {(b, hgt, wid, 4 * ch)}, got "
+                         f"{tuple(z_out.shape)}")
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        if ch % 8 != 0:
-            raise ValueError(f"the bfloat16 cell kernel needs Ch a multiple "
-                             f"of 8, got Ch {ch}")
-        n_fold = k_blocks(cx, ch, k)[0]
-        if n_fold and 2 * _STAGE_BYTES + n_fold * _FOLD_BYTES + 2048 > _SMEM_LIMIT:
-            raise ValueError(f"x of {cx} channels folded over {k}x{k} taps "
-                             f"takes {n_fold} k-blocks; the kernel holds 8")
-        if packed is None:
-            raise ValueError("the bfloat16 cell kernel reads the packed "
-                             "weight: pass packed=pack_cell_weight(weight)")
-        if tuple(packed.shape) != packed_shape(cx, ch, k):
-            raise ValueError(f"packed must be {packed_shape(cx, ch, k)}, got "
-                             f"{tuple(packed.shape)}")
-    tensors = (x, h, c, packed if bf16 else weight, bias, h_out, c_out)
+    if packed is None:
+        raise ValueError("the cell kernel reads the packed weight: pass "
+                         "packed=kernel_pack(weight, x.dtype)")
+    want = packed_shape(cx, ch, k) if bf16 else packed_shape_f32(cx, ch, k)
+    if tuple(packed.shape) != want:
+        raise ValueError(f"packed must be {want}, got {tuple(packed.shape)}")
+    tensors = (x, h, c, packed, bias, h_out, c_out)
     if z_out is not None:
-        if tuple(z_out.shape) != (b, hgt, wid, 4 * ch):
-            raise ValueError(f"z_out must be {(b, hgt, wid, 4 * ch)}, got "
-                             f"{tuple(z_out.shape)}")
         if z_out.data_ptr() in {t.data_ptr() for t in tensors}:
             raise ValueError("z_out must not alias another operand")
         tensors += (z_out,)
@@ -159,12 +250,14 @@ def _check_args(x, h, c, weight, bias, h_out, c_out, z_out, packed=None):
         raise ValueError("cell kernel operands must be contiguous")
     if h_out.data_ptr() in (h.data_ptr(), x.data_ptr()):
         raise ValueError("h_out must not alias h or x: neighbours read h's halo")
+    aligned = [packed]
     if bf16:
         aligned = [t for t in tensors if t is not bias and
                    (t is not x or cx % 8 == 0)]
-        if any(t.data_ptr() % 16 for t in aligned):
-            raise ValueError("the bfloat16 cell kernel needs 16-byte aligned "
-                             "operands (TMA and 16-byte stores)")
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError("the cell kernel needs 16-byte aligned operands (the "
+                         "packed weight; in bfloat16 also TMA and 16-byte "
+                         "stores)")
 
 
 def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
@@ -177,9 +270,10 @@ def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
     ``h`` or ``x``) and returns (h_out, c_out). With ``z_out``
     [B,H,W,4Ch] (the training form, save_z=True) the kernel also writes the
     pre-activation z there; such launches count in ``launches_z``, the
-    others in ``launches``. The bfloat16 kernel reads ``packed``
-    (``pack_cell_weight(weight)``, made here when None: callers that launch
-    repeatedly pack once) and needs Ch a multiple of 8."""
+    others in ``launches``. The kernel reads ``packed``
+    (``kernel_pack(weight, x.dtype)``, made here when None: callers that
+    launch repeatedly pack once). ``cell_kernel_misfit`` states the shapes
+    it refuses."""
     if (h_out is None) != (c_out is None):
         raise ValueError("pass both h_out and c_out, or neither")
     tensors = (x, h, c, weight, bias)
@@ -193,16 +287,15 @@ def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
         raise ValueError("cell kernel operands must all lie on one CUDA device")
     if x.dtype not in _SYMBOLS:
         raise ValueError(f"cell kernel takes float32 or bfloat16, got {x.dtype}")
-    bf16 = x.dtype == torch.bfloat16
-    if bf16 and packed is None:
-        packed = pack_cell_weight(weight)
+    if packed is None:
+        packed = kernel_pack(weight, x.dtype)
     _check_args(x, h, c, weight, bias, h_out, c_out, z_out, packed)
     b, hgt, wid, cx = x.shape
     fn = build.load_function("convlstm_cell", _SYMBOLS[x.dtype], _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (x, h, c, packed if bf16 else weight,
-                                          bias, h_out, c_out)),
+        err = fn(*(t.data_ptr() for t in (x, h, c, packed, bias, h_out,
+                                          c_out)),
                  None if z_out is None else z_out.data_ptr(), b, hgt, wid, cx,
                  h.shape[-1], weight.shape[0], stream)
     build.check(err, "convlstm_cell", "convlstm_cell_fwd launch")
@@ -224,10 +317,10 @@ class ConvLSTMCellFn(torch.autograd.Function):
 
     apply(weight HWIO [K,K,Cx+Ch,4Ch], bias [4Ch], x [B,H,W,Cx], h, c
     [B,H,W,Ch], packed=None) -> (h', c'). On CUDA tensors the forward
-    launches K1 (all operands one dtype; bfloat16 reads ``packed``, the
-    non-differentiable ``pack_cell_weight(weight)``, made by the caller once
-    per cell call, while ``weight`` itself, which may be a view, is kept for
-    the backward); on CPU tensors it runs K1's plain version, which also
+    launches K1 (all operands one dtype; it reads ``packed``, the
+    non-differentiable ``kernel_pack(weight, x.dtype)``, made by the caller
+    once per forward pass, while ``weight`` itself, which may be a view, is
+    kept for the backward); on CPU tensors it runs K1's plain version, which also
     takes mixed dtypes, and the backward is the same code either way.
 
     The residuals are those of ``_fwd``: (weight, bias, x, h, c, z, c'). The

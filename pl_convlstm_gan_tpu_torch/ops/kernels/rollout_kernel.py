@@ -28,10 +28,15 @@ launches and nvcc's code size does not grow with the frame, so one code
 path serves 128 px and 256 px frames alike.
 
 This module holds:
-- K2's wrapper ``conv_head_fwd``, its plain version ``conv_head_plain`` and
-  its launch count ``conv_head_fwd.launches``;
+- K2's wrapper ``conv_head_fwd``, its plain version ``conv_head_plain``, its
+  launch count ``conv_head_fwd.launches`` and ``head_kernel_misfit`` (the
+  shapes K2 does not take);
+- ``rollout_kernel_misfit``: why K1 and K2 do not take a model at a
+  compute dtype (None when they do), a pure function of the config's
+  widths, by which ``rollout_impl: auto`` picks the kernels or the plain path
+  before any launch;
 - ``pack_weights``: the model's state_dict -> the kernels' HWIO layout, and
-  in bfloat16 each cell's weight packed once for K1 (``pack_cell_weight``);
+  on the card each cell's weight packed once for K1 (``kernel_pack``);
 - ``rollout_kernel`` (the counterpart of ``rollout_pallas``) and
   ``rollout_plain``: the same loop through the wrappers or the plain versions;
 - ``rollout_kernel_from_state`` (the counterpart of
@@ -47,14 +52,16 @@ import torch
 
 from ..nn import conv2d_nhwc_f32, hwio_from_oihw, oihw_from_hwio
 from . import build
-from .convlstm_kernel import (convlstm_cell_fwd, convlstm_cell_plain,
-                             pack_cell_weight)
+from .convlstm_kernel import (cell_kernel_misfit, convlstm_cell_fwd,
+                             convlstm_cell_plain, kernel_pack)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
 _SYMBOLS = {torch.float32: "conv_head_fwd_f32",
             torch.bfloat16: "conv_head_fwd_bf16"}
+_TILE = 8               # K2's tile: 8 x 8 pixels
+_SMEM_LIMIT = 232448    # shared memory one Hopper block may use (227 KB)
 
 
 def conv_head_plain(h, weight, bias, out=None):
@@ -67,10 +74,32 @@ def conv_head_plain(h, weight, bias, out=None):
     return out.copy_(res)
 
 
+def head_kernel_misfit(cin: int, cout: int, k: int, dtype):
+    """Why K2 of ``dtype`` does not take a KxK head conv of Cin -> Cout
+    channels, or None when it does. Each rule is stated here once."""
+    if k % 2 == 0:
+        return f"K2 needs an odd kernel size, got {k}"
+    if dtype not in _SYMBOLS:
+        return f"K2 takes float32 or bfloat16, got {dtype}"
+    size = 2 if dtype == torch.bfloat16 else 4
+    vec = 16 // size
+    if cin % vec != 0:
+        return (f"K2 in {str(dtype).split('.')[-1]} reads h in 16-byte "
+                f"vectors: Cin must be a multiple of {vec}, got {cin}")
+    side = _TILE + k - 1
+    smem = -(-side * side * cin * size // 16) * 16 + 4 * k * k * cin * cout
+    if smem > _SMEM_LIMIT:
+        return (f"K2's tile of h and its weights take {smem} bytes of shared "
+                f"memory, beyond {_SMEM_LIMIT}")
+    return None
+
+
 def conv_head_fwd(h, weight, bias, out=None):
     """The head conv. h [B,H,W,Cin], weight HWIO [K,K,Cin,Cout] (odd K), bias
     [Cout], one dtype (float32 or bfloat16). Writes [B,H,W,Cout] into ``out``
-    (allocated when None; it must not alias ``h``) and returns it."""
+    (allocated when None; it must not alias ``h``) and returns it. On CUDA
+    tensors h must be 16-byte aligned; ``head_kernel_misfit`` states the
+    shapes K2 refuses."""
     if all(t.device.type == "cpu" for t in (h, weight, bias, out)
            if t is not None):
         return conv_head_plain(h, weight, bias, out)
@@ -84,13 +113,19 @@ def conv_head_fwd(h, weight, bias, out=None):
     if h.dtype not in _SYMBOLS or any(t.dtype != h.dtype for t in tensors):
         raise ValueError("head kernel operands must all be float32 or all "
                          "bfloat16")
-    if k % 2 == 0 or weight.shape != (k, k, cin, cout):
-        raise ValueError(f"head kernel needs an odd-sized HWIO weight "
+    if weight.shape != (k, k, cin, cout):
+        raise ValueError(f"head kernel needs a square HWIO weight "
                          f"[K, K, {cin}, Cout], got {tuple(weight.shape)}")
+    misfit = head_kernel_misfit(cin, cout, k, h.dtype)
+    if misfit:
+        raise ValueError(misfit)
     if bias.shape != (cout,) or out.shape != (b, hgt, wid, cout):
         raise ValueError(f"bias must be [{cout}] and out {(b, hgt, wid, cout)}")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("head kernel operands must be contiguous")
+    if h.data_ptr() % 16:
+        raise ValueError("the head kernel reads h by 16-byte copies: h must "
+                         "be 16-byte aligned")
     if out.data_ptr() == h.data_ptr():
         raise ValueError("out must not alias h")
     fn = build.load_function("conv_head", _SYMBOLS[h.dtype], _ARGTYPES)
@@ -106,12 +141,36 @@ def conv_head_fwd(h, weight, bias, out=None):
 conv_head_fwd.launches = 0
 
 
+def rollout_kernel_misfit(hidden_dims, in_channels: int, kernel_size: int,
+                          compute_dtype, on_card: bool = True):
+    """Why the kernel path cannot serve a forecaster of these widths (cells
+    ``hidden_dims`` over ``in_channels``-channel frames, KxK cells, the 3x3
+    head) at ``compute_dtype``, or None when it can. The host loop's SAME
+    padding needs an odd kernel size everywhere; ``on_card`` adds the rules
+    of K1 (``cell_kernel_misfit``) for every cell and of K2
+    (``head_kernel_misfit``) for the head, which bind only where the kernels
+    launch (on CPU tensors the wrappers run their plain versions)."""
+    if kernel_size % 2 == 0:
+        return (f"the rollout's SAME padding needs odd-sized conv kernels, "
+                f"got {kernel_size}x{kernel_size}")
+    if not on_card:
+        return None
+    cx = in_channels
+    for i, ch in enumerate(hidden_dims):
+        why = cell_kernel_misfit(cx, ch, kernel_size, compute_dtype)
+        if why:
+            return f"cell {i} ({cx} -> {ch} channels): {why}"
+        cx = ch
+    why = head_kernel_misfit(cx, in_channels, 3, compute_dtype)
+    return f"head ({cx} -> {in_channels} channels): {why}" if why else None
+
+
 class RolloutWeights(NamedTuple):
     """Forecaster weights in the kernels' layout and the compute dtype:
     ``cells`` = ((HWIO [K,K,Cin,4Ch], bias [4Ch]), ...) bottom-up, ``head`` =
-    (HWIO [3,3,Ch_top,C], bias [C]), ``packed`` = per cell the bfloat16 K1's
-    weight (``pack_cell_weight``), or None (float32, or weights on the CPU,
-    where K1's plain version runs)."""
+    (HWIO [3,3,Ch_top,C], bias [C]), ``packed`` = per cell the weight K1
+    reads (``kernel_pack``: bfloat16 or float32 layout), or None (weights on
+    the CPU, where K1's plain version runs)."""
     cells: tuple
     head: tuple
     packed: tuple
@@ -120,26 +179,35 @@ class RolloutWeights(NamedTuple):
 def pack_weights(state_dict, compute_dtype=torch.bfloat16) -> RolloutWeights:
     """A ConvLSTMForecaster state_dict (``core.cell_<i>.weight`` OIHW, ...)
     -> RolloutWeights. Weights AND biases are cast to the compute dtype, as
-    the TPU kernel's ``_pack_weights`` does; bfloat16 weights on the card
-    are also packed for K1, once here. Raises on what K1 and K2 do not take
-    (an even kernel size; bfloat16 on the card: a hidden width that is not a
-    multiple of 8)."""
+    the TPU kernel's ``_pack_weights`` does; weights on the card are also
+    packed for K1, once here. Raises ValueError naming the rule of
+    ``rollout_kernel_misfit`` that the model breaks (on the CPU only the
+    odd kernel size binds)."""
     n = sum(1 for k in state_dict if k.startswith("core.cell_")
             and k.endswith(".weight"))
     if n == 0:
         raise ValueError("state_dict holds no core.cell_<i>.weight entries")
+    shapes = [tuple(state_dict[f"core.cell_{i}.weight"].shape)
+              for i in range(n)]
+    sizes = {s[-1] for s in shapes} | {s[-2] for s in shapes}
+    if len(sizes) != 1:
+        raise ValueError(f"the CUDA kernels need square conv kernels of one "
+                         f"size, got {[s[-2:] for s in shapes]}")
+    hidden = [s[0] // 4 for s in shapes]
+    on_card = state_dict["core.cell_0.weight"].is_cuda
+    misfit = rollout_kernel_misfit(hidden, shapes[0][1] - hidden[0],
+                                   sizes.pop(), compute_dtype, on_card)
+    if misfit:
+        raise ValueError(f"the CUDA kernels do not take this model: {misfit}")
 
     def conv(prefix):
-        w = state_dict[f"{prefix}.weight"]
-        if w.shape[-1] % 2 == 0 or w.shape[-1] != w.shape[-2]:
-            raise ValueError(f"the CUDA kernels need square odd-sized conv "
-                             f"kernels, {prefix} has {tuple(w.shape[-2:])}")
-        return (hwio_from_oihw(w).to(compute_dtype).contiguous(),
+        return (hwio_from_oihw(state_dict[f"{prefix}.weight"]).to(
+                    compute_dtype).contiguous(),
                 state_dict[f"{prefix}.bias"].to(compute_dtype).contiguous())
 
     cells = tuple(conv(f"core.cell_{i}") for i in range(n))
-    packed = tuple(pack_cell_weight(w) if w.is_cuda and
-                   compute_dtype == torch.bfloat16 else None for w, _ in cells)
+    packed = tuple(kernel_pack(w, compute_dtype) if on_card else None
+                   for w, _ in cells)
     return RolloutWeights(cells, conv("core.head"), packed)
 
 

@@ -22,12 +22,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .config import Config, convlstm_cell_impl
+from .config import Config, convlstm_cell_impl, rollout_path
 from .models import ConvLSTMForecaster, Discriminator
-from .ops.kernels.rollout_kernel import pack_weights, rollout_kernel
+from .ops.kernels.rollout_kernel import (pack_weights, rollout_kernel,
+                                         rollout_kernel_misfit)
 from .weights import flax_to_state_dict
-
-ROLLOUT_IMPLS = ("auto", "torch", "kernel")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -94,27 +93,50 @@ def load_state_dict(checkpoint_path: str) -> dict:
                      f"trainer, got {checkpoint_path!r}")
 
 
+def rollout_choice(config: Config, device: torch.device,
+                   rollout_impl: str = "") -> str:
+    """'kernel' or 'torch': the inference path of ``rollout_impl`` (default:
+    the config's ``model.rollout_impl``; JAX's values map as
+    ``config.rollout_path`` says) for this config on ``device``, decided
+    before any weight is loaded or kernel launched. 'auto' takes the kernels
+    on a GPU when ``rollout_kernel_misfit`` finds nothing in the config's
+    widths and compute dtype, else the plain path; 'kernel' on a GPU raises
+    ValueError naming the rule the model breaks."""
+    impl = rollout_path(rollout_impl or config.model.rollout_impl)
+    if impl == "torch":
+        return impl
+    mc = config.model
+    misfit = rollout_kernel_misfit(tuple(mc.hidden_dims), mc.in_channels,
+                                   mc.kernel_size, compute_dtype(config),
+                                   on_card=device.type == "cuda")
+    if impl == "auto":
+        return "kernel" if device.type == "cuda" and misfit is None else "torch"
+    if misfit:
+        raise ValueError(f"rollout_impl {rollout_impl or mc.rollout_impl!r} "
+                         f"cannot serve this model: {misfit}")
+    return impl
+
+
 def build_predict_fn(config: Config, checkpoint_path: str,
                      output_frames: int = 0, rollout_impl: str = "",
                      device=None) -> Callable:
     """Load the weights and return fn(frames [B,T_in,C,H,W] tensor on the
     device) -> [B,T_out,C,H,W] float32.
 
-    ``rollout_impl`` (default: the config's) picks the path: 'kernel' = the
-    CUDA kernels K1 and K2 launched step by step (``rollout_kernel``; on CPU
-    tensors each wrapper runs its plain version); 'torch' = the plain
-    ``ConvLSTMForecaster.forward``; 'auto' = 'kernel' on a GPU, else 'torch'."""
+    ``rollout_impl`` (default: the config's) picks the path through
+    ``rollout_choice``: 'kernel' (JAX's 'pallas') = the CUDA kernels K1 and
+    K2 launched step by step (``rollout_kernel``; on CPU tensors each
+    wrapper runs its plain version); 'torch' (JAX's 'xla') = the plain
+    ``ConvLSTMForecaster.forward``; 'auto' = 'kernel' on a GPU when the
+    kernels take the model's widths, else 'torch'."""
     dev = resolve_device(device)
-    impl = rollout_impl or config.model.rollout_impl
-    if impl not in ROLLOUT_IMPLS:
-        raise ValueError(f"Unknown rollout_impl: {impl!r} (valid: "
-                         f"{', '.join(ROLLOUT_IMPLS)})")
+    impl = rollout_choice(config, dev, rollout_impl)
     model = build_model(config, output_frames)
     model.load_state_dict(load_state_dict(checkpoint_path))
     model.to(dev).eval()
     t_in, t_out = model.input_frames, model.output_frames
 
-    if impl == "kernel" or (impl == "auto" and dev.type == "cuda"):
+    if impl == "kernel":
         cdtype = compute_dtype(config)
         weights = pack_weights(model.state_dict(), cdtype)
 

@@ -15,17 +15,20 @@ Observing the batch model's input window and forecasting ``T_out - 1`` more
 frames gives its rollout: ``cat([nowcast[:, None], forecast(state, T_out -
 1)], 1)`` equals ``load_predictor(config, ...)(frames)``.
 
-``model.rollout_impl`` picks the path of both ``observe`` and ``forecast``:
-'kernel' (or 'auto' on a GPU) runs K1 and K2 (``ops/kernels``), one step per
-frame or per forecast frame; 'torch' runs the plain modules of
+``model.rollout_impl`` picks the path of both ``observe`` and ``forecast``
+once, at construction (``predict.rollout_choice``): 'kernel' (JAX's
+'pallas'), or 'auto' on a GPU when K1 and K2 take the model's widths, runs
+K1 and K2 (``ops/kernels``), one step per frame or per forecast frame;
+'torch' (JAX's 'xla'), or 'auto' otherwise, runs the plain modules of
 ``ConvLSTMForecaster``. On CPU tensors the kernel wrappers run their plain
 versions. Every method returns new tensors and writes none of its inputs, so
 a caller may hold several branches of one stream.
 
 Not ported here: the JAX package's int8 forecast (the port's config rejects
-``rollout_impl: int8``), its ``export_*`` hooks (the export slice), and
-``pallas_forecast_fits``: K1 and K2 take any odd kernel size and any widths,
-so the kernel path refuses only what ``pack_weights`` refuses.
+``rollout_impl: int8``, ROADMAP A13) and its ``export_*`` hooks (the export
+slice). JAX's ``pallas_forecast_fits`` becomes ``rollout_kernel_misfit``: K1
+and K2 take any frame size, batch and horizon, so the choice depends only
+on the widths, the kernel size and the compute dtype.
 """
 from __future__ import annotations
 
@@ -37,8 +40,8 @@ import torch
 from .config import Config
 from .ops.kernels.rollout_kernel import (observe_kernel, pack_weights,
                                          rollout_kernel_from_state)
-from .predict import (ROLLOUT_IMPLS, build_model, compute_dtype,
-                      load_state_dict, resolve_device)
+from .predict import (build_model, compute_dtype, load_state_dict,
+                      resolve_device, rollout_choice)
 
 
 class StreamState(NamedTuple):
@@ -64,10 +67,8 @@ class StreamingForecaster:
             raise ValueError(
                 f"streaming inference needs a sequence family "
                 f"(forecaster/gan), got {mc.family!r}")
-        if mc.rollout_impl not in ROLLOUT_IMPLS:
-            raise ValueError(f"Unknown rollout_impl: {mc.rollout_impl!r} "
-                             f"(valid: {', '.join(ROLLOUT_IMPLS)})")
         self.device = resolve_device(device)
+        self._kernels = rollout_choice(config, self.device) == "kernel"
         self._hidden = tuple(mc.hidden_dims)
         self._channels = mc.in_channels
         self._cdtype = compute_dtype(config)
@@ -75,9 +76,6 @@ class StreamingForecaster:
         model.load_state_dict(state_dict)
         model.to(self.device).eval()
         self._core = model.core
-        self._kernels = (mc.rollout_impl == "kernel" or
-                         (mc.rollout_impl == "auto"
-                          and self.device.type == "cuda"))
         self._weights = (pack_weights(model.state_dict(), self._cdtype)
                          if self._kernels else None)
 

@@ -12,7 +12,7 @@ import torch
 
 from pl_convlstm_gan_tpu.ops.convlstm import ConvLSTMParams, convlstm_step_xla
 from pl_convlstm_gan_tpu.ops.pallas.convlstm_kernel import convlstm_step_pallas
-from pl_convlstm_gan_tpu_torch.config import Config, load_config
+from pl_convlstm_gan_tpu_torch.config import Config, load_config, rollout_path
 from pl_convlstm_gan_tpu_torch.ops.convlstm import convlstm_step, convlstm_step_torch
 from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
     convlstm_cell_fwd, convlstm_cell_plain)
@@ -128,11 +128,18 @@ def test_config_reads_repo_yaml_and_validates_port_impls():
     assert cfg.model.hidden_dims == [64, 64, 64]
     assert (cfg.model.input_frames, cfg.model.output_frames) == (5, 20)
     assert cfg.training.batch_size == 4
-    for impl in ("auto", "torch", "kernel"):
+    # the port's values and the JAX package's (xla -> torch, pallas ->
+    # kernel) validate; int8 is refused by name; anything else is unknown
+    for impl, path in (("auto", "auto"), ("torch", "torch"),
+                       ("kernel", "kernel"), ("xla", "torch"),
+                       ("pallas", "kernel")):
         cfg.model.rollout_impl = impl
         cfg.validate()
-    for impl in ("xla", "pallas", "int8"):
-        cfg.model.rollout_impl = impl
-        with pytest.raises(ValueError, match="rollout_impl"):
-            cfg.validate()
+        assert rollout_path(impl) == path
+    cfg.model.rollout_impl = "int8"
+    with pytest.raises(ValueError, match="'int8'.*A13"):
+        cfg.validate()
+    cfg.model.rollout_impl = "mosaic"
+    with pytest.raises(ValueError, match="Unknown rollout_impl"):
+        cfg.validate()
     assert not hasattr(Config, "apply_debug_flags")

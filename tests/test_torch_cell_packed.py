@@ -211,9 +211,12 @@ def test_check_args_bf16_shape_and_alignment_rules():
     with pytest.raises(ValueError, match="16-byte aligned"):
         k1._check_args(x8_odd, h8, c8, kern8, bias8, ho8, co8, None,
                        pack_cell_weight(kern8))
-    # float32 with Ch 12 and no packed weight passes
-    k1._check_args(*(t.float() for t in (x12, h12, c12, kern12, bias12, ho12,
-                                         co12)), None)
+    # float32 with Ch 12 passes on its own packed layout (none of the
+    # bfloat16 rules); without a packed weight it is refused too
+    f32 = [t.float() for t in (x12, h12, c12, kern12, bias12, ho12, co12)]
+    k1._check_args(*f32, None, k1.pack_cell_weight_f32(f32[3]))
+    with pytest.raises(ValueError, match="packed weight"):
+        k1._check_args(*f32, None)
 
 
 def test_check_args_refuses_folded_x_beyond_shared_memory():

@@ -66,8 +66,20 @@ def test_predict_rejects_wrong_window_and_unknown_impl(tmp_path, checkpoint):
                                  device="cpu")
         with pytest.raises(ValueError, match="input window"):
             predict(frames[:, :T_IN - 1])
+    # JAX's 'pallas' serves through the kernel path (its plain versions on
+    # CPU tensors), 'int8' is refused by name, an unknown value raises
+    pallas = build_predict_fn(_config(tmp_path), path, rollout_impl="pallas",
+                              device="cpu")
+    kernel = build_predict_fn(_config(tmp_path), path, rollout_impl="kernel",
+                              device="cpu")
+    assert not isinstance(pallas, torch.nn.Module)
+    x = torch.from_numpy(frames)
+    assert torch.equal(pallas(x), kernel(x))
+    with pytest.raises(ValueError, match="A13"):
+        build_predict_fn(_config(tmp_path), path, rollout_impl="int8",
+                         device="cpu")
     with pytest.raises(ValueError, match="rollout_impl"):
-        build_predict_fn(_config(tmp_path), path, rollout_impl="pallas",
+        build_predict_fn(_config(tmp_path), path, rollout_impl="mosaic",
                          device="cpu")
     with pytest.raises(ValueError, match=".npz"):
         build_predict_fn(_config(tmp_path), str(tmp_path / "best_model"),
@@ -86,8 +98,8 @@ def test_entry_points_raise_without_cuda(tmp_path, checkpoint, monkeypatch):
     inp = tmp_path / "frames.npy"
     np.save(inp, frames)
     with pytest.raises(RuntimeError, match="CUDA"):
-        cli.main(["--config", "nowcast_128", "--checkpoint", path,
-                  "--input", str(inp)])
+        cli.main(["--config", "nowcast_128", "--mode", "predict",
+                  "--checkpoint", path, "--input", str(inp)])
 
 
 def test_cli_predict_writes_the_predictor_output(tmp_path, checkpoint,
