@@ -15,6 +15,8 @@ own line:
    kernel, plain and library (one F.conv2d) times, TFLOP/s and the share of
    the bound; each kernel is timed on a weight packed outside the timed
    loop (kernel_pack), and the pack's own time is printed on its own line;
+   both dtypes also at the Generator's cells (configs/default.yaml: B 8,
+   16x16, (Cx, Ch) = (16, 16) and (16, 32));
 3. head kernel (K2) the same way in both dtypes at the head's shape (Ch 64
    -> 1 channel) at B 4 and B 1, and at a ragged shape with Cout 5;
 4. main path: load_predictor on configs/nowcast_128.yaml at full width, with
@@ -41,7 +43,8 @@ own line:
    and pallas raise naming the rule, and nowcast_128 in both dtypes still
    takes the kernels with exact launch counts;
 7. cell_save_z: K1 writing z (the training form, save_z=True) against its
-   plain version at the cell shapes of 2 in both dtypes (h', c' and z),
+   plain version at the cell shapes of 2 in both dtypes (h', c' and z; the
+   Generator's cells included),
    timed beside K1 without z, its bound, plain and library times, TFLOP/s
    and the share of the bound; then
    ConvLSTMCellFn's backward on the card against torch autograd through
@@ -72,16 +75,34 @@ own line:
 11. gan_trainer: the CLI's train path on gan_64 cut to 24 sequences and 2
    epochs, --resume to 3, --mode eval, and load_predictor serving the
    best_model's gen_params on K1/K2, with exact launch counts;
-12. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
+12. generator: the downscaling Generator of configs/default.yaml at full
+   width (hidden (16, 32), T 5, 16x16 -> 128x128, B 8, 16 stations), in
+   float32 as written and in bfloat16, weights from seed 0 through
+   weights.py, batches of the port's SyntheticDownscalingDataset (64 days,
+   seed 0): 3 load_predictor requests on K1 (convlstm_impl pallas: 10 K1 a
+   request, none with z) against the plain path (auto) within PATH_TOL,
+   the p50 of 5 requests of each path in turns, one forward at the
+   reference's test shape (B 2, 32x32 -> 256x256); 3 train steps on both
+   paths from one state (10 K1 with z a step; step-1 gradients, per-step
+   losses, params after the steps within TRAIN_TOL), an eval batch, the
+   steps' p50 in turns and a profiled kernel step (K1 / cuDNN convs /
+   elementwise, idle share);
+13. generator_trainer: the CLI on configs/default.yaml with convlstm_impl
+   pallas, cut to 64 days and 2 epochs, --resume to 3, --mode eval and
+   --mode predict on an .npz of rain_lr/dem/lu, with exact launch counts
+   and each stage's seconds;
+14. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
    shape through experiments.tap_structure.run() with its launch counts,
    then K3 and K4 against their plain versions (rtol 2^-7), timed in
    turns, beside the plain versions, 64 cuBLAS products and the bound;
-13. one JSON line {"kernels": [...]} with each kernel's launches (per path),
-   error, and its time beside its bound, its plain version's and the
-   library call's (K1 with z as its own entry; K1 to K4);
+15. one JSON line {"kernels": [...]} with each kernel's launches (per path,
+   the Generator's included), error, and its time beside its bound, its
+   plain version's and the library call's (K1 with z as its own entry; K1
+   to K4; K1 also over the Generator's two cells, ``generator_mix``);
 then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
+import itertools
 import json
 import os
 import statistics
@@ -96,7 +117,8 @@ import torch.nn.functional as F
 
 from pl_convlstm_gan_tpu_torch import cli
 from pl_convlstm_gan_tpu_torch.config import load_config
-from pl_convlstm_gan_tpu_torch.data import (SyntheticSequenceDataset,
+from pl_convlstm_gan_tpu_torch.data import (SyntheticDownscalingDataset,
+                                            SyntheticSequenceDataset,
                                             batch_iterator, to_device)
 from pl_convlstm_gan_tpu_torch.ops.convlstm import convlstm_step_torch
 from pl_convlstm_gan_tpu_torch.ops.kernels import build
@@ -117,6 +139,7 @@ from pl_convlstm_gan_tpu_torch.streaming import StreamingForecaster
 from pl_convlstm_gan_tpu_torch.train.steps import (
     GANTrainState, TrainState, forecaster_eval_step, forecaster_loss,
     forecaster_train_step, gan_d_loss, gan_g_loss, gan_train_step,
+    generator_eval_step, generator_loss, generator_train_step, loss_config,
     make_optimizer)
 from pl_convlstm_gan_tpu_torch.weights import flax_to_state_dict
 
@@ -219,6 +242,18 @@ GAN_RUNS = (
 # the reduction-order noise of 0 may take Adam's other sign)
 GAN_IMPL_LOSS_TOL = (1e-6, 1e-5)
 GAN_TRAINER_SEQUENCES = 24
+# the downscaling Generator (configs/default.yaml): the JAX bench's parity
+# Generator batch (bench.py:207-212) and the reference's test shape (B 2,
+# 32^2 -> 256^2)
+GEN_DATA = dict(num_days=64, T=5, lr_size=16, scale_factor=8,
+                num_stations=16, seed=SEED)
+GEN_TRAIN_STEPS = 3
+GEN_REF_SHAPE = (2, 32)
+GEN_TRAINER_SEQUENCES = 64
+# the Generator's outputs stay below 0.125 here (checked; ~0.07 with these
+# weights), where a bf16 ulp is 2^-11 = 4.9e-4: PATH_TOL's bfloat16 1e-3 is
+# two ulps of the rounded output
+GEN_MAX_OUTPUT = 0.125
 # the JAX bench's streaming rows (bench.py:263-298): horizon 30 at B 1 and 8
 STREAM_HORIZON = 30
 STREAM_BATCHES = (1, 8)
@@ -363,7 +398,8 @@ def time_pack(w, name, shape, phase):
 def phase_cell(gen, shapes):
     """K1 against its plain version; returns {dtype: [per-shape records]}.
     ``shapes`` = {dtype: [(B, H, W, Cx, Ch, K, role)]}, role "mix" (timed,
-    in the kernels line's per-request mix), "timed" or None (checked only)."""
+    in the kernels line's per-request mix), "generator" (timed, in the
+    Generator's mix), "timed" or None (checked only)."""
     out = {}
     for dtype, dtype_shapes in shapes.items():
         name = str(dtype).split(".")[-1]
@@ -377,7 +413,7 @@ def phase_cell(gen, shapes):
             err = max(check_close(f"K1 h' {name} {(b, cx, ch, k)}", hk, hp, atol, rtol),
                       check_close(f"K1 c' {name} {(b, cx, ch, k)}", ck, cp, atol, rtol))
             rec = dict(shape=[b, hgt, wid, cx, ch, k], max_abs_err=err,
-                       mix=role == "mix")
+                       mix=role == "mix", generator=role == "generator")
             if role is not None:
                 packed, rec["pack_ms"] = time_pack(w, name, rec["shape"],
                                                    "cell_kernel")
@@ -464,7 +500,7 @@ def phase_cell_save_z(gen, shapes, grad_shape):
             err_z = check_close(f"{what} z", z_k, z_p, *Z_TOL[name])
             rec = dict(shape=[b, hgt, wid, cx, ch, k], max_abs_err=err,
                        max_abs_err_z=err_z, max_abs_z=float(z_p.abs().max()),
-                       mix=role == "mix")
+                       mix=role == "mix", generator=role == "generator")
             if role is not None:
                 packed, rec["pack_ms"] = time_pack(w, name, rec["shape"],
                                                    "cell_save_z")
@@ -886,8 +922,8 @@ def train_config(dtype_name, impl="pallas"):
     return cfg
 
 
-def train_state(cfg, state_dict):
-    model = build_model(cfg)
+def train_state(cfg, state_dict, lu_channels=0):
+    model = build_model(cfg, lu_channels=lu_channels)
     model.load_state_dict(state_dict)
     model.to(DEVICE).train()
     return TrainState(model, make_optimizer(model), 0)
@@ -897,18 +933,18 @@ def flat_grads(model):
     return torch.cat([p.grad.flatten() for p in model.parameters()])
 
 
-def profile_train_step(state, batch, lr):
-    """torch.profiler over one kernel-path train step after a traced
-    warm-up step: device time by kernel group and the idle share."""
+def profile_train_step(step, phase="train_profile"):
+    """torch.profiler over one kernel-path train step (``step()``) after a
+    traced warm-up step: device time by kernel group and the idle share."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
                  ) as prof:
-        forecaster_train_step(state, batch, lr)
+        step()
         torch.cuda.synchronize()
         prof.step()
         t0 = time.perf_counter()
-        forecaster_train_step(state, batch, lr)
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         prof.step()
@@ -916,11 +952,12 @@ def profile_train_step(state, batch, lr):
     rows = []
     for ev in prof.key_averages():
         # the kernels' own rows only: an op's row (aten::, the autograd
-        # Function's, the step's) repeats the device time of what it launched
+        # Function's, the step's, the optimizer step's annotation) repeats
+        # the device time of what it launched
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0 and ev.device_type == DeviceType.CUDA and \
-                not ev.key.startswith("ProfilerStep"):
+                not ev.key.startswith(("ProfilerStep", "Optimizer.")):
             rows.append((ev.key, ev.count, dev_us / 1e3))
     rows.sort(key=lambda r: -r[2])
     conv_marks = ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad",
@@ -943,7 +980,7 @@ def profile_train_step(state, batch, lr):
                idle_share=max(0.0, 1 - busy / (wall * 1e3)),
                groups={k: [n, round(ms, 3)] for k, (n, ms) in groups.items()},
                top=[[k[:100], n, round(ms, 3)] for k, n, ms in rows[:12]])
-    say(phase="train_profile", **rec)
+    say(phase=phase, **rec)
     return rec
 
 
@@ -1020,7 +1057,8 @@ def phase_train(dtype_name, seed):
 
     profile = None
     if dtype_name == "bfloat16":
-        profile = profile_train_step(paths["kernel"], batches[0], lr)
+        profile = profile_train_step(lambda: forecaster_train_step(
+            paths["kernel"], batches[0], lr))
     rec = dict(dtype=dtype_name, steps=steps, batch=b,
                launches_per_step={"convlstm_cell_fwd_save_z": per_step,
                                   "convlstm_cell_fwd": 0, "conv_head_fwd": 0},
@@ -1471,6 +1509,311 @@ def phase_gan_trainer(tmp, seed):
     return rec
 
 
+def generator_params(cfg, lu_channels, seed):
+    """The Generator of ``cfg`` (two cells, three x2 blocks: scale 8) as
+    the JAX package's flax params tree of numpy arrays, named as
+    pl_convlstm_gan_tpu/models/generator.py names them, with
+    torch-default-init ranges."""
+    rng = np.random.default_rng(seed)
+    mc = cfg.model
+    hd, k = mc.hidden_dims, mc.kernel_size
+
+    def conv(kk, ci, co):
+        bnd = 1.0 / np.sqrt(kk * kk * ci)
+        return {"kernel": rng.uniform(-bnd, bnd, (kk, kk, ci, co)).astype(np.float32),
+                "bias": rng.uniform(-bnd, bnd, co).astype(np.float32)}
+
+    params = {"init_conv": conv(3, mc.in_channels + 2, hd[0]),
+              "recurrence": {}}
+    cin = hd[0]
+    for i, ch in enumerate(hd):
+        params["recurrence"][f"cell{i + 1}"] = conv(k, cin + ch, 4 * ch)
+        cin = ch
+    for i in range(int(np.log2(mc.scale_factor))):
+        params[f"upsample_{i}"] = {"conv": conv(3, hd[-1], 4 * hd[-1])}
+    for name, cc in (("dem_attn", mc.dem_channels), ("lu_attn", lu_channels)):
+        params[name] = {"conv_reduce": conv(3, cc, hd[-1] // 2),
+                        "conv_gate": conv(1, hd[-1] // 2, hd[-1])}
+    params["post_conv1"] = conv(3, hd[-1], 32)
+    params["post_conv2"] = conv(3, 32, 1)
+    return {"params": params}
+
+
+def generator_config(dtype_name, impl):
+    """configs/default.yaml as written but for the compute dtype and
+    model.convlstm_impl ("pallas": the cells on K1; "auto": the plain
+    step)."""
+    cfg = load_config("default")
+    cfg.precision.compute_dtype = dtype_name
+    cfg.model.convlstm_impl = impl
+    cfg.validate(training=True)
+    return cfg
+
+
+def write_generator_checkpoint(path, cfg, lu_channels, seed):
+    """generator_params as an .npz of flattened flax params; checks that
+    weights.py maps them onto every parameter of the port's Generator."""
+    tree = generator_params(cfg, lu_channels, seed)["params"]
+
+    def flat(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                yield from flat(value, f"{prefix}/{key}")
+            else:
+                yield f"{prefix}/{key}", value
+    arrays = dict(flat(tree, "params"))
+    np.savez(path, **arrays)
+    want = set(build_model(cfg, lu_channels=lu_channels).state_dict())
+    if set(flax_to_state_dict(arrays)) != want:
+        raise AssertionError("weights.py does not map the Generator's tree "
+                             "onto the port's Generator")
+    return path
+
+
+def check_generator_output(what, out, ref, want_shape, dtype_name):
+    """Shape, dtype, a varying output inside the range PATH_TOL was set for,
+    and the kernel path's output against the plain path's."""
+    if tuple(out.shape) != want_shape or out.dtype != torch.float32:
+        raise AssertionError(f"{what}: got {tuple(out.shape)} {out.dtype}")
+    if float(out.std()) == 0.0:
+        raise AssertionError(f"{what}: constant output")
+    if float(ref.abs().max()) >= GEN_MAX_OUTPUT:
+        raise AssertionError(f"{what}: outputs reach {float(ref.abs().max())}"
+                             f", beyond the range PATH_TOL was set for")
+    return check_close(what, out, ref, *PATH_TOL[dtype_name])
+
+
+def phase_generator(tmp, dtype_name, seed):
+    """The downscaling Generator at configs/default.yaml's width (hidden
+    (16, 32), T 5, 16^2 -> 128^2, B 8), weights from ``seed`` through
+    weights.py, batches of SyntheticDownscalingDataset(GEN_DATA): requests
+    through load_predictor on K1 (convlstm_impl pallas) against the plain
+    path (auto), with exact K1 launch counts, timed in turns; one forward
+    at the reference's test shape; then GEN_TRAIN_STEPS train steps on both
+    paths from one state (step-1 gradients, per-step losses, params after
+    the steps, within TRAIN_TOL; K1 with z launch counts), an eval batch,
+    both paths' steps timed in turns and a profiled kernel step."""
+    torch.cuda.reset_peak_memory_stats()
+    ds = SyntheticDownscalingDataset(**GEN_DATA)
+    lu_c = ds.num_lu_classes
+    cfgs = {"kernel": generator_config(dtype_name, "pallas"),
+            "plain": generator_config(dtype_name, "auto")}
+    mc, tc = cfgs["kernel"].model, cfgs["kernel"].training
+    b, per_call = tc.batch_size, mc.T * len(mc.hidden_dims)
+    lr, clip = tc.learning_rate, tc.grad_clip_norm
+    loss_cfg = loss_config(tc)
+    ckpt = write_generator_checkpoint(
+        os.path.join(tmp, f"generator_{dtype_name}.npz"), cfgs["kernel"],
+        lu_c, seed)
+    batches = [to_device(x, torch.device(DEVICE)) for x in itertools.islice(
+        batch_iterator(ds, b), max(N_REQUESTS, GEN_TRAIN_STEPS))]
+    predicts = {p: load_predictor(c, ckpt) for p, c in cfgs.items()}
+    hgt, wid = batches[0][0].shape[-2:]
+    want = (b, mc.T, 1, hgt * mc.scale_factor, wid * mc.scale_factor)
+
+    reset_counts()
+    outs = [predicts["kernel"](*x[:3]) for x in batches[:N_REQUESTS]]
+    launches = expect_counts(f"generator {dtype_name} requests",
+                             N_REQUESTS * per_call, 0)
+    refs = [predicts["plain"](*x[:3]) for x in batches[:N_REQUESTS]]
+    expect_counts(f"generator {dtype_name} plain requests",
+                  N_REQUESTS * per_call, 0)
+    errs = [check_generator_output(f"generator {dtype_name} request {i}", o,
+                                   r, want, dtype_name)
+            for i, (o, r) in enumerate(zip(outs, refs))]
+    req = batches[0][:3]
+    req_times = p50_ms({p: (lambda f=f: f(*req)) for p, f in predicts.items()})
+
+    # the reference's test shape (B 2, 32^2 -> 256^2)
+    rng = np.random.default_rng(seed)
+    rb, rs = GEN_REF_SHAPE
+    hs = rs * mc.scale_factor
+    lu = np.eye(lu_c, dtype=np.float32)[rng.integers(0, lu_c, (rb, hs, hs))]
+    ref_in = [torch.from_numpy(a).to(DEVICE) for a in (
+        8.0 * rng.random((rb, mc.T, 1, rs, rs), dtype=np.float32),
+        rng.random((rb, 1, hs, hs), dtype=np.float32),
+        np.ascontiguousarray(lu.transpose(0, 3, 1, 2)))]
+    reset_counts()
+    ref_out = predicts["kernel"](*ref_in)
+    expect_counts(f"generator {dtype_name} reference shape", per_call, 0)
+    err_ref = check_generator_output(
+        f"generator {dtype_name} reference shape", ref_out,
+        predicts["plain"](*ref_in), (rb, mc.T, 1, hs, hs), dtype_name)
+    del predicts
+
+    state_dict = flax_to_state_dict(generator_params(cfgs["kernel"], lu_c,
+                                                     seed))
+    paths = {p: train_state(c, state_dict, lu_c) for p, c in cfgs.items()}
+    grads = {}
+    for p, st in paths.items():            # step-1 gradients, then cleared
+        reset_counts()
+        generator_loss(st.model, batches[0], loss_cfg)[0].backward()
+        expect_counts(f"generator {dtype_name} {p} gradients", 0, 0,
+                      per_call if p == "kernel" else 0)
+        grads[p] = flat_grads(st.model)
+        st.optimizer.zero_grad(set_to_none=True)
+    grad_err = float((grads["kernel"] - grads["plain"]).norm()
+                     / grads["plain"].norm())
+    del grads
+    losses, times = {}, {}
+    for p, st in paths.items():
+        losses[p], times[p] = [], []
+        for i, batch in enumerate(batches[:GEN_TRAIN_STEPS]):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = generator_train_step(st, batch, lr, loss_cfg, clip)
+            torch.cuda.synchronize()
+            times[p].append((time.perf_counter() - t0) * 1e3)
+            expect_counts(f"generator {dtype_name} {p} step {i}", 0, 0,
+                          per_call if p == "kernel" else 0)
+            if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"generator {dtype_name} {p} step {i}: "
+                                     f"{m}")
+            losses[p].append(m["total"])
+    loss_err = max(abs(a - c) for a, c in zip(losses["kernel"],
+                                               losses["plain"]))
+    param_err = max_param_diff(paths["kernel"].model, paths["plain"].model)
+    moved = max(float((p.detach().cpu() - state_dict[n]).abs().max())
+                for n, p in paths["kernel"].model.named_parameters())
+    errs_train = {"loss": loss_err, "grad": grad_err, "param": param_err}
+    tol = {k: v[dtype_name] for k, v in TRAIN_TOL.items()}
+    say(phase="generator_check", dtype=dtype_name, errors=errs_train, tol=tol,
+        max_param_move=moved, losses_kernel=losses["kernel"],
+        losses_plain=losses["plain"])
+    for key, err in errs_train.items():
+        if not err <= tol[key]:
+            raise AssertionError(f"generator {dtype_name}: {key} error "
+                                 f"{err:.3e} > {tol[key]}")
+    if moved == 0.0:
+        raise AssertionError(f"generator {dtype_name}: the params did not "
+                             f"move")
+
+    reset_counts()
+    acc = generator_eval_step(paths["kernel"].model, batches[0], b, loss_cfg)
+    expect_counts(f"generator {dtype_name} eval", per_call, 0)
+    if not all(bool(torch.isfinite(v[0])) for v in acc.values()):
+        raise AssertionError(f"generator {dtype_name} eval: non-finite sums")
+
+    step_times = p50_ms({p: (lambda st=st: generator_train_step(
+        st, batches[0], lr, loss_cfg, clip)) for p, st in paths.items()})
+    prof = profile_train_step(
+        lambda: generator_train_step(paths["kernel"], batches[0], lr,
+                                     loss_cfg, clip),
+        phase="generator_train_profile")
+    rec = dict(dtype=dtype_name, config="default", batch=b, T=mc.T,
+               hidden=list(mc.hidden_dims), lr_size=[int(hgt), int(wid)],
+               hr_size=list(want[-2:]), requests=N_REQUESTS,
+               launches=launches,
+               launches_per_request={"convlstm_cell_fwd": per_call},
+               launches_per_step={"convlstm_cell_fwd_save_z": per_call},
+               launches_eval_batch=per_call,
+               request_p50_ms=req_times["kernel"][0],
+               request_plain_p50_ms=req_times["plain"][0],
+               request_ms=req_times["kernel"][1],
+               request_plain_ms=req_times["plain"][1],
+               max_abs_err=max(errs), max_abs_err_ref_shape=err_ref,
+               ref_shape=[rb, mc.T, rs, rs, hs, hs],
+               max_abs_output=max(float(r.abs().max()) for r in refs),
+               tol=list(PATH_TOL[dtype_name]), train_steps=GEN_TRAIN_STEPS,
+               step_p50_ms=step_times["kernel"][0],
+               step_plain_p50_ms=step_times["plain"][0],
+               step_ms_in_turns=step_times["kernel"][1],
+               step_plain_ms_in_turns=step_times["plain"][1],
+               step_ms_in_sequence=times["kernel"],
+               step_plain_ms_in_sequence=times["plain"],
+               errors=errs_train, train_tol=tol, max_param_move=moved,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    say(phase="generator", **rec)
+    del paths, batches
+    torch.cuda.empty_cache()
+    rec["profile"] = prof
+    return rec
+
+
+def phase_generator_trainer(tmp, seed):
+    """The CLI on configs/default.yaml with convlstm_impl pallas, its data
+    cut to GEN_TRAINER_SEQUENCES days and the run to 2 epochs: train, then
+    --resume to 3, --mode eval, and --mode predict on an .npz of rain_lr /
+    dem / lu, each with exact K1 launch counts and its seconds."""
+    cfg = load_config("default")
+    mc, tc = cfg.model, cfg.training
+    written = (cfg.data.synthetic_num_sequences, tc.epochs)
+    cfg.model.convlstm_impl = "pallas"
+    cfg.data.synthetic_num_sequences = GEN_TRAINER_SEQUENCES
+    cfg.output.output_dir = os.path.join(tmp, "generator_trainer")
+    cfg.output.save_model_interval = 1
+    cuts = ["model.convlstm_impl auto -> pallas (the cells on K1)",
+            f"data: {GEN_TRAINER_SEQUENCES} days (from {written[0]})",
+            f"epochs: {TRAINER_EPOCHS} + 1 resumed (from {written[1]})"]
+    yamls = []
+    for epochs in (TRAINER_EPOCHS, TRAINER_EPOCHS + 1):
+        cfg.training.epochs = epochs
+        yamls.append(os.path.join(tmp, f"generator_trainer_{epochs}.yaml"))
+        cfg.to_yaml(yamls[-1])
+    per_call = mc.T * len(mc.hidden_dims)
+    b = tc.batch_size
+    n = GEN_TRAINER_SEQUENCES - mc.T                       # windows
+    n_train, n_val = int(n * 0.7), int(n * 0.15)
+    n_test = n - n_train - n_val
+    seconds = {}
+
+    t0 = time.perf_counter()
+    reset_counts()
+    h2 = cli.main(["--config", yamls[0], "--mode", "train"])
+    seconds["train"] = time.perf_counter() - t0
+    train_launches_z = convlstm_cell_fwd.launches_z
+    expect_counts("generator trainer 2 epochs",
+                  TRAINER_EPOCHS * -(-n_val // b) * per_call, 0,
+                  TRAINER_EPOCHS * (n_train // b) * per_call)
+    t0 = time.perf_counter()
+    h3 = cli.main(["--config", yamls[1], "--mode", "train", "--resume"])
+    seconds["resume"] = time.perf_counter() - t0
+    if h3["epoch"] != list(range(TRAINER_EPOCHS + 1)) or \
+            {k: v[:TRAINER_EPOCHS] for k, v in h3.items()} != h2:
+        raise AssertionError(f"generator --resume did not continue at epoch "
+                             f"{TRAINER_EPOCHS}: {h3['epoch']}")
+    if not all(np.isfinite(h3["total_loss"] + h3["rmse"])):
+        raise AssertionError(f"generator trainer losses {h3['total_loss']}")
+    with open(os.path.join(cfg.output.output_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line)["epoch"] for line in f]
+    if logged != list(range(TRAINER_EPOCHS + 1)):
+        raise AssertionError(f"generator metrics.jsonl epochs {logged}")
+
+    t0 = time.perf_counter()
+    reset_counts()
+    metrics = cli.main(["--config", yamls[1], "--mode", "eval"])
+    seconds["eval"] = time.perf_counter() - t0
+    expect_counts("generator --mode eval", -(-n_test // b) * per_call, 0)
+    if set(metrics) != {"loss", "rmse", "point", "conserve", "smooth",
+                        "temporal"} or \
+            not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"generator --mode eval metrics {metrics}")
+
+    ds = SyntheticDownscalingDataset(**GEN_DATA)
+    rain, dem, lu = next(batch_iterator(ds, b))[:3]
+    inp = os.path.join(tmp, "generator_request.npz")
+    out_path = os.path.join(tmp, "generator_pred.npy")
+    np.savez(inp, rain_lr=rain, dem=dem, lu=lu)
+    t0 = time.perf_counter()
+    reset_counts()
+    cli.main(["--config", yamls[1], "--mode", "predict", "--input", inp,
+              "--output", out_path])
+    seconds["predict"] = time.perf_counter() - t0
+    expect_counts("generator --mode predict", per_call, 0)
+    pred = np.load(out_path)
+    want = (b, mc.T, 1) + tuple(d * mc.scale_factor for d in rain.shape[-2:])
+    if pred.shape != want or not np.isfinite(pred).all():
+        raise AssertionError(f"generator --mode predict: {pred.shape}")
+    rec = dict(config="default", cuts=cuts, days=GEN_TRAINER_SEQUENCES,
+               epochs=TRAINER_EPOCHS + 1, seconds=seconds,
+               train_launches_z=train_launches_z, rmse=h3["rmse"],
+               total_loss=h3["total_loss"], test_metrics=metrics,
+               predict_shape=list(pred.shape))
+    say(phase="generator_trainer", **rec)
+    return rec
+
+
 # models that K1 or K2 refuse on the card (config nowcast_128 with these
 # changes, 32x32 frames, B 2): (what, dtype, hidden_dims, kernel_size, the
 # words of the rule that must name the refusal)
@@ -1563,12 +1906,15 @@ def write_checkpoint(path, cfg, seed):
 
 
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
-                   trainer, gans, gan_trainer, taps):
+                   trainer, gans, gan_trainer, gens, gen_trainer, taps):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
-    (cell 1: (1, 64); cells 2-3: (64, 64)). The GAN paths' launches are per
-    step of each configuration and of the GAN trainer's run."""
+    (cell 1: (1, 64); cells 2-3: (64, 64)); ``generator_mix`` averages the
+    Generator's two cells ((16, 16), (16, 32)) alike. The GAN paths'
+    launches are per step of each configuration and of the GAN trainer's
+    run; the Generator's per request, per train step and of its trainer's
+    run."""
     entries = []
     gan_k1 = {name: {} for name in paths}
     gan_k1z = {name: {} for name in paths}
@@ -1582,6 +1928,11 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
     gan_k1z["float32"]["gan_trainer_train"] = \
         gan_trainer["train_launches"]["convlstm_cell_fwd_save_z"]
     weights = [1, n_cells - 1]
+
+    def gen_mix(recs):
+        g = [r for r in recs if r["generator"]]
+        return {key: statistics.mean(r[key] for r in g) for key in
+                ("ms", "plain_ms", "bound_ms", "library_ms")}
     for name, path in paths.items():
         c_recs = [r for r in cell[name] if r["mix"]]
         mix = lambda key: sum(w * r[key] for w, r in zip(weights, c_recs)) / sum(weights)
@@ -1593,10 +1944,14 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                 "predict": path["launches"]["convlstm_cell_fwd"],
                 "stream": streams[name]["launches"]["convlstm_cell_fwd"],
                 "train_eval_batch": trains[name]["launches_eval_batch"],
-                **gan_k1[name]},
+                **gan_k1[name],
+                "generator_request": gens[name]["launches_per_request"][
+                    "convlstm_cell_fwd"],
+                "generator_eval_batch": gens[name]["launches_eval_batch"]},
             max_abs_err=max(r["max_abs_err"] for r in cell[name]),
             ms=mix("ms"), plain_ms=mix("plain_ms"), bound_ms=mix("bound_ms"),
             bound_by=c_recs[0]["bound_by"], library_ms=mix("library_ms"),
+            generator_mix=gen_mix(cell[name]),
             per_shape=[r for r in cell[name] if "ms" in r]))
         z_recs = [r for r in cell_z[name] if r["mix"]]
         zmix = lambda key: sum(w * r[key] for w, r in zip(weights, z_recs)) / sum(weights)
@@ -1606,6 +1961,10 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
         if name == "bfloat16":
             by_path["trainer"] = trainer["train_launches_z"]
         by_path.update(gan_k1z[name])
+        by_path["generator_train_step"] = gens[name]["launches_per_step"][
+            "convlstm_cell_fwd_save_z"]
+        if name == "float32":
+            by_path["generator_trainer_train"] = gen_trainer["train_launches_z"]
         entries.append(dict(
             name="convlstm_cell_fwd", variant="save_z", dtype=name, route="cuda",
             source=K1_SOURCE, replaces=K1_REPLACES, stands_for=K1Z_STANDS_FOR,
@@ -1617,6 +1976,7 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             # the bound of the shape of two of the three cells, (64, 64)
             bound_by=z_recs[-1]["bound_by"], library_ms=zmix("library_ms"),
             grad_rel_err=cell_z[name + "_grad"],
+            generator_mix=gen_mix(cell_z[name]),
             per_shape=[r for r in cell_z[name] if "ms" in r]))
         h = [r for r in head[name] if "ms" in r][0]
         entries.append(dict(
@@ -1670,18 +2030,26 @@ def main() -> int:
     gan_b, gan_size = gan.training.batch_size, gan.data.synthetic_image_size
     gan_cells = [(gan.model.in_channels, gan.model.hidden_dims[0]),
                  (gan.model.hidden_dims[0], gan.model.hidden_dims[1])]
+    # the Generator's cells (configs/default.yaml): (16, 16) and (16, 32),
+    # B 8 at 16^2; in bf16 one N-block whose 256 GEMM columns hold 64 or
+    # 128 real ones, in f32 4Ch padded to 128 columns at Ch 16
+    gdef = load_config("default")
+    gh = gdef.model.hidden_dims
+    gen_cells = [(gdef.training.batch_size, gdef.data.synthetic_image_size,
+                  gdef.data.synthetic_image_size, cx, ch, 3, "generator")
+                 for cx, ch in ((gh[0], gh[0]), (gh[0], gh[1]))]
     cell_shapes = {
         # f32 adds B 1 (a stream's forecast) and gan_64's cells (B 8, 64^2)
         torch.float32: [(b, size, size, cx, ch, 3, "mix") for cx, ch in nowcast]
         + [(1, size, size, cx, ch, 3, "timed") for cx, ch in nowcast]
         + [(gan_b, gan_size, gan_size, cx, ch, 3, "timed")
            for cx, ch in gan_cells]
-        + [ragged],
+        + [ragged] + gen_cells,
         # bf16 adds B 1 (a stream's forecast) and (256, 256) at 64^2
         # (tp_nowcast_128's width: four N-blocks)
         torch.bfloat16: [(b, size, size, cx, ch, 3, "mix") for cx, ch in nowcast]
         + [(1, size, size, cx, ch, 3, "timed") for cx, ch in nowcast]
-        + [ragged, (b, 64, 64, 256, 256, 3, "timed")]}
+        + [ragged, (b, 64, 64, 256, 256, 3, "timed")] + gen_cells}
     head_shapes = [(b, size, size, hidden[-1], cfg.model.in_channels, 3, True),
                    (1, size, size, hidden[-1], cfg.model.in_channels, 3, True),
                    (2, 13, 21, 40, 5, 3, True)]            # ragged, Cout=5
@@ -1717,11 +2085,14 @@ def main() -> int:
         trainer = phase_trainer(tmp, requests[0])
         gans = [phase_gan(*run, seed=SEED) for run in GAN_RUNS]
         gan_trainer = phase_gan_trainer(tmp, SEED)
+        gens = {dtype_name: phase_generator(tmp, dtype_name, SEED)
+                for dtype_name in ("float32", "bfloat16")}
+        gen_trainer = phase_generator_trainer(tmp, SEED)
     taps = phase_tap_structure()
 
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
-        gans, gan_trainer, taps)}), flush=True)
+        gans, gan_trainer, gens, gen_trainer, taps)}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

@@ -1,5 +1,9 @@
 """Command line of the port: ``python -m pl_convlstm_gan_tpu_torch``.
 
+    python -m pl_convlstm_gan_tpu_torch --config default --mode train \\
+        [--resume]
+    python -m pl_convlstm_gan_tpu_torch --config default --mode predict \\
+        --input lr.npz --checkpoint output/best_model
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128_pallas \\
         --mode train [--resume]
     python -m pl_convlstm_gan_tpu_torch --config gan_64 --mode train
@@ -10,18 +14,22 @@
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode stream \\
         --input frames.npy --checkpoint params.npz [--horizons 10,30]
 
-Train mode, the default (as in the JAX CLI), runs ``SequenceTrainer``
-(forecaster and GAN families); ``--resume``
+Train mode, the default (as in the JAX CLI), runs ``Trainer`` (the
+Generator family) or ``SequenceTrainer`` (forecaster and GAN); ``--resume``
 continues from ``<output_dir>/latest``, else ``best_model``, recovering a
 checkpoint a crash left at ``.pending`` or ``.old``. Eval mode restores a
 checkpoint (default ``<output_dir>/best_model``) and prints the test-split
 metrics. Predict and stream restore the weights (a ``.npz`` of flattened
-flax params, a torch ``.pt`` state_dict, or a checkpoint directory of the
-trainer, of a GAN run its generator; default ``<output_dir>/best_model``) and read frames from a
-``.npy``, or a ``.npz`` with a ``frames`` key. Predict mode runs the
+flax params, a torch ``.pt`` state_dict, a reference Generator ``.pth``,
+or a checkpoint directory of the trainer, of a GAN run its generator;
+default ``<output_dir>/best_model``) and read frames from a ``.npy``, or a
+``.npz`` with a ``frames`` key. Predict mode runs the
 forecaster on [B,T_in,C,H,W] and writes the predictions [B,T_out,C,H,W] as
-a ``.npy``. Stream mode feeds [T,C,H,W] (one stream) or [B,T,C,H,W] (B
-streams) one frame at a time through ``StreamingForecaster`` and writes an
+a ``.npy``; for the Generator it reads an ``.npz`` of ``rain_lr``
+[B,T,1,H,W], ``dem`` and ``lu`` (whose channel count sets the LUCC class
+count) and writes [B,T,1,H',W']. Stream mode (sequence families only)
+feeds [T,C,H,W] (one stream) or [B,T,C,H,W] (B streams) one frame at a
+time through ``StreamingForecaster`` and writes an
 ``.npz`` with ``nowcasts`` [B,T,C,H,W] and one ``forecast_<h>`` [B,h,C,H,W]
 per horizon, branched from the state after the last frame. Every mode runs
 on the GPU unless ``--device cpu`` is given. Export and the other modes are
@@ -81,9 +89,16 @@ def _stream(config, args, out_path):
     print(f"Streamed {t} frames x {b} stream(s): {shapes} saved to {out_path}")
 
 
+def _trainer(config, args):
+    """The family's trainer: ``Trainer`` (Generator) or
+    ``SequenceTrainer``."""
+    from .train import SequenceTrainer, Trainer
+    cls = Trainer if config.model.family == "generator" else SequenceTrainer
+    return cls(config=config, device=args.device)
+
+
 def _train(config, args):
     from .train.checkpoint import recover_checkpoint_dir
-    from .train.sequence_trainer import SequenceTrainer
 
     if args.resume and not config.training.resume_from:
         for name in ("latest", "best_model"):
@@ -94,15 +109,16 @@ def _train(config, args):
                 break
         else:
             print("--resume: no checkpoint found, starting fresh")
-    return SequenceTrainer(config=config, device=args.device).train()
+    return _trainer(config, args).train()
 
 
 def _evaluate(config, args):
-    from .train.sequence_trainer import SequenceTrainer
-
-    trainer = SequenceTrainer(config=config, device=args.device)
-    trainer.setup_data()
-    trainer.setup_model()
+    trainer = _trainer(config, args)
+    dataset = trainer.setup_data()
+    if config.model.family == "generator":
+        trainer.setup_model(dataset)
+    else:
+        trainer.setup_model()
     trainer.restore(args.checkpoint or os.path.join(config.output.output_dir,
                                                     "best_model"))
     metrics = trainer.evaluate_test()
@@ -123,8 +139,8 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(
         prog="python -m pl_convlstm_gan_tpu_torch",
-        description="pl-convlstm-gan forecaster and GAN training and "
-                    "inference on PyTorch/CUDA")
+        description="pl-convlstm-gan downscaling Generator, forecaster and "
+                    "GAN training and inference on PyTorch/CUDA")
     parser.add_argument("--config", type=str, default="default",
                         help="configuration name (configs/<name>.yaml) or a "
                              "direct path to a .yaml file")
@@ -143,7 +159,8 @@ def main(argv=None):
     parser.add_argument("--input", type=str, default=None,
                         help="input frames: [B,T_in,C,H,W] for predict, "
                              "[T,C,H,W] or [B,T,C,H,W] for stream; .npy, or "
-                             ".npz with a 'frames' key")
+                             ".npz with a 'frames' key; Generator predict: "
+                             ".npz with rain_lr/dem/lu")
     parser.add_argument("--output", type=str, default=None,
                         help="output file (default: <output_dir>/"
                              "predictions.npy, or stream_out.npz)")
@@ -168,9 +185,9 @@ def main(argv=None):
     if training:
         return _train(config, args) if args.mode == "train" else \
             _evaluate(config, args)
-    if config.model.family not in ("forecaster", "gan"):
-        raise SystemExit(f"the port serves the forecaster/gan families, not "
-                         f"{config.model.family!r}")
+    if args.mode == "stream" and config.model.family == "generator":
+        raise SystemExit("stream mode needs a sequence family "
+                         "(forecaster/gan), not the Generator")
     if not args.input:
         raise SystemExit(f"--mode {args.mode} requires --input")
     args.checkpoint = args.checkpoint or os.path.join(
@@ -181,11 +198,20 @@ def main(argv=None):
     if args.mode == "stream":
         _stream(config, args, out_path)
         return
-    frames = _load_frames(args.input)
-    predict = load_predictor(config, args.checkpoint,
-                             output_frames=args.output_frames,
-                             device=args.device)
-    pred = predict(frames).cpu().numpy()
+    if config.model.family == "generator":
+        data = np.load(args.input)
+        if not isinstance(data, np.lib.npyio.NpzFile):
+            raise SystemExit("generator-family predict needs an .npz with "
+                             "rain_lr/dem/lu arrays")
+        predict = load_predictor(config, args.checkpoint, device=args.device,
+                                 lu_channels=data["lu"].shape[1])
+        pred = predict(data["rain_lr"], data["dem"], data["lu"])
+    else:
+        predict = load_predictor(config, args.checkpoint,
+                                 output_frames=args.output_frames,
+                                 device=args.device)
+        pred = predict(_load_frames(args.input))
+    pred = pred.cpu().numpy()
     _make_parent(out_path)
     np.save(out_path, pred)
     print(f"Predictions {pred.shape} saved to {out_path}")

@@ -14,8 +14,8 @@ with the port's meaning (``convlstm_cell_impl``): ``pallas`` runs the cells
 on the hand-written CUDA kernel K1 (in training: K1 writing z and the custom
 backward, ``ops.kernels.convlstm_kernel.ConvLSTMCellFn``); ``xla`` and
 ``auto`` run the plain PyTorch step. ``validate(training=True)`` refuses the
-training settings the port has not ported yet (the Generator family, TP,
-DP, remat, the frames source, grain), each naming its ROADMAP item.
+training settings the port has not ported yet (TP, DP, remat, the frames
+source, grain), each naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -304,9 +304,6 @@ class Config:
         """The training settings the port does not run yet, each refused with
         the ROADMAP item that ports it."""
         refusals = [
-            (self.model.family == "generator",
-             "model.family 'generator': the port trains the forecaster and "
-             "GAN families; the downscaling Generator is ROADMAP A8"),
             (self.mesh.model_axis > 1,
              "mesh.model_axis > 1: tensor-parallel training is ROADMAP A10"),
             (self.mesh.data_axis > 1,

@@ -1,5 +1,4 @@
-"""Losses and eval metrics of the forecaster and GAN families, in plain
-PyTorch.
+"""Losses and eval metrics of the three model families, in plain PyTorch.
 
 Copies of the JAX package's ``losses/adversarial.py`` (``l1_loss``,
 ``l2_loss`` and the GAN losses: ``bce_with_logits`` in its log-sum-exp form,
@@ -26,6 +25,8 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .ops.resize import resize_area
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -193,3 +194,159 @@ def sharpness_sums(pred: torch.Tensor, target: torch.Tensor,
         out[f"sharp_{name}_pred"] = ((fn(pred) * vm).sum(), nv)
         out[f"sharp_{name}_true"] = ((fn(target) * vm).sum(), nv)
     return out
+
+
+# ------------------------------------------------- Generator: CombinedLoss
+
+def compute_sample_weights(rain_values: torch.Tensor,
+                           use_weighted_loss: bool = True,
+                           weight_strategy: str = "log") -> torch.Tensor:
+    """Intensity weights: log 1 + log1p(r); stratified 2/3/5 at >= 10/25/50
+    mm, else 1; sqrt 1 + sqrt(r); off (or an unknown strategy) 1."""
+    if not use_weighted_loss:
+        return torch.ones_like(rain_values)
+    if weight_strategy == "log":
+        return 1.0 + torch.log1p(rain_values)
+    if weight_strategy == "stratified":
+        w = torch.ones_like(rain_values)
+        w = torch.where(rain_values >= 10, 2.0, w)
+        w = torch.where(rain_values >= 25, 3.0, w)
+        return torch.where(rain_values >= 50, 5.0, w)
+    if weight_strategy == "sqrt":
+        return 1.0 + torch.sqrt(rain_values)
+    return torch.ones_like(rain_values)
+
+
+def _station_pixel_indices(coords: torch.Tensor, scale_factor, h: int,
+                           w: int):
+    """LR station coords [N, 2] -> (rows, cols, valid) at the HR grid:
+    (c + 0.5) * s - 0.5 truncated toward zero (a slightly negative value
+    maps to 0, kept), then the bounds mask; rows and cols clamped for the
+    gather."""
+    scaled = ((coords.float() + 0.5) * scale_factor - 0.5).to(torch.int32)
+    rows, cols = scaled[:, 0], scaled[:, 1]
+    valid = (rows >= 0) & (rows < h) & (cols >= 0) & (cols < w)
+    return rows.clamp(0, h - 1), cols.clamp(0, w - 1), valid
+
+
+def prepare_station_batch(s_coords: torch.Tensor, s_values: torch.Tensor,
+                          batch: int):
+    """(coords [N, 2], values [B, T, N]) from coords [N, 2] or [B, N, 2]
+    (item 0: the stations are the same across the batch) and values [T, N]
+    or [B, T, N]."""
+    coords = s_coords[0] if s_coords.dim() == 3 else s_coords
+    values = (s_values[None].expand(batch, *s_values.shape)
+              if s_values.dim() == 2 else s_values)
+    return coords, values
+
+
+def _stations_pred_obs_mask(pred, s_coords, s_values, scale_factor,
+                            batch_mask):
+    """(pred at the station pixels [B, T, N], observations with NaN -> 0,
+    mask of finite observations inside the grid and valid batch rows)."""
+    b, t, _, h, w = pred.shape
+    coords, values = prepare_station_batch(s_coords, s_values, b)
+    rows, cols, station_valid = _station_pixel_indices(coords, scale_factor,
+                                                       h, w)
+    flat = pred[:, :, 0].reshape(b, t, h * w)
+    pred_at = flat[..., (rows * w + cols).long()]
+    mask = (~torch.isnan(values) & station_valid[None, None, :]).to(
+        pred_at.dtype)
+    if batch_mask is not None:
+        mask = mask * batch_mask.to(mask.dtype)[:, None, None]
+    return pred_at, torch.nan_to_num(values, nan=0.0), mask
+
+
+def point_supervision_sums(pred, s_coords, s_values, scale_factor=1.0,
+                           use_weighted_loss: bool = True,
+                           weight_strategy: str = "log", batch_mask=None):
+    """(weighted |error| sum, valid-entry count) at the station pixels."""
+    pred_at, obs, mask = _stations_pred_obs_mask(pred, s_coords, s_values,
+                                                 scale_factor, batch_mask)
+    weights = compute_sample_weights(obs, use_weighted_loss, weight_strategy)
+    return ((pred_at - obs).abs() * weights * mask).sum(), mask.sum()
+
+
+def _ratio(num, count):
+    return torch.where(count > 0, num / count.clamp(min=1), 0.0)
+
+
+def point_supervision_loss(pred, s_coords, s_values, scale_factor=1.0,
+                           use_weighted_loss: bool = True,
+                           weight_strategy: str = "log", batch_mask=None):
+    """Masked, intensity-weighted L1 at the station pixels (0 when no
+    entry is valid)."""
+    return _ratio(*point_supervision_sums(pred, s_coords, s_values,
+                                          scale_factor, use_weighted_loss,
+                                          weight_strategy, batch_mask))
+
+
+def _batch_mean(per_sample: torch.Tensor, batch_mask):
+    if batch_mask is None:
+        return per_sample.mean()
+    m = batch_mask.to(per_sample.dtype)
+    return _ratio((per_sample * m).sum(), m.sum())
+
+
+def _per_sample_mean(err: torch.Tensor) -> torch.Tensor:
+    return err.reshape(err.shape[0], -1).mean(dim=1)
+
+
+def conservation_loss(pred, lr_input, batch_mask=None):
+    """Mass conservation: pred area-resized to the LR grid, L1 against the
+    LR input. pred [B, T, 1, H, W], lr_input [B, T, 1, h, w]."""
+    h_lr, w_lr = lr_input.shape[-2:]
+    p_lr = resize_area(pred.movedim(2, -1), h_lr, w_lr)
+    err = (p_lr - lr_input.movedim(2, -1)).abs()
+    return _batch_mean(_per_sample_mean(err), batch_mask)
+
+
+def gradient_loss(pred, batch_mask=None):
+    """Spatial smoothness: mean |dx| + mean |dy|."""
+    gx = (pred[..., :, :-1] - pred[..., :, 1:]).abs()
+    gy = (pred[..., :-1, :] - pred[..., 1:, :]).abs()
+    return (_batch_mean(_per_sample_mean(gx), batch_mask)
+            + _batch_mean(_per_sample_mean(gy), batch_mask))
+
+
+def temporal_consistency_loss(pred, batch_mask=None):
+    """Adjacent-step smoothness: mean |pred_t - pred_t+1|."""
+    err = (pred[:, :-1] - pred[:, 1:]).abs()
+    return _batch_mean(_per_sample_mean(err), batch_mask)
+
+
+def combined_loss(pred, lr_input, s_coords, s_values, scale_factor=1.0,
+                  lambda_point: float = 1.0, lambda_conserve: float = 1.0,
+                  lambda_smooth: float = 0.1, lambda_temporal: float = 0.05,
+                  use_weighted_loss: bool = True, weight_strategy: str = "log",
+                  batch_mask=None):
+    """(lp*point + lc*conserve + ls*smooth + lt*temporal, {"point",
+    "conserve", "smooth", "temporal"})."""
+    parts = {
+        "point": point_supervision_loss(pred, s_coords, s_values,
+                                        scale_factor, use_weighted_loss,
+                                        weight_strategy, batch_mask),
+        "conserve": conservation_loss(pred, lr_input, batch_mask),
+        "smooth": gradient_loss(pred, batch_mask),
+        "temporal": temporal_consistency_loss(pred, batch_mask)}
+    total = (lambda_point * parts["point"]
+             + lambda_conserve * parts["conserve"]
+             + lambda_smooth * parts["smooth"]
+             + lambda_temporal * parts["temporal"])
+    return total, parts
+
+
+def station_sq_err_sums(pred, s_coords, s_values, scale_factor=1.0,
+                        batch_mask=None):
+    """(squared-error sum, valid-entry count) at the station pixels: the sum
+    form of ``station_rmse`` for exact aggregation over batches."""
+    pred_at, obs, mask = _stations_pred_obs_mask(pred, s_coords, s_values,
+                                                 scale_factor, batch_mask)
+    return ((pred_at - obs).square() * mask).sum(), mask.sum()
+
+
+def station_rmse(pred, s_coords, s_values, scale_factor=1.0, batch_mask=None):
+    """Masked RMSE at the station pixels (0 when no entry is valid)."""
+    num, count = station_sq_err_sums(pred, s_coords, s_values, scale_factor,
+                                     batch_mask)
+    return torch.where(count > 0, torch.sqrt(num / count.clamp(min=1)), 0.0)

@@ -1,5 +1,6 @@
-"""Building blocks as ``nn.Module``s: the torch-default-init conv and the
-ConvLSTM cell, counterparts of the JAX package's ``models/layers.py``.
+"""Building blocks as ``nn.Module``s, counterparts of the JAX package's
+``models/layers.py``: the torch-default-init conv, the ConvLSTM cell, and
+the Generator's split-input cell, upsample block and covariate gate.
 
 Activations are NHWC, as in the JAX package. Parameters are held in float32
 and torch's OIHW layout (``weights.py`` maps them to and from the flax HWIO
@@ -13,8 +14,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.convlstm import convlstm_step, pack_step_weight
+from ..ops.convlstm import (convlstm_precompute_x, convlstm_step,
+                            convlstm_step_precomputed, pack_step_weight)
 from ..ops.nn import conv2d_nhwc_f32, torch_init_bound
+from ..ops.pixel_shuffle import pixel_shuffle
 
 
 def _init_uniform(param: torch.Tensor, fan_in: int) -> None:
@@ -80,3 +83,65 @@ class ConvLSTMCell(nn.Module):
         return convlstm_step(x.to(dtype), h.to(dtype), c.to(dtype),
                              self.weight.to(dtype), self.bias.to(dtype),
                              impl=self.impl, packed=packed)
+
+
+class SplitInputConvLSTMCell(ConvLSTMCell):
+    """A ConvLSTM cell whose input-side conv runs apart from the recurrence.
+
+    Its parameters, names and init are ``ConvLSTMCell``'s (one weight [4Ch,
+    Cx+Ch, K, K] and bias [4Ch]), so checkpoints interchange; only the
+    schedule differs: ``precompute_x`` runs once over every step's input
+    merged (T*B), ``step`` does the h-side conv and the gates. Plain PyTorch
+    only (K1 has no h-only form)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, features, kernel_size, "torch", dtype)
+
+    def precompute_x(self, x):
+        """[N, H, W, Cx] -> x-side pre-activations [N, H, W, 4Ch], float32."""
+        dtype = self.dtype or x.dtype
+        return convlstm_precompute_x(x.to(dtype), self.weight.to(dtype),
+                                     self.bias.to(dtype))
+
+    def step(self, z_x, h, c):
+        dtype = self.dtype or h.dtype
+        return convlstm_step_precomputed(z_x, h.to(dtype), c.to(dtype),
+                                         self.weight.to(dtype))
+
+
+class UpsampleBlock(nn.Module):
+    """conv(C -> C*r^2, 3x3) -> PixelShuffle(r) -> ReLU."""
+
+    def __init__(self, features: int, upscale: int = 2,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.upscale = upscale
+        self.conv = Conv2dTorch(features, features * upscale ** 2, (3, 3),
+                                padding=1, dtype=dtype)
+
+    def forward(self, x):
+        return torch.relu(pixel_shuffle(self.conv(x), self.upscale))
+
+
+class GatedCovariateAttention(nn.Module):
+    """x * sigmoid(conv1x1(relu(conv3x3(cov)))), the DEM and LUCC gates.
+
+    The gate depends only on the covariate, so for time-major features
+    [T, B, H, W, C] against a per-sample covariate [B, H, W, Cc] it is
+    computed once over B and broadcast over T, never over a covariate tiled
+    T-fold (exact: the convs are per sample)."""
+
+    def __init__(self, cov_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv_reduce = Conv2dTorch(cov_features, features // 2, (3, 3),
+                                       padding=1, dtype=dtype)
+        self.conv_gate = Conv2dTorch(features // 2, features, (1, 1),
+                                     padding=0, dtype=dtype)
+
+    def forward(self, x, cov):
+        gate = torch.sigmoid(self.conv_gate(torch.relu(self.conv_reduce(cov))))
+        if x.dim() == cov.dim() + 1:     # time-major features
+            gate = gate[None]
+        return x * gate

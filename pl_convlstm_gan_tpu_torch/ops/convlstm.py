@@ -80,3 +80,28 @@ def convlstm_step(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         w, b, x, h, c = operands
         return convlstm_cell_fwd(x, h, c, w, b, packed=packed)
     raise ValueError(f"Unknown convlstm impl: {impl!r} (valid: 'torch', 'kernel')")
+
+
+# The split-input cell: conv(concat(x, h)) = conv_x(x) + conv_h(h) by
+# linearity. When every step's input is known before the recurrence (the
+# Generator's encode), the x side of all steps is one conv over the merged
+# T*B batch, and each step does only the h-side conv and the gates. Plain
+# PyTorch only: K1 has no h-only form.
+
+def convlstm_precompute_x(x: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """x-side pre-activations of any batch of inputs. x: [N, H, W, Cx] (N may
+    be T*B merged), weight OIHW [4Ch, Cx+Ch, K, K]; returns z_x [N, H, W,
+    4Ch] in float32, with the bias folded in so that the step needs none."""
+    return conv2d_nhwc_f32(x, weight[:, :x.shape[-1]], bias)
+
+
+def convlstm_step_precomputed(z_x: torch.Tensor, h: torch.Tensor,
+                              c: torch.Tensor, weight: torch.Tensor):
+    """One step given the precomputed x side ``z_x`` [B, H, W, 4Ch]: the
+    h-side conv (float32) added to it, then the gates. Returns (h', c') in
+    h's type."""
+    cx = weight.shape[1] - h.shape[-1]
+    z = z_x.float() + conv2d_nhwc_f32(h, weight[:, cx:], None)
+    h_next, c_next = convlstm_gates(z, c.float())
+    return h_next.to(h.dtype), c_next.to(h.dtype)

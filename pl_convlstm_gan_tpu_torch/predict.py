@@ -1,15 +1,16 @@
 """Inference: build the model from a config, load its weights, and return a
-predict function. Counterpart of the JAX package's ``predict.py`` for the
-forecaster family.
+predict function. Counterpart of the JAX package's ``predict.py``.
 
 Usage:
     from pl_convlstm_gan_tpu_torch.predict import load_predictor
     predict = load_predictor(config, "params.npz")     # runs on the GPU
     future = predict(past_frames)    # [B,T_in,1,H,W] -> [B,T_out,1,H,W] f32
+    hr = predict(rain_lr, dem, lu)   # Generator: [B,T,1,H,W] -> [B,T,1,H',W']
 
 Checkpoints are a ``.npz`` of the flattened flax params (see ``weights.py``;
 the README shows how to write one from a JAX checkpoint), a torch ``.pt``
-state_dict, or a checkpoint directory that the port's trainer wrote
+state_dict, a reference Generator ``.pth``, or a checkpoint directory that
+the port's trainer wrote
 (``<output_dir>/best_model`` or ``latest``). Entry points run on the GPU
 unless the caller passes ``device="cpu"``; with no CUDA device and no such
 request they raise.
@@ -23,10 +24,10 @@ import numpy as np
 import torch
 
 from .config import Config, convlstm_cell_impl, rollout_path
-from .models import ConvLSTMForecaster, Discriminator
+from .models import ConvLSTMForecaster, Discriminator, Generator
 from .ops.kernels.rollout_kernel import (pack_weights, rollout_kernel,
                                          rollout_kernel_misfit)
-from .weights import flax_to_state_dict
+from .weights import flax_to_state_dict, load_reference_pth
 
 
 def resolve_device(device=None) -> torch.device:
@@ -45,21 +46,37 @@ def compute_dtype(config: Config) -> torch.dtype:
             else torch.float32)
 
 
-def build_model(config: Config, output_frames: int = 0) -> ConvLSTMForecaster:
-    """The (randomly initialised) module a config describes. ``output_frames``
-    overrides the rollout horizon: the recurrent weights do not depend on it.
+def build_model(config: Config, output_frames: int = 0,
+                lu_channels: int = 0):
+    """The (randomly initialised) module a config describes:
+    ``ConvLSTMForecaster`` (families forecaster and gan; ``output_frames``
+    overrides the rollout horizon, which the recurrent weights do not
+    depend on) or ``Generator`` (family generator; ``lu_channels``, else
+    ``model.lu_channels``, is the LUCC class count; ``input_grid_size`` is
+    passed when ``target_grid_size`` is configured).
     ``model.convlstm_impl`` picks the cells' step (``convlstm_cell_impl``)."""
     mc = config.model
-    if mc.family not in ("forecaster", "gan"):
-        raise NotImplementedError(
-            f"model family {mc.family!r} is not ported yet; the port serves "
-            f"the forecaster (and the GAN's forecaster generator)")
     dtype = torch.bfloat16 if compute_dtype(config) == torch.bfloat16 else None
-    return ConvLSTMForecaster(
-        hidden_dims=tuple(mc.hidden_dims), input_frames=mc.input_frames,
-        output_frames=output_frames or mc.output_frames,
-        in_channels=mc.in_channels, kernel_size=mc.kernel_size, dtype=dtype,
-        convlstm_impl=convlstm_cell_impl(mc.convlstm_impl))
+    impl = convlstm_cell_impl(mc.convlstm_impl)
+    if mc.family in ("forecaster", "gan"):
+        return ConvLSTMForecaster(
+            hidden_dims=tuple(mc.hidden_dims), input_frames=mc.input_frames,
+            output_frames=output_frames or mc.output_frames,
+            in_channels=mc.in_channels, kernel_size=mc.kernel_size,
+            dtype=dtype, convlstm_impl=impl)
+    if mc.family != "generator":
+        raise ValueError(f"Unknown model family: {mc.family!r}")
+    sizing = {"scale_factor": mc.scale_factor}
+    if mc.target_grid_size:
+        sizing = {"target_grid_size": tuple(mc.target_grid_size),
+                  "input_grid_size": (tuple(mc.input_grid_size)
+                                      if mc.input_grid_size else None)}
+    return Generator(
+        in_channels=mc.in_channels, dem_channels=mc.dem_channels,
+        lu_channels=lu_channels or mc.lu_channels,
+        hidden_dims=tuple(mc.hidden_dims), kernel_size=mc.kernel_size,
+        convlstm_impl=impl, split_precompute=mc.split_precompute,
+        dtype=dtype, **sizing)
 
 
 def build_discriminator(config: Config) -> Discriminator:
@@ -71,7 +88,8 @@ def build_discriminator(config: Config) -> Discriminator:
 
 
 def load_state_dict(checkpoint_path: str) -> dict:
-    """A ``.npz`` of flattened flax params, a torch ``.pt`` state_dict, or a
+    """A ``.npz`` of flattened flax params, a torch ``.pt`` state_dict, a
+    reference Generator ``.pth`` (``weights.load_reference_pth``), or a
     checkpoint directory written by the port's trainer (``best_model``,
     ``latest``): its ``params``, or for a GAN checkpoint ``gen_params`` (the
     generator is the deployed model), as the JAX ``restore_params``."""
@@ -88,9 +106,12 @@ def load_state_dict(checkpoint_path: str) -> dict:
             return flax_to_state_dict({k: data[k] for k in data.files})
     if checkpoint_path.endswith(".pt"):
         return torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+    if checkpoint_path.endswith(".pth"):
+        return load_reference_pth(checkpoint_path)
     raise ValueError(f"checkpoint must be a .npz of flax params, a .pt "
-                     f"state_dict or a checkpoint directory of the port's "
-                     f"trainer, got {checkpoint_path!r}")
+                     f"state_dict, a reference Generator .pth or a "
+                     f"checkpoint directory of the port's trainer, got "
+                     f"{checkpoint_path!r}")
 
 
 def rollout_choice(config: Config, device: torch.device,
@@ -119,17 +140,27 @@ def rollout_choice(config: Config, device: torch.device,
 
 def build_predict_fn(config: Config, checkpoint_path: str,
                      output_frames: int = 0, rollout_impl: str = "",
-                     device=None) -> Callable:
+                     device=None, lu_channels: int = 0) -> Callable:
     """Load the weights and return fn(frames [B,T_in,C,H,W] tensor on the
-    device) -> [B,T_out,C,H,W] float32.
+    device) -> [B,T_out,C,H,W] float32; for the Generator family fn(rain_lr
+    [B,T,1,H,W], dem [B,Cd,Hd,Wd], lu [B,Cl,Hl,Wl]) -> [B,T,1,H',W']
+    float32, its cells on K1 under ``convlstm_impl: pallas`` (on CPU
+    tensors K1's plain version). Its LUCC class count is ``lu_channels``,
+    else the config's, else the checkpoint's.
 
-    ``rollout_impl`` (default: the config's) picks the path through
-    ``rollout_choice``: 'kernel' (JAX's 'pallas') = the CUDA kernels K1 and
-    K2 launched step by step (``rollout_kernel``; on CPU tensors each
+    ``rollout_impl`` (default: the config's) picks the forecaster's path
+    through ``rollout_choice``: 'kernel' (JAX's 'pallas') = the CUDA kernels
+    K1 and K2 launched step by step (``rollout_kernel``; on CPU tensors each
     wrapper runs its plain version); 'torch' (JAX's 'xla') = the plain
     ``ConvLSTMForecaster.forward``; 'auto' = 'kernel' on a GPU when the
     kernels take the model's widths, else 'torch'."""
     dev = resolve_device(device)
+    if config.model.family == "generator":
+        state = load_state_dict(checkpoint_path)
+        model = build_model(config, lu_channels=lu_channels or state[
+            "lu_attn.conv_reduce.weight"].shape[1])
+        model.load_state_dict(state)
+        return model.to(dev).eval()
     impl = rollout_choice(config, dev, rollout_impl)
     model = build_model(config, output_frames)
     model.load_state_dict(load_state_dict(checkpoint_path))
@@ -150,18 +181,24 @@ def build_predict_fn(config: Config, checkpoint_path: str,
 
 
 def load_predictor(config: Config, checkpoint_path: str,
-                   output_frames: int = 0, device=None) -> Callable:
+                   output_frames: int = 0, device=None,
+                   lu_channels: int = 0) -> Callable:
     """``build_predict_fn`` behind a function that takes numpy arrays or
-    tensors, moves them to the device, and runs without autograd.
+    tensors, moves them to the device as float32, and runs without
+    autograd.
 
     predict(frames [B,T_in,C,H,W]) -> [B,T_out,C,H,W] float32 tensor on the
-    device; ``output_frames`` serves another horizon than the config's."""
+    device; ``output_frames`` serves another horizon than the config's.
+    Generator family: predict(rain_lr [B,T,1,H,W], dem, lu) ->
+    [B,T,1,H',W'] float32 (``lu_channels``: the LUCC class count,
+    ``lu.shape[1]``; by default the config's, else the checkpoint's)."""
     dev = resolve_device(device)
-    fn = build_predict_fn(config, checkpoint_path, output_frames, device=dev)
+    fn = build_predict_fn(config, checkpoint_path, output_frames, device=dev,
+                          lu_channels=lu_channels)
 
-    def predict(frames):
-        frames = torch.as_tensor(np.asarray(frames) if not isinstance(
-            frames, torch.Tensor) else frames).to(dev, torch.float32)
+    def predict(*inputs):
+        inputs = [torch.as_tensor(np.asarray(a) if not isinstance(
+            a, torch.Tensor) else a).to(dev, torch.float32) for a in inputs]
         with torch.inference_mode():
-            return fn(frames)
+            return fn(*inputs)
     return predict

@@ -58,6 +58,9 @@ class SequenceTrainer:
                  config: Optional[Config] = None, device=None):
         self.config = config if config is not None else load_config(config_name)
         self.config.validate(training=True)
+        if self.config.model.family == "generator":
+            raise ValueError("SequenceTrainer trains the forecaster and GAN "
+                             "families; the Generator trains with Trainer")
         self.device = resolve_device(device)
         self.is_gan = self.config.model.family == "gan"
         self.output_dir = self.config.output.output_dir

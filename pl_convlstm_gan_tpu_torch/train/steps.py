@@ -1,11 +1,15 @@
-"""Train and eval steps of the forecaster and GAN families.
+"""Train and eval steps of the three model families.
 
-Counterpart of the forecaster and GAN halves of the JAX package's
-``train/steps.py`` (``make_optimizer``, ``forecaster_step_body``,
-``gan_step_body``, ``make_forecaster_eval_step``, ``aggregate_epoch_metrics``,
-``aggregate_sequence_eval``):
-
-- the loss is L1 of the scheduled-sampling rollout against the targets;
+Counterpart of the single-device half of the JAX package's
+``train/steps.py`` (``make_optimizer``, ``generator_step_body``,
+``make_generator_eval_step``, ``aggregate_generator_eval``,
+``forecaster_step_body``, ``gan_step_body``, ``make_forecaster_eval_step``,
+``aggregate_epoch_metrics``, ``aggregate_sequence_eval``):
+- the Generator's loss is the four-term ``combined_loss`` at the scale the
+  shapes give (pred width / input width, as the JAX step computes it); its
+  eval step returns sums for exact aggregation over wrap-padded batches;
+- the forecaster's loss is L1 of the scheduled-sampling rollout against
+  the targets;
 - the update is clip-by-global-norm then Adam moments, with the LR passed
   per step: ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` with ``lr``
   set in its ``param_groups`` each step, and the clip written by hand to
@@ -36,9 +40,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..losses import (contingency_counts, discriminator_loss,
-                      gan_generator_loss, l1_loss, scores_from_counts,
-                      sharpness_sums, ssim_per_sample)
+from ..losses import (combined_loss, conservation_loss, contingency_counts,
+                      discriminator_loss, gan_generator_loss, gradient_loss,
+                      l1_loss, point_supervision_sums, scores_from_counts,
+                      sharpness_sums, ssim_per_sample, station_sq_err_sums,
+                      temporal_consistency_loss)
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -86,6 +92,104 @@ def _adam_update(optimizer, params, grads, lr: float, grad_clip_norm: float
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
 
+
+# ---------------------------------------------------------------- Generator
+
+LOSS_KEYS = ("lambda_point", "lambda_conserve", "lambda_smooth",
+             "lambda_temporal", "use_weighted_loss", "weight_strategy")
+
+
+def loss_config(training_config) -> Dict:
+    """The combined loss's settings from a ``TrainingConfig``."""
+    return {k: getattr(training_config, k) for k in LOSS_KEYS}
+
+
+def generator_loss(model, batch, loss_cfg: Dict):
+    """(total, parts, pred, scale) of the Generator on batch = (rain_lr
+    [B,T,1,H,W], dem, lu, s_coords, s_values)."""
+    rain_lr, dem, lu, s_coords, s_values = batch
+    pred = model(rain_lr, dem, lu)
+    scale = pred.shape[-2] / rain_lr.shape[-2]
+    total, parts = combined_loss(
+        pred, rain_lr, s_coords, s_values, scale, loss_cfg["lambda_point"],
+        loss_cfg["lambda_conserve"], loss_cfg["lambda_smooth"],
+        loss_cfg["lambda_temporal"], loss_cfg["use_weighted_loss"],
+        loss_cfg["weight_strategy"])
+    return total, parts, pred, scale
+
+
+def generator_train_step(state: TrainState, batch, lr: float, loss_cfg: Dict,
+                         grad_clip_norm: float = 0.5) -> Dict[str, float]:
+    """One update of ``state`` in place on batch = (rain_lr, dem, lu,
+    s_coords, s_values): combined loss -> NaN-skip -> clip -> Adam at
+    ``lr``. Returns {"total", "rmse" (station RMSE of this batch),
+    "skipped", "point", "conserve", "smooth", "temporal"}, as the JAX
+    step's metrics. One host decision (the finite loss), taken after the
+    backward is queued."""
+    params = list(state.model.parameters())
+    state.optimizer.zero_grad(set_to_none=True)
+    total, parts, pred, scale = generator_loss(state.model, batch, loss_cfg)
+    total.backward()
+    ok = bool(torch.isfinite(total))
+    if ok:
+        _adam_update(state.optimizer, params, [p.grad for p in params], lr,
+                     grad_clip_norm)
+    state.optimizer.zero_grad(set_to_none=True)
+    state.step += 1
+    with torch.no_grad():
+        se, cnt = station_sq_err_sums(pred, batch[3], batch[4], scale)
+        rmse = torch.where(cnt > 0, torch.sqrt(se / cnt.clamp(min=1)), 0.0)
+    names = ("total", "rmse", *parts)
+    values = torch.stack([t.detach().float() for t in (
+        total, rmse, *parts.values())]).tolist()
+    return {**dict(zip(names, values)), "skipped": int(not ok)}
+
+
+@torch.no_grad()
+def generator_eval_step(model, batch, n_valid: int, loss_cfg: Dict
+                        ) -> Dict[str, tuple]:
+    """{metric: (sum, weight)} of the Generator on one batch; rows with
+    index >= n_valid (wrap-padding) carry weight 0. Values stay on the
+    device; ``aggregate_generator_eval`` fetches them."""
+    rain_lr, dem, lu, s_coords, s_values = batch
+    b = rain_lr.shape[0]
+    valid = torch.arange(b, device=rain_lr.device) < n_valid
+    nv = valid.float().sum()
+    pred = model(rain_lr, dem, lu)
+    scale = pred.shape[-2] / rain_lr.shape[-2]
+    return {
+        "point": point_supervision_sums(
+            pred, s_coords, s_values, scale, loss_cfg["use_weighted_loss"],
+            loss_cfg["weight_strategy"], batch_mask=valid),
+        "conserve": (conservation_loss(pred, rain_lr, valid) * nv, nv),
+        "smooth": (gradient_loss(pred, valid) * nv, nv),
+        "temporal": (temporal_consistency_loss(pred, valid) * nv, nv),
+        "se": station_sq_err_sums(pred, s_coords, s_values, scale,
+                                  batch_mask=valid),
+    }
+
+
+def aggregate_generator_eval(metric_batches, loss_cfg: Dict
+                             ) -> Optional[Dict[str, float]]:
+    """Exact aggregation of Generator eval sums over batches: {"loss",
+    "rmse", "point", "conserve", "smooth", "temporal"}."""
+    if not metric_batches:
+        return None
+    metric_batches = _to_host(list(metric_batches))   # one transfer
+    keys = metric_batches[0].keys()
+    num = {k: sum(float(m[k][0]) for m in metric_batches) for k in keys}
+    wt = {k: sum(float(m[k][1]) for m in metric_batches) for k in keys}
+    comp = {k: (num[k] / wt[k] if wt[k] > 0 else 0.0)
+            for k in ("point", "conserve", "smooth", "temporal")}
+    rmse = (num["se"] / wt["se"]) ** 0.5 if wt["se"] > 0 else 0.0
+    total = (loss_cfg["lambda_point"] * comp["point"]
+             + loss_cfg["lambda_conserve"] * comp["conserve"]
+             + loss_cfg["lambda_smooth"] * comp["smooth"]
+             + loss_cfg["lambda_temporal"] * comp["temporal"])
+    return {"loss": total, "rmse": rmse, **comp}
+
+
+# --------------------------------------------------------------- forecaster
 
 def forecaster_loss(model, inputs, targets, teacher_draws=None):
     """(L1 loss, predictions) of the rollout with scheduled sampling."""

@@ -25,6 +25,23 @@ kernels go HWIO <-> OIHW like the params; values are copied exactly.
 A whole JAX ``GANTrainState`` crosses with both (``load_gan_train_state`` /
 ``gan_train_state_to_jax``): generator and discriminator params, both Adam
 states and the step.
+
+The Generator's tree (``init_conv``, ``recurrence/cell1``, ``upsample_0/
+conv``, ``dem_attn/conv_reduce``, ``post_conv1``, ...) crosses as any other.
+A checkpoint of the reference PyTorch Generator (``best_model.pth``, its
+``model_state_dict``) is renamed onto that tree by ``reference_to_flax``, a
+copy of the JAX package's ``tools/import_torch_checkpoint.py`` map:
+
+    reference module                 flax path
+    init_conv                        init_conv
+    cell{k}.conv                     recurrence/cell{k}
+    dem_attn.conv.0 / .conv.2        dem_attn/conv_reduce / conv_gate
+    lu_attn.conv.0 / .conv.2         lu_attn/conv_reduce / conv_gate
+    upsample_blocks.{i}.conv         upsample_{i}/conv
+    post_process.0 / .2              post_conv1 / post_conv2
+
+``load_reference_pth`` reads such a file straight into the port's
+``state_dict``.
 """
 from __future__ import annotations
 
@@ -84,6 +101,45 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
             node = node.setdefault(m, {})
         node[leaf] = value
     return {"params": root}
+
+
+def _reference_conv(sd: Mapping, name: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": np.asarray(sd[f"{name}.weight"],
+                                np.float32).transpose(2, 3, 1, 0)}
+    if f"{name}.bias" in sd:
+        out["bias"] = np.asarray(sd[f"{name}.bias"], np.float32)
+    return out
+
+
+def reference_to_flax(sd: Mapping) -> Dict[str, Any]:
+    """A reference Generator state_dict (numpy arrays or tensors, OIHW) ->
+    the ``{"params": ...}`` tree of the JAX Generator (HWIO kernels)."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    params: Dict[str, Any] = {"init_conv": _reference_conv(sd, "init_conv"),
+                              "recurrence": {}}
+    for cell in sorted({k.split(".")[0] for k in sd if k.startswith("cell")}):
+        params["recurrence"][cell] = _reference_conv(sd, f"{cell}.conv")
+    for attn in ("dem_attn", "lu_attn"):
+        params[attn] = {"conv_reduce": _reference_conv(sd, f"{attn}.conv.0"),
+                        "conv_gate": _reference_conv(sd, f"{attn}.conv.2")}
+    i = 0
+    while f"upsample_blocks.{i}.conv.weight" in sd:
+        params[f"upsample_{i}"] = {
+            "conv": _reference_conv(sd, f"upsample_blocks.{i}.conv")}
+        i += 1
+    params["post_conv1"] = _reference_conv(sd, "post_process.0")
+    params["post_conv2"] = _reference_conv(sd, "post_process.2")
+    return {"params": params}
+
+
+def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A reference Generator checkpoint (a ``.pth`` bundle with
+    ``model_state_dict``, or the bare state_dict) as the port's
+    ``state_dict``."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = obj.get("model_state_dict", obj)
+    return flax_to_state_dict(reference_to_flax(
+        {k: v.numpy() for k, v in sd.items()}))
 
 
 def stream_state_from_numpy(cells, prev_out, device, dtype):

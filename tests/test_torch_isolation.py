@@ -45,7 +45,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "pl_convlstm_gan_tpu_torch.streaming" in modules
     for mod in ("train.sequence_trainer", "train.steps", "train.checkpoint",
                 "losses", "data", "models.discriminator",
-                "ops.kernels.tap_structure_kernel", "experiments.tap_structure"):
+                "ops.kernels.tap_structure_kernel", "experiments.tap_structure",
+                "models.generator", "train.trainer", "ops.resize",
+                "ops.coords", "ops.pixel_shuffle"):
         assert f"pl_convlstm_gan_tpu_torch.{mod}" in modules
     code = _PROBE.format(blocked=BLOCKED, modules=modules,
                          chip_smoke=str(REPO / "chip_smoke.py"))

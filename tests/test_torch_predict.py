@@ -120,9 +120,11 @@ def test_cli_predict_writes_the_predictor_output(tmp_path, checkpoint,
 
 
 def test_build_model_refuses_unported_family(tmp_path):
+    """Every family of the JAX package is ported (the Generator since its
+    slice); a family outside them is refused by name."""
     cfg = _config(tmp_path)
-    cfg.model.family = "generator"
-    with pytest.raises(NotImplementedError, match="not ported"):
+    cfg.model.family = "diffusion"
+    with pytest.raises(ValueError, match="Unknown model family"):
         port_predict.build_model(cfg)
 
 

@@ -156,7 +156,6 @@ def test_plateau_and_early_stopping_match_jax(metrics):
 
 
 @pytest.mark.parametrize("setting,value,item", [
-    ("model.family", "generator", "A8"),
     ("mesh.model_axis", 2, "A10"),
     ("mesh.data_axis", 4, "A9"),
     ("model.remat", True, "A3"),
