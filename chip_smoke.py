@@ -95,6 +95,10 @@ own line:
    shape through experiments.tap_structure.run() with its launch counts,
    then K3 and K4 against their plain versions (rtol 2^-7), timed in
    turns, beside the plain versions, 64 cuBLAS products and the bound;
+   each also in a CUDA graph at 64 and 8 repetitions: the device time,
+   and the work-done guard (the 56 extra repetitions take at least their
+   FLOPs at the bf16 peak; no rate above 1.05x the peak), with the
+   steady-state TFLOP/s of that slope;
 15. one JSON line {"kernels": [...]} with each kernel's launches (per path,
    the Generator's included), error, and its time beside its bound, its
    plain version's and the library call's (K1 with z as its own entry; K1
@@ -227,6 +231,13 @@ K4_STANDS_FOR = ["P5 experiments/pallas_tap_structure.py big_kernel :25 "
 # 128, so where a float32 value straddles a rounding point they land one
 # ulp apart: 2 ulps relative at the finest spacing, 2^-7
 TAP_RTOL = 2.0 ** -7
+# the work-done guard: each kernel in a CUDA graph at TAP_LOW_REPS and at
+# REPS; the difference is the extra repetitions' work alone, which the
+# tensor cores cannot do in less than its FLOPs at the bf16 peak. A rate
+# above the peak (with 5 % for the clock's boost) means work was skipped.
+TAP_LOW_REPS = 8
+TAP_GRAPH_ITERS = 20
+TAP_MAX_RATE = 1.05
 # the GAN configurations of the gan phase: (config, compute dtype, step
 # impl, teacher-forcing prob of the draws, steps, the cuts made); each runs
 # at full width from one seeded state on both paths
@@ -1136,7 +1147,10 @@ def phase_tap_structure():
     own path, experiments.tap_structure.run(), with the launch counts set to
     0 before and read after; then K3 and K4 against their plain versions on
     the experiment's operands, timed in turns beside the plain versions,
-    64 cuBLAS products of the same operands, and the bound."""
+    64 cuBLAS products of the same operands, and the bound; then each in a
+    CUDA graph at REPS and TAP_LOW_REPS: the device time, and the slope
+    between the two, which must take at least the extra repetitions' time
+    at the tensor cores' peak (the work-done guard)."""
     from pl_convlstm_gan_tpu_torch.experiments import tap_structure as ts
     reset_counts()
     runs = {r["name"]: r for r in ts.run(device=DEVICE)}
@@ -1149,14 +1163,21 @@ def phase_tap_structure():
     m, n, kt, reps = ts.M, ts.N, ts.TAPS * ts.K, ts.REPS
     flops = ts.flops(reps)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = (m // tap_mod._BM) * (n // tap_mod._BN)
+    # a 64 x 64 tile per cluster of _PAIR blocks, split along K
+    blocks = (m // tap_mod._BM) * (n // tap_mod._BN) * tap_mod._PAIR
     out = torch.empty((m, n), dtype=torch.bfloat16, device=DEVICE)
-    raw = {"tap_loop": raw_launcher(
-               "tap_structure", "tap_loop_bf16", tap_mod._ARGTYPES,
-               (a9, w9, out), (m, ts.K, n, reps)),
-           "tap_k1152": raw_launcher(
-               "tap_structure", "tap_k1152_bf16", tap_mod._ARGTYPES,
-               (abig, wbig, out), (m, kt, n, reps))}
+
+    def raws(r):
+        return {"tap_loop": raw_launcher(
+                    "tap_structure", "tap_loop_bf16", tap_mod._ARGTYPES,
+                    (a9, w9, out), (m, ts.K, n, r)),
+                "tap_k1152": raw_launcher(
+                    "tap_structure", "tap_k1152_bf16", tap_mod._ARGTYPES,
+                    (abig, wbig, out), (m, kt, n, r))}
+    raw, raw_low = raws(reps), raws(TAP_LOW_REPS)
+    slope_flops = flops - ts.flops(TAP_LOW_REPS)
+    min_slope_ms = slope_flops / PEAK_FLOPS["bfloat16"] * 1e3
+    max_tflops = TAP_MAX_RATE * PEAK_FLOPS["bfloat16"] / 1e12
     # in turns within one call: K3, K4, K4, K3
     turns = {"tap_loop": [], "tap_k1152": []}
     for name in ("tap_loop", "tap_k1152", "tap_k1152", "tap_loop"):
@@ -1182,11 +1203,31 @@ def phase_tap_structure():
             plain_ms=ts.launch_ms(lambda: plain(*operands, reps), 3)[0],
             library_ms=ts.launch_ms(lambda: [library() for _ in range(reps)],
                                     3)[0],
-            flops=flops, nbytes=nbytes, blocks=blocks, sms=sms,
-            sm_share=min(blocks, sms) / sms)
+            flops=flops, nbytes=nbytes, blocks=blocks,
+            cluster=tap_mod._PAIR, sms=sms, sm_share=min(blocks, sms) / sms)
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, "bfloat16")
-        recs[name] = rec
+        rec["graph_ms"] = graph_ms(raw[name], TAP_GRAPH_ITERS)
+        rec["graph_ms_low_reps"] = graph_ms(raw_low[name], TAP_GRAPH_ITERS)
+        rec["low_reps"] = TAP_LOW_REPS
+        rec["slope_ms"] = rec["graph_ms"] - rec["graph_ms_low_reps"]
+        rec["min_slope_ms"] = min_slope_ms
+        rec["graph_tflops"] = flops / (rec["graph_ms"] * 1e-3) / 1e12
+        rec["slope_tflops"] = (slope_flops / (rec["slope_ms"] * 1e-3) / 1e12
+                               if rec["slope_ms"] > 0 else None)
+        # the repetitions' fixed part: launch, staging, epilogue
+        rec["fixed_ms"] = rec["graph_ms"] - rec["slope_ms"] * reps / (
+            reps - TAP_LOW_REPS)
         say(phase="tap_structure", kernel=name, tol=[0.0, TAP_RTOL], **rec)
+        if rec["slope_ms"] < min_slope_ms:
+            raise AssertionError(
+                f"{name}: {reps - TAP_LOW_REPS} more repetitions took "
+                f"{rec['slope_ms']:.4f} ms, less than the {min_slope_ms:.4f} "
+                "ms the tensor cores need for them: repetitions skipped")
+        for key in ("tflops", "graph_tflops", "slope_tflops"):
+            if rec[key] > max_tflops:
+                raise AssertionError(f"{name}: {key} {rec[key]:.1f} above "
+                                     f"{max_tflops:.1f} TFLOP/s")
+        recs[name] = rec
     return recs
 
 
@@ -2001,9 +2042,10 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             replaces=replaces, stands_for=stands_for, launches=t["launches"],
             launches_by_path={"tap_structure_experiment": t["launches"]},
             max_abs_err=t["max_abs_err"], max_rel_err=t["max_rel_err"],
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"],
-            tflops=t["tflops"], sm_share=t["sm_share"]))
+            ms=t["ms"], graph_ms=t["graph_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], tflops=t["tflops"],
+            slope_tflops=t["slope_tflops"], sm_share=t["sm_share"]))
     return entries
 
 

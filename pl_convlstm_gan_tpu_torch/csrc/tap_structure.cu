@@ -14,7 +14,8 @@
 //       wbig [9K, N].
 // As in the TPU kernels (acc = acc + dot(...)), each product is formed on its
 // own, in a fresh float32 partial sum, and then added to the carried
-// accumulator: K3 adds 9 partial sums a repetition, K4 one.
+// accumulator: K3 adds 9 partial sums a repetition, K4 one. Every
+// repetition's products are issued on the tensor cores.
 //
 // What bounds it on the card: operations. At the experiment's shape (M 1024,
 // K 128, N 256, REPS 64) both do 2*1024*1152*256*64 = 38.65 GFLOP on 3.5 MB
@@ -23,227 +24,309 @@
 //
 // Design, one code path for both kernels (tap_body below), so that the
 // structure of the contraction is the only difference:
-// - One block per 64 x 32 output tile: 16 x 8 = 128 blocks, one wave on
-//   97 % of the 132 SMs (64 x 64 tiles would give 64 blocks, half the card).
-//   4 warps, each a 32 x 16 sub-tile: 2 x 2 mma.sync m16n8k16 tiles (bf16 x
-//   bf16 -> f32).
-// - The block stages its operands once, whole, into shared memory, as the
-//   TPU kernels find theirs in VMEM: its 64 rows of A as [row][9K] (a9's 9
-//   tap slices side by side) and its 32 columns of B transposed as
-//   [column][9K]. Rows are padded by 8 bf16 (2,320 bytes at 9K = 1152), so
-//   the 8 row addresses of an ldmatrix fall on distinct banks. 222,720 bytes
-//   of the 227 KB a block may use.
-// - The REPS loop then reloads the fragments from shared memory (ldmatrix)
-//   and issues the mma.sync of every repetition; both are asm volatile, so
-//   the compiler can neither hoist them out of the loop nor merge
-//   repetitions. K3 runs 9 segments of K/16 = 8 k-steps a repetition, K4 one
-//   segment of 72: the same fragment loads and mma's, the same tiles.
-// wgmma and TMA belong to the K1 redesign this experiment informs.
+// - A 64 x 64 output tile per cluster of 2 blocks, split along the
+//   contraction: 16 x 4 tiles, 128 blocks, one wave on 97 % of the 132 SMs.
+//   Block rank r of the pair takes k-blocks (64 wide) r, r + 2, r + 4, ...:
+//   one 64-column half of every tap of K3, one 128-byte swizzle span. A
+//   block is one warpgroup (128 threads) issuing wgmma.mma_async m64n64k16
+//   (bf16 x bf16 -> f32), both operands read from shared memory by
+//   descriptor, the sums in registers (32 f32 a thread per set).
+// - Why the pair: a 64 x 32 tile (one block per SM, all of K) would read 3
+//   KB of shared memory a k16 step (24 clocks at 128 B a clock) for 16
+//   clocks of tensor-core work; at 64 x 64 a step reads 4 KB for 32 clocks,
+//   and half of K keeps a block's operands inside its shared memory.
+// - The operands stay resident, as the TPU kernels find theirs in VMEM:
+//   thread 0 stages the block's 64 rows of A and 64 columns of B, for its
+//   k-blocks, once, by TMA (cp.async.bulk.tensor) with one mbarrier's
+//   completion, both in the 128-byte swizzle: A K-major (8 KB a k-block, as
+//   K1's tiles), B as it lies in w9 / wbig, N-major, one 128-byte row of 64
+//   columns a k (8 KB a k-block), read by wgmma through the instruction's
+//   transpose bit: no transpose pass. 9 k-blocks a block at 9K = 1152:
+//   147,456 bytes. The REPS loop then reads shared memory only.
+// - A segment is one fresh partial: K3's is one tap (its block's half: 1
+//   k-block, 4 k16 steps), K4's the whole contraction (9 k-blocks, 36
+//   steps). A segment's first wgmma has scale-d = 0 (the fresh partial
+//   sum), the rest add to it; the segment is one commit group. Before its
+//   partial is added to the accumulator the group must be complete
+//   (wgmma.wait_group): K3 waits 9 times a repetition, K4 once. That
+//   difference is the experiment's question on this card. Two partial sets
+//   alternate, so segment s + 1's wgmmas are in flight while segment s's
+//   partial is waited for and added.
+// - A segment is unrolled at compile time (K3 and K4 are the two
+//   instantiations of one template), and the loop over segments goes by
+//   pairs, so the same partial set is in flight at its head on every path.
+//   With a run-time loop over a segment's k-blocks, or an odd trip count
+//   inside the loop, ptxas cannot tell which group a wait retires: it
+//   inserts warpgroup.arrive and serializes the wgmmas (C7514 / C7515),
+//   and the kernels ran at 170-330 TFLOP/s instead of ~800 on an H100.
+// - The pair's sum: rank 1 leaves its accumulator in its shared memory,
+//   rank 0 reads it over distributed shared memory (mapa, ld.shared::
+//   cluster) between two cluster barriers, adds it to its own and stores
+//   bf16. The summation order changes only inside float32.
 //
-// Each C entry launches on the given stream, allocates nothing, and returns
-// cudaGetLastError() after the launch.
+// Each C entry encodes its two TMA maps on the host per launch, launches on
+// the given stream, allocates nothing, and returns cudaGetLastError() after
+// the launch (or cudaErrorInvalidValue for shapes it does not take).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 64;             // output rows per block
-constexpr int BN = 32;             // output columns per block
-constexpr int WM = 32;             // rows per warp (2 m16 tiles)
-constexpr int WN = 16;             // columns per warp (2 n8 tiles)
-constexpr int NT = 32 * (BM / WM) * (BN / WN);   // 128 threads
-constexpr int PAD = 8;             // bf16 of padding per shared-memory row
+constexpr int BM = 64;                 // output rows a tile: the wgmma's M
+constexpr int BN = 64;                 // output columns a tile: the wgmma's N
+constexpr int BK = 64;                 // contraction a k-block
+constexpr int PAIR = 2;                // blocks a tile (a cluster), split along K
+constexpr int NT = 128;                // one warpgroup
 constexpr int TAPS = 9;
-constexpr int MAX_SMEM = 232448;   // dynamic shared memory a block may use
+constexpr int K3_SEG = 128;            // K3's segment: one tap
+constexpr int KT = TAPS * K3_SEG;      // the contraction, K4's one segment
+constexpr int A_TILE = BM * BK * 2;    // bytes of A a k-block (8 KB)
+constexpr int B_TILE = BK * BN * 2;    // bytes of B a k-block (8 KB)
+constexpr int RED_BYTES = BM * BN * 4; // rank 1's accumulator for rank 0
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a block may use
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
+// d (+)= A B for a 64 x 16 A tile (K-major) and a 16 x 64 B tile (N-major:
+// transpose bit set); d is overwritten when scale_d is 0
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// out[M, N] = bf16(sum over reps and SEGS segments of A_seg @ B_seg), where
-// the contraction of length KT is cut into SEGS segments of KT / SEGS. A's
-// element (row m, k) lies at a[(k / seg) * a_seg_stride + m * a_row_stride +
-// k % seg] (a9: seg K, a_seg_stride M*K, a_row_stride K; abig: seg KT,
-// a_row_stride KT). B is [KT, N] row-major for both (w9 [9, K, N] is laid out
-// as wbig [9K, N]).
-template <int SEGS>
-__device__ __forceinline__ void tap_body(const __nv_bfloat16* __restrict__ a,
-                                         const __nv_bfloat16* __restrict__ w,
-                                         __nv_bfloat16* __restrict__ out,
-                                         int N, int KT, long long a_seg_stride,
-                                         int a_row_stride, int reps) {
-  extern __shared__ float4 smem4[];
-  const int LD = KT + PAD;
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem4);  // [BM][LD]
-  __nv_bfloat16* b_s = a_s + BM * LD;                              // [BN][LD]
-  const int seg = KT / SEGS;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-
-  // stage A, 8 bf16 (16 bytes) a load; a vector never straddles a segment
-  const int kv = KT / 8;
-  for (int idx = tid; idx < BM * kv; idx += NT) {
-    const int r = idx / kv, k = (idx % kv) * 8;
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        a + (k / seg) * a_seg_stride + (long long)(m0 + r) * a_row_stride + k % seg);
-    *reinterpret_cast<uint4*>(a_s + r * LD + k) = v;
-  }
-  // stage B transposed: b_s[n][k] = w[k][n0 + n]
-  constexpr int NV = BN / 8;
-  for (int idx = tid; idx < KT * NV; idx += NT) {
-    const int k = idx / NV, n = (idx % NV) * 8;
-    const uint4 v = *reinterpret_cast<const uint4*>(w + (long long)k * N + n0 + n);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+// one segment into the fresh partial p: the block's k-blocks kb0 .. kb0 +
+// SEG_KB - 1, one commit group. Both tiles are 128-byte swizzled with 8-row
+// groups 1024 B apart, so sw128_desc describes A (K-major) and B (N-major,
+// transpose bit) alike; a k16 step is +32 bytes in A and +16 rows in B.
+template <int SEG_KB>
+__device__ __forceinline__ void issue_segment(float (&p)[32], uint64_t da0,
+                                              uint64_t db0, int kb0) {
+  uint64_t da = da0 + (uint64_t)kb0 * (A_TILE >> 4);
+  uint64_t db = db0 + (uint64_t)kb0 * (B_TILE >> 4);
+  // opaque: each segment adds its offsets to two registers, rather than
+  // the compiler keeping all 8 * SEG_KB descriptors live across the loop
+  asm volatile("" : "+l"(da), "+l"(db));
 #pragma unroll
-    for (int i = 0; i < 8; ++i) b_s[(n + i) * LD + k] = e[i];
+  for (int kb = 0; kb < SEG_KB; ++kb) {
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k)
+      wgmma_m64n64k16(p, da + kb * (A_TILE >> 4) + 2 * k,
+                      db + kb * (B_TILE >> 4) + (16 * BN * 2 >> 4) * k,
+                      kb > 0 || k > 0);
+  }
+  wgmma_commit();
+}
+
+// acc += the partial of the segment before the one just issued
+__device__ __forceinline__ void retire(float (&acc)[32], float (&done)[32]) {
+  wgmma_wait<1>();
+  fence_acc(done);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += done[i];
+  fence_acc(done);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+struct TapArgs {
+  __nv_bfloat16* out;
+  int M, N, reps;
+};
+
+// out[M, N] = bf16(sum over reps and SEGS segments of A_seg @ B_seg). A
+// segment is seg = 2 * SEG_KB k-blocks of 64, SEG_KB a block; the
+// contraction KT = SEGS * seg = 1152 either way. Rank r of the pair stages
+// k-blocks j = 2 i + r (i = 0 .. 8): A's at (64 j % seg, (64 j / seg) * M
+// + m0) of the 2-D map tm_a [SEGS * M, seg] (a9 with its taps stacked;
+// abig as it is), B's the 64 rows 64 j.. of tm_b [KT, N] at column n0.
+template <int SEGS, int SEG_KB>
+__device__ __forceinline__ void tap_body(const CUtensorMap* tm_a,
+                                         const CUtensorMap* tm_b,
+                                         const TapArgs& a) {
+  extern __shared__ uint8_t smem_raw[];
+  // [A k-blocks][B k-blocks][mbarrier][rank 1's accumulator], from a
+  // 1024-byte boundary (the 128-byte swizzle's atom)
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  constexpr int n_kb = SEGS * SEG_KB;
+  constexpr int seg = PAIR * SEG_KB * BK;
+  const uint32_t b_base = base + n_kb * A_TILE;
+  const uint32_t bar = b_base + n_kb * B_TILE;
+  float* const red = reinterpret_cast<float*>(smem_raw + (bar + 16 - raw));
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const int m0 = blockIdx.y * BM, n0 = (blockIdx.x / PAIR) * BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(bar, n_kb * (A_TILE + B_TILE));
+    for (int i = 0; i < n_kb; ++i) {
+      const int k = (PAIR * i + (int)rank) * BK;
+      tma_load_2d(base + i * A_TILE, tm_a, bar, k % seg, (k / seg) * a.M + m0);
+      tma_load_2d(b_base + i * B_TILE, tm_b, bar, n0, k);
+    }
   }
   __syncthreads();
+  mbar_wait(bar, 0);
 
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = (warp % (BM / WM)) * WM, wn = (warp / (BM / WM)) * WN;
-  // ldmatrix row addresses of this lane. A, an m16 x k16 tile: matrices 0-3
-  // are (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15,
-  // k 8-15), giving the a0..a3 fragments. B, two n8 x k16 tiles: (n 0-7, k
-  // 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15), giving b0, b1 of
-  // the first tile and b0, b1 of the second.
-  const int a_row = lane % 8 + 8 * ((lane / 8) % 2), a_col = 8 * (lane / 16);
-  const int b_row = lane % 8 + 8 * (lane / 16), b_col = 8 * ((lane / 8) % 2);
-  const __nv_bfloat16* a_p0 = a_s + (wm + a_row) * LD + a_col;
-  const __nv_bfloat16* a_p1 = a_p0 + 16 * LD;
-  const __nv_bfloat16* b_p = b_s + (wn + b_row) * LD + b_col;
-
-  // acc[mt][nt][e]: row wm + 16*mt + lane/4 + 8*(e >> 1), column wn + 8*nt +
-  // 2*(lane % 4) + (e & 1)
-  float acc[2][2][4];
+  const uint64_t da0 = sw128_desc(base), db0 = sw128_desc(b_base);
+  float acc[32], p0[32], p1[32];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < 32; ++i) acc[i] = p0[i] = p1[i] = 0.f;
+  // segment g takes the block's k-blocks (g % SEGS) * SEG_KB ..; partial
+  // set g % 2. By pairs: p0's group alone is in flight at the loop's head.
+  const long long total = (long long)a.reps * SEGS;
+  if (total > 0) {
+    issue_segment<SEG_KB>(p0, da0, db0, 0);
+    long long g = 1;
+    for (; g + 1 < total; g += 2) {
+      issue_segment<SEG_KB>(p1, da0, db0, (int)(g % SEGS) * SEG_KB);
+      retire(acc, p0);
+      issue_segment<SEG_KB>(p0, da0, db0, (int)((g + 1) % SEGS) * SEG_KB);
+      retire(acc, p1);
+    }
+    if (g < total) {                   // an even count: the last into p1
+      issue_segment<SEG_KB>(p1, da0, db0, (int)(g % SEGS) * SEG_KB);
+      retire(acc, p0);
+      wgmma_wait<0>();
+      fence_acc(p1);
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+      for (int i = 0; i < 32; ++i) acc[i] += p1[i];
+    } else {
+      wgmma_wait<0>();
+      fence_acc(p0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int rep = 0; rep < reps; ++rep) {
-    for (int s = 0; s < SEGS; ++s) {
-      float part[2][2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
-      const int k_end = (s + 1) * seg;
-#pragma unroll 8
-      for (int k = s * seg; k < k_end; k += 16) {
-        uint32_t af0[4], af1[4], bf[4];
-        ldmatrix_x4(af0, a_p0 + k);
-        ldmatrix_x4(af1, a_p1 + k);
-        ldmatrix_x4(bf, b_p + k);
-        mma_bf16_16816(part[0][0], af0, bf[0], bf[1]);
-        mma_bf16_16816(part[0][1], af0, bf[2], bf[3]);
-        mma_bf16_16816(part[1][0], af1, bf[0], bf[1]);
-        mma_bf16_16816(part[1][1], af1, bf[2], bf[3]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+      for (int i = 0; i < 32; ++i) acc[i] += p0[i];
     }
   }
 
-  const int gr = lane / 4, gq = lane % 4;
+  // the pair's sum: each thread of rank 0 adds what the same thread of
+  // rank 1 holds, 4 values a 16-byte access
+  const int tid = threadIdx.x;
+  if (rank == 1) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int q = 0; q < 8; ++q)
+      reinterpret_cast<float4*>(red)[q * NT + tid] =
+          make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  }
+  cluster_sync();
+  if (rank == 0) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(remote) : "r"(smem_addr(red)), "r"(1u));
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const long long row = m0 + wm + 16 * mt + gr;
-      const int col = n0 + wn + 8 * nt + 2 * gq;
-      *reinterpret_cast<__nv_bfloat162*>(out + row * N + col) =
-          __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * N + col) =
-          __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
+    for (int q = 0; q < 8; ++q) {
+      float v[4];
+      asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+                   : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+                   : "r"(remote + 16 * (q * NT + tid)));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * q + e] += v[e];
     }
+    // acc[i]: row 16 * warp + lane / 4 + 8 * ((i / 2) % 2), column
+    // 8 * (i / 4) + 2 * (lane % 4) + i % 2 of the tile
+    const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const long long row = m0 + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+      const int col = n0 + 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(a.out + row * a.N + col) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+  cluster_sync();                      // rank 1's shared memory outlives the read
 }
 
-__global__ void __launch_bounds__(NT)
-tap_loop_kernel(const __nv_bfloat16* __restrict__ a9,
-                const __nv_bfloat16* __restrict__ w9,
-                __nv_bfloat16* __restrict__ out, int M, int K, int N, int reps) {
-  tap_body<TAPS>(a9, w9, out, N, TAPS * K, (long long)M * K, K, reps);
+__global__ void __cluster_dims__(PAIR, 1, 1) __launch_bounds__(NT, 1)
+tap_loop_kernel(const __grid_constant__ CUtensorMap tm_a,
+                const __grid_constant__ CUtensorMap tm_b, const TapArgs a) {
+  tap_body<TAPS, K3_SEG / (PAIR * BK)>(&tm_a, &tm_b, a);
 }
 
-__global__ void __launch_bounds__(NT)
-tap_k1152_kernel(const __nv_bfloat16* __restrict__ abig,
-                 const __nv_bfloat16* __restrict__ wbig,
-                 __nv_bfloat16* __restrict__ out, int KT, int N, int reps) {
-  tap_body<1>(abig, wbig, out, N, KT, 0, KT, reps);
+__global__ void __cluster_dims__(PAIR, 1, 1) __launch_bounds__(NT, 1)
+tap_k1152_kernel(const __grid_constant__ CUtensorMap tm_a,
+                 const __grid_constant__ CUtensorMap tm_b, const TapArgs a) {
+  tap_body<1, KT / (PAIR * BK)>(&tm_a, &tm_b, a);
 }
 
-size_t smem_bytes(int KT) {
-  return sizeof(__nv_bfloat16) * (size_t)(BM + BN) * (size_t)(KT + PAD);
+// [A k-blocks][B k-blocks][mbarrier, padded to 16][rank 1's accumulator]
+// past the alignment slack: 164,880 bytes
+constexpr size_t SMEM_BYTES =
+    1024 + (size_t)(KT / (PAIR * BK)) * (A_TILE + B_TILE) + 16 + RED_BYTES;
+static_assert(SMEM_BYTES <= SMEM_LIMIT, "a block's operands must stay resident");
+
+// the shapes the kernels take: whole tiles, the compiled contraction and
+// segment (seg_want), reps >= 0
+bool shape_ok(int M, int N, int kt, int seg, int seg_want, int reps) {
+  return M > 0 && N > 0 && reps >= 0 && M % BM == 0 && N % BN == 0 &&
+         M / BM <= 65535 && kt == KT && seg == seg_want;
 }
 
-// the shapes the tiling takes: whole tiles, whole k16 steps per segment, and
-// both operand slices in one block's shared memory
-bool shape_ok(int M, int N, int KT, int seg, int reps) {
-  return M > 0 && N > 0 && seg > 0 && reps >= 0 && M % BM == 0 &&
-         N % BN == 0 && seg % 16 == 0 && M / BM <= 65535 &&
-         smem_bytes(KT) <= (size_t)MAX_SMEM;
-}
-
+// A as a 2-D map [segs * M, seg], B [KT, N]; boxes of 64 x one k-block in
+// the 128-byte swizzle
 template <typename Kernel>
-cudaError_t prepare(Kernel kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+int launch(Kernel kern, const void* a_ptr, const void* w, void* out, int M,
+           int N, int seg, int segs, int seg_want, int reps, void* stream) {
+  if (!shape_ok(M, N, seg * segs, seg, seg_want, reps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_a, tm_b;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)seg, (cuuint64_t)segs * M};
+  const cuuint64_t a_strides[1] = {2ull * seg};
+  const cuuint32_t a_box[2] = {BK, BM};
+  int err = encode_map(&tm_a, a_ptr, 2, a_dims, a_strides, a_box);
+  if (!err) {
+    const cuuint64_t b_dims[2] = {(cuuint64_t)N, (cuuint64_t)KT};
+    const cuuint64_t b_strides[1] = {2ull * N};
+    const cuuint32_t b_box[2] = {BN, BK};
+    err = encode_map(&tm_b, w, 2, b_dims, b_strides, b_box);
+  }
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  TapArgs a;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.M = M, a.N = N, a.reps = reps;
+  const dim3 grid(PAIR * (N / BN), M / BM);
+  kern<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(tm_a, tm_b, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K3: a9 [9, M, K], w9 [9, K, N], out [M, N], all bf16 and contiguous.
+// K3: a9 [9, M, K], w9 [9, K, N], out [M, N], all bf16, contiguous and
+// 16-byte aligned; K = 128.
 extern "C" int tap_loop_bf16(const void* a9, const void* w9, void* out, int M,
                              int K, int N, int reps, void* stream) {
-  if (!shape_ok(M, N, TAPS * K, K, reps))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(TAPS * K);
-  const cudaError_t e = prepare(tap_loop_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(N / BN, M / BM);
-  tap_loop_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a9), static_cast<const __nv_bfloat16*>(w9),
-      static_cast<__nv_bfloat16*>(out), M, K, N, reps);
-  return static_cast<int>(cudaGetLastError());
+  return launch(tap_loop_kernel, a9, w9, out, M, N, K, TAPS, K3_SEG, reps, stream);
 }
 
-// K4: abig [M, KT], wbig [KT, N], out [M, N], all bf16 and contiguous.
+// K4: abig [M, KT], wbig [KT, N], out [M, N], all bf16, contiguous and
+// 16-byte aligned; KT = 1152.
 extern "C" int tap_k1152_bf16(const void* abig, const void* wbig, void* out,
-                              int M, int KT, int N, int reps, void* stream) {
-  if (!shape_ok(M, N, KT, KT, reps))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(KT);
-  const cudaError_t e = prepare(tap_k1152_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(N / BN, M / BM);
-  tap_k1152_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(abig),
-      static_cast<const __nv_bfloat16*>(wbig), static_cast<__nv_bfloat16*>(out),
-      KT, N, reps);
-  return static_cast<int>(cudaGetLastError());
+                              int M, int kt, int N, int reps, void* stream) {
+  return launch(tap_k1152_kernel, abig, wbig, out, M, N, kt, 1, KT, reps, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

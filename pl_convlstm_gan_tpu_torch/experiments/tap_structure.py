@@ -9,9 +9,11 @@ over the taps of a 3x3 conv) slower than one contraction of K = 9 * 128 =
 as the TPU script: a9 [9, M, K] and w9 [9, K, N], abig [M, 9K] and wbig
 [9K, N], bf16, each kernel REPS repetitions with a float32 accumulator, out
 [M, N] bf16. K3 (``tap_loop``) and K4 (``tap_k1152``) of
-``csrc/tap_structure.cu`` stage a block's operands once in shared memory
-(the TPU kernels find theirs in VMEM) and repeat the fragment loads and the
-``mma.sync`` of every repetition, with one tiling for both.
+``csrc/tap_structure.cu`` stage a block's operands once by TMA into shared
+memory (the TPU kernels find theirs in VMEM) and issue every repetition's
+products as ``wgmma`` from there, with one tiling for both: K3 forms 9
+fresh partial sums a repetition and waits for each before adding it, K4
+forms one.
 
 Prints the TPU script's two lines, ``<name> ms <t> TFLOP/s <rate>``; the
 time is the median over ``ROUNDS`` rounds of the mean of ``ITERS``

@@ -5,7 +5,8 @@ its own shared library with a plain C interface, and loaded with ``ctypes``.
 Nothing is built or loaded at import: the first call of ``load_function`` (or
 an explicit ``build_all``) builds every source, one ``nvcc`` process each, all
 started together. Libraries go to ``pl_convlstm_gan_tpu_torch/_build/`` under
-a name that hashes the source and the flags, so an edited source is rebuilt
+a name that hashes the source, every header of ``csrc/`` (``*.cuh``, which
+the sources include) and the flags, so an edited source or header is rebuilt
 and an unchanged one is not.
 """
 from __future__ import annotations
@@ -50,8 +51,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Content-addressed path of the built library for ``csrc/<name>.cu``."""
+    """Content-addressed path of the built library for ``csrc/<name>.cu``:
+    the hash covers the source, the headers of ``csrc/`` and the flags."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -4,11 +4,14 @@ kernels (``csrc/tap_structure.cu``), each beside its plain PyTorch version.
 Counterparts of the TPU kernels of ``experiments/pallas_tap_structure.py``:
 ``taps_kernel`` (REPS repetitions of the 9 products a9[t] @ w9[t], K = 128
 each) and ``big_kernel`` (REPS repetitions of abig @ wbig, K = 9 * 128 =
-1152), bf16 operands, float32 accumulation, bf16 output. The source note
-says what bounds them and how they are laid out.
+1152), bf16 operands, float32 accumulation, bf16 output. Both run on
+``wgmma`` from operands staged once by TMA and resident in shared memory;
+the source note says what bounds them and how they are laid out.
 
 - ``tap_loop(a9, w9, reps)`` (K3) and ``tap_k1152(abig, wbig, reps)`` (K4):
   the wrappers; each counts its launches in ``.launches``;
+- ``tap_kernel_misfit``: the shapes the kernels refuse, stated once (the
+  C entries' ``shape_ok``);
 - ``taps_plain`` / ``big_plain``: the plain versions, a float32
   ``torch.matmul`` sum times ``reps``, cast to bf16.
 
@@ -28,9 +31,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 3 + [_I] * 4 + [_P]
 _SOURCE = "tap_structure"
-# the kernels' tiling (csrc/tap_structure.cu): 64 x 32 output tiles, k16
-# steps, both operand slices of a block in its 232,448 bytes of shared memory
-_BM, _BN, _PAD, _MAX_SMEM = 64, 32, 8, 232448
+# the kernels' tiling (csrc/tap_structure.cu): a 64 x 64 output tile per
+# cluster of _PAIR blocks, each a warpgroup's m64n64 wgmma over half of the
+# contraction (k-blocks of 64, alternating); a segment (K3: one tap of 128,
+# K4: all 1152) is unrolled at compile time, so the kernels take that
+# contraction only, whose operands fit a block's shared memory (checked
+# when the source compiles)
+_BM, _BN, _PAIR = 64, 64, 2
+_K3_SEG, _KT = 128, TAPS * 128
+
+
+def tap_kernel_misfit(m: int, n: int, kt: int, seg: int, reps: int
+                      ) -> str | None:
+    """None if K3/K4 take out [m, n] over a contraction of kt cut into
+    segments of ``seg`` (K3: seg K, kt 9K; K4: seg = kt), ``reps``
+    repetitions; else the rule it breaks (the C entries' shape_ok)."""
+    if m <= 0 or m % _BM:
+        return f"M {m} is not a positive multiple of the tile's {_BM} rows"
+    if m // _BM > 65535:
+        return f"M {m} needs more than 65535 row tiles (the grid's y)"
+    if n <= 0 or n % _BN:
+        return f"N {n} is not a positive multiple of the tile's {_BN} columns"
+    if kt != _KT or seg not in (_K3_SEG, _KT):
+        return (f"the contraction {kt} in segments of {seg}: the segments are "
+                f"compiled for {_KT} in taps of {_K3_SEG} (K3) or in one "
+                f"(K4)")
+    if reps < 0:
+        return f"reps {reps} is negative"
+    return None
 
 
 def taps_plain(a9: torch.Tensor, w9: torch.Tensor, reps: int) -> torch.Tensor:
@@ -51,13 +79,11 @@ def _check(a, w, m, kt, seg, n, reps):
         raise ValueError("tap kernel operands must lie on one CUDA device")
     if not (a.is_contiguous() and w.is_contiguous()):
         raise ValueError("tap kernel operands must be contiguous")
-    smem = 2 * (_BM + _BN) * (kt + _PAD)
-    if (m % _BM or n % _BN or seg % 16 or reps < 0 or smem > _MAX_SMEM):
-        raise ValueError(
-            f"tap kernels need M % {_BM} == 0, N % {_BN} == 0, a contraction "
-            f"segment that is a multiple of 16, reps >= 0 and 2*(M tile + N "
-            f"tile)*(9K + {_PAD}) <= {_MAX_SMEM} bytes of shared memory; got "
-            f"M {m}, N {n}, segment {seg}, 9K {kt}, reps {reps}")
+    if a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("tap kernel operands must be 16-byte aligned (TMA)")
+    misfit = tap_kernel_misfit(m, n, kt, seg, reps)
+    if misfit is not None:
+        raise ValueError(f"tap kernels refuse this shape: {misfit}")
 
 
 def _launch(symbol, what, a, w, m, n, ints):
