@@ -68,10 +68,11 @@ own line:
    gan_64 as written (f32, default step: K1 without z and K1 with z, 28 of
    each a step; B 8, 5 -> 10, 64x64) and gan_256_single with remat cut
    (bf16, vjp step: 68 K1 with z a step; scheduled sampling; B 2, 5 -> 30,
-   256x256), 3 steps each: step-1 gradients of G and D, per-step d_total /
-   g_total and params after the steps within TRAIN_TOL, default against
-   vjp, p50 step times, peak memory, and a profiled kernel step (K1 / cuDNN
-   convs of G / of D / elementwise, idle share);
+   256x256; the remat phase runs it as written), 3 steps each: step-1
+   gradients of G and D, per-step d_total / g_total and params after the
+   steps within TRAIN_TOL, default against vjp, p50 step times, peak
+   memory, and a profiled kernel step (K1 / cuDNN convs of G / of D /
+   elementwise, idle share);
 11. gan_trainer: the CLI's train path on gan_64 cut to 24 sequences and 2
    epochs, --resume to 3, --mode eval, and load_predictor serving the
    best_model's gen_params on K1/K2, with exact launch counts;
@@ -91,7 +92,31 @@ own line:
    pallas, cut to 64 days and 2 epochs, --resume to 3, --mode eval and
    --mode predict on an .npz of rain_lr/dem/lu, with exact launch counts
    and each stage's seconds;
-14. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
+14. remat: gan_256_single as written (bf16, vjp, B 2, 5 -> 30, 256x256,
+   remat save_z on the plain cell) against the same run without remat,
+   then the kernel path (convlstm_impl pallas) under remat policies "" and
+   "dots" against the kernel path without remat, 3 steps each from one
+   seeded state and batches: step-1 gradients of G and D, per-step losses
+   and params after the steps within TRAIN_TOL, exact K1 counts a step
+   (68 with z without remat, 136 under remat: the backward runs each step
+   again, K1 included), p50 step times and the peak of allocated memory of
+   every run;
+15. dp: data parallelism at world 2 on the one card: two ranks of this
+   script (``--dp-worker``) in a gloo group (gloo carries CUDA tensors;
+   NCCL refuses two ranks on one GPU), started as child processes under a
+   timeout, each on its half of the global batch with the port's train
+   steps bound to the group from rank 0's state, against one
+   process's steps on the whole batch: nowcast_128_pallas (B 4, 72 K1 with
+   z a step per rank), gan_64 (default step, kernel path, B 8: 28 K1 and
+   28 K1 with z), default (the Generator, kernel path, B 8, the halves
+   with other NaN-station patterns: 10 K1 with z) and dp_v5e16 as written
+   but its global batch (16 -> 2, one a rank); per-step losses and params
+   after 2 steps within TRAIN_TOL, the step-1 gradients within the
+   rounding bound dp_grad_tol derives, params bit-equal across the ranks,
+   exact K1 counts on every rank; then one NCCL group at world 1 (the
+   production backend) running nowcast_128_pallas's DP steps. No scaling
+   numbers: the box has one card;
+16. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
    shape through experiments.tap_structure.run() with its launch counts,
    then K3 and K4 against their plain versions (rtol 2^-7), timed in
    turns, beside the plain versions, 64 cuBLAS products and the bound;
@@ -99,13 +124,15 @@ own line:
    and the work-done guard (the 56 extra repetitions take at least their
    FLOPs at the bf16 peak; no rate above 1.05x the peak), with the
    steady-state TFLOP/s of that slope;
-15. one JSON line {"kernels": [...]} with each kernel's launches (per path,
-   the Generator's included), error, and its time beside its bound, its
+17. one JSON line {"kernels": [...]} with each kernel's launches (per path,
+   the Generator's, remat's and dp's included), error, and its time beside
+   its bound, its
    plain version's and the library call's (K1 with z as its own entry; K1
    to K4; K1 also over the Generator's two cells, ``generator_mix``);
 then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
+import functools
 import itertools
 import json
 import os
@@ -244,8 +271,8 @@ TAP_MAX_RATE = 1.05
 GAN_RUNS = (
     ("gan_64", "float32", "default", 0.0, 3, []),
     ("gan_256_single", "bfloat16", "vjp", 0.5, 3,
-     ["model.remat true -> false and remat_policy save_z -> '' (remat is "
-      "ROADMAP A3)", "depth: 3 steps of the 30-epoch run"]),
+     ["model.remat true -> false and remat_policy save_z -> '' (the remat "
+      "phase runs it as written)", "depth: 3 steps of the 30-epoch run"]),
 )
 # default against vjp on the kernel path, one step from one state: the
 # same math; the JAX test's bounds (tests/test_sequence_trainer.py:100-107)
@@ -1946,8 +1973,502 @@ def write_checkpoint(path, cfg, seed):
     return path
 
 
+# ------------------------------------------------------------------ remat
+# gan_256_single as written (bf16, vjp, B 2, 5 -> 30, 256^2, remat save_z on
+# the plain cell) against the same run without remat (the gan phase's cut);
+# then the kernel path (convlstm_impl pallas) under each policy K1 takes
+# ("" and "dots") against the kernel path without remat. Each run: (label,
+# convlstm_impl, remat, remat_policy, the run it is held against)
+REMAT_RUNS = (
+    ("plain_no_remat", "auto", False, "", None),
+    ("plain_save_z", "auto", True, "save_z", "plain_no_remat"),
+    ("kernel_no_remat", "pallas", False, "", None),
+    ("kernel_full", "pallas", True, "", "kernel_no_remat"),
+    ("kernel_dots", "pallas", True, "dots", "kernel_no_remat"),
+)
+REMAT_STEPS = 3
+REMAT_TF_PROB = 0.5
+
+
+def remat_config(impl, remat, policy):
+    cfg = load_config("gan_256_single")
+    cfg.model.convlstm_impl = impl
+    cfg.model.remat, cfg.model.remat_policy = remat, policy
+    cfg.validate(training=True)
+    return cfg
+
+
+def remat_run(label, cfg, gen_sd, disc_sd, batches, draws, expect):
+    """One run of the remat phase from the seeded state: the step-1
+    gradients of G and D, then the steps with exact K1 counts (``expect``:
+    K1 without z, K1 with z, per step and per gradient pass), their times,
+    and the peak of allocated device memory over the gradient pass and the
+    steps. Returns its record, with the gradients and the final params."""
+    tc = cfg.training
+    lr, d_lr = tc.learning_rate, tc.disc_learning_rate or tc.learning_rate
+    st = gan_state(cfg, gen_sd, disc_sd)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    grads = gan_grads(st, cfg, batches[0], draws[0])
+    expect_counts(f"remat {label} gradients", expect[0], 0, expect[1])
+    metrics, times = [], []
+    for i, batch in enumerate(batches):
+        step = gan_step_fn(st, cfg, lr, d_lr, draws[i])
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        expect_counts(f"remat {label} step {i}", expect[0], 0, expect[1])
+        if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"remat {label} step {i}: {m}")
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(label=label, convlstm_impl=cfg.model.convlstm_impl,
+               remat=cfg.model.remat, remat_policy=cfg.model.remat_policy,
+               launches_per_step={"convlstm_cell_fwd": expect[0],
+                                  "convlstm_cell_fwd_save_z": expect[1]},
+               p50_ms=statistics.median(times), step_ms=times,
+               peak_mem_gb=peak / 1e9, peak_over_base_gb=(peak - base) / 1e9,
+               d_total=[m["d_total"] for m in metrics],
+               g_total=[m["g_total"] for m in metrics])
+    params = {"g": [p.detach().clone() for p in st.gen.parameters()],
+              "d": [p.detach().clone() for p in st.disc.parameters()]}
+    del st
+    torch.cuda.empty_cache()
+    return rec, grads, metrics, params
+
+
+def phase_remat(seed):
+    """gan_256_single as written and the kernel path under remat (see
+    REMAT_RUNS), each against its run without remat from one seeded state
+    and the same batches and draws: step-1 gradients of G and D, per-step
+    d_total and g_total, params after the steps within TRAIN_TOL; exact K1
+    counts a step (kernel path: 68 with z without remat; under "" and
+    "dots" the backward runs every step again, K1 with z included: 136);
+    p50 step times and peak memory of each run."""
+    base = remat_config("auto", True, "save_z")
+    mc, tc = base.model, base.training
+    dtype_name = base.precision.compute_dtype
+    b, size = tc.batch_size, base.data.synthetic_image_size
+    per_pass = len(mc.hidden_dims) * (mc.input_frames + mc.output_frames - 1)
+    gen_sd = flax_to_state_dict(nowcast_params(base, seed))
+    disc_sd = flax_to_state_dict(disc_params(base, seed + 1))
+    ds = SyntheticSequenceDataset(REMAT_STEPS * b, mc.input_frames,
+                                  mc.output_frames, size, seed=seed)
+    batches = [to_device(x, torch.device(DEVICE))
+               for x in batch_iterator(ds, b)]
+    gen = torch.Generator().manual_seed(seed)
+    draws = [(torch.rand((per_pass // len(mc.hidden_dims), b), generator=gen)
+              < REMAT_TF_PROB).to(DEVICE) for _ in batches]
+    runs, results = {}, {}
+    for label, impl, remat, policy, _ in REMAT_RUNS:
+        cfg = remat_config(impl, remat, policy)
+        if impl == "auto":
+            expect = (0, 0)
+        else:       # vjp: one forward with z; remat runs it again
+            expect = (0, per_pass * (2 if remat else 1))
+        runs[label] = remat_run(label, cfg, gen_sd, disc_sd, batches, draws,
+                                expect)
+    for label, _, _, _, against in REMAT_RUNS:
+        rec, grads, metrics, params = runs[label]
+        if against is not None:
+            _, g0, m0, p0 = runs[against]
+            errs = {f"grad_{k}": float((grads[k] - g0[k]).norm()
+                                       / g0[k].norm()) for k in ("g", "d")}
+            errs["loss"] = max(abs(a[k] - c[k]) for a, c in zip(metrics, m0)
+                               for k in ("d_total", "g_total"))
+            for k in ("g", "d"):
+                errs[f"param_{k}"] = max(float((x - y).abs().max())
+                                         for x, y in zip(params[k], p0[k]))
+            tol = {k: TRAIN_TOL[k.split("_")[0]][dtype_name] for k in errs}
+            rec.update(against=against, errors=errs, tol=tol)
+            for key, err in errs.items():
+                if not err <= tol[key]:
+                    raise AssertionError(f"remat {label} vs {against}: {key} "
+                                         f"error {err:.3e} > {tol[key]}")
+        say(phase="remat_run", config="gan_256_single", dtype=dtype_name,
+            **rec)
+        results[label] = rec
+    out = dict(config="gan_256_single", dtype=dtype_name,
+               impl=tc.gan_step_impl, batch=b, size=size,
+               frames=[mc.input_frames, mc.output_frames],
+               steps=REMAT_STEPS, tf_prob=REMAT_TF_PROB,
+               cuts=[f"depth: {REMAT_STEPS} steps of the {tc.epochs}-epoch "
+                     f"run"],
+               runs=results)
+    say(phase="remat", **{k: v for k, v in out.items() if k != "runs"},
+        summary={k: {"p50_ms": r["p50_ms"], "peak_mem_gb": r["peak_mem_gb"],
+                     "launches_per_step": r["launches_per_step"]}
+                 for k, r in results.items()})
+    del runs, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------- dp
+# Data parallelism at world 2 on the one card: two ranks as child processes
+# in a gloo group (gloo carries CUDA tensors for all_reduce and broadcast;
+# NCCL refuses two ranks on one GPU), each on its block of the global
+# batch, held against one process's steps on the whole batch from the same
+# state; then one NCCL group at world 1 (the production backend). Each run:
+# (config, global batch, convlstm_impl, teacher-forcing prob of the draws,
+# the cuts made)
+DP_RUNS = (
+    ("nowcast_128_pallas", 4, "pallas", 0.0, []),
+    ("gan_64", 8, "pallas", 0.0,
+     ["model.convlstm_impl auto -> pallas (K1 in G)"]),
+    ("default", 8, "pallas", 0.0,
+     ["model.convlstm_impl auto -> pallas (K1)",
+      "data: SyntheticDownscalingDataset of 64 days (GEN_DATA); rank 0's "
+      "rows keep one station, rank 1's lose their first day's observations "
+      "(NaN), so the global station counts matter"]),
+    ("dp_v5e16", 2, "auto", 0.5,
+     ["training.batch_size 16 -> 2: one sequence a rank at world 2, as its "
+      "comment intends for 16 ranks"]),
+)
+DP_WORLD = 2
+DP_STEPS = 2
+# DP against one process on the whole batch: losses and params within
+# TRAIN_TOL; the step-1 gradients within the bound dp_grad_tol derives. A
+# gradient reaches its float32 param through the param's cast to the
+# compute dtype, which rounds it to that dtype (relative error at most
+# UNIT_ROUNDOFF): each rank rounds the gradient g_r of its block before the
+# mean over the ranks, one process the whole batch's g = mean_r g_r (every
+# loss here is a mean, and the blocks' scales differ from the batch's by
+# powers of two, so everything else rounds alike). Then
+#   |mean_r round(g_r) - round(g)| <= u (mean_r |g_r| + |g|)
+# in norm, plus float32 sums in other orders (TRAIN_TOL's float32 1e-4).
+# TRAIN_TOL's bfloat16 1e-3 holds two paths that round the same values;
+# here every element is rounded from other values.
+UNIT_ROUNDOFF = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
+
+
+def dp_grad_tol(dtype_name, rank_norms, norm):
+    """The bound above on ||g_dp - g_one|| / ||g_one||, from the ranks'
+    gradient norms of their blocks and the whole batch's."""
+    return (UNIT_ROUNDOFF[dtype_name] * (1 + statistics.mean(rank_norms)
+                                         / norm)
+            + TRAIN_TOL["grad"]["float32"])
+DP_NCCL_RUN = "nowcast_128_pallas"
+DP_TIMEOUT = 600        # seconds a rank may take
+
+
+def dp_config(name, batch, impl):
+    cfg = load_config(name)
+    cfg.training.batch_size = batch
+    cfg.model.convlstm_impl = impl
+    cfg.validate(training=True)
+    return cfg
+
+
+def dp_setup(seed):
+    """name -> what a rank needs to run DP_RUNS[name]: the seeded initial
+    state dicts, the global batches and draws (numpy), and the K1 counts a
+    step each rank must show (without z, with z)."""
+    setup = {}
+    for name, batch, impl, tf_prob, cuts in DP_RUNS:
+        cfg = dp_config(name, batch, impl)
+        mc = cfg.model
+        entry = dict(name=name, batch=batch, impl=impl, cuts=cuts)
+        if mc.family == "generator":
+            ds = SyntheticDownscalingDataset(**GEN_DATA)
+            entry["lu_channels"] = lu_c = ds.num_lu_classes
+            entry["init"] = {"model": flax_to_state_dict(
+                generator_params(cfg, lu_c, seed))}
+            batches = []
+            for bt in itertools.islice(batch_iterator(ds, batch), DP_STEPS):
+                sv = bt[4].copy()                          # [B, T, N]
+                sv[:batch // 2, :, 1:] = np.nan
+                sv[batch // 2:, 0] = np.nan
+                batches.append(tuple(bt[:4]) + (sv,))
+            entry["draws"] = [None] * DP_STEPS
+            per_pass = mc.T * len(mc.hidden_dims)
+            entry["expect"] = (0, per_pass if impl == "pallas" else 0)
+        else:
+            size = cfg.data.synthetic_image_size
+            scan = mc.input_frames + mc.output_frames - 1
+            entry["init"] = {"model": flax_to_state_dict(
+                nowcast_params(cfg, seed))}
+            if mc.family == "gan":
+                entry["init"]["disc"] = flax_to_state_dict(
+                    disc_params(cfg, seed + 1))
+            ds = SyntheticSequenceDataset(DP_STEPS * batch, mc.input_frames,
+                                          mc.output_frames, size, seed=seed)
+            batches = list(batch_iterator(ds, batch))
+            gen = torch.Generator().manual_seed(seed)
+            entry["draws"] = [
+                (torch.rand((scan, batch), generator=gen) < tf_prob).numpy()
+                if tf_prob > 0 else None for _ in batches]
+            per_pass = len(mc.hidden_dims) * scan
+            k1 = impl == "pallas"
+            detached = (mc.family == "gan"
+                        and cfg.training.gan_step_impl == "default")
+            entry["expect"] = (per_pass * (k1 and detached),
+                               per_pass * k1)
+        entry["batches"] = batches
+        entry["dtype"] = cfg.precision.compute_dtype
+        setup[name] = entry
+    return setup
+
+
+def dp_parts(entry, group):
+    """(modules, step(batch, draws) -> metrics, grads(batch, draws) ->
+    {"g" (G or the model), "d" (D): (the flat step-1 gradient, the norm of
+    this process's own)}) of one DP run, on the card: the train steps bound
+    to ``group`` (None: one process), as the trainers bind them. The
+    gradient under a group is the mean over the ranks of each rank's
+    gradient on its block (the DP step's reduction)."""
+    from pl_convlstm_gan_tpu_torch.train import steps as st_mod
+    cfg = dp_config(entry["name"], entry["batch"], entry["impl"])
+    tc = cfg.training
+    lr, d_lr = tc.learning_rate, tc.disc_learning_rate or tc.learning_rate
+    def reduce(gs):
+        """(the flat gradient, mean over the ranks under a group, and the
+        norm of this process's own)."""
+        norm = float(torch.cat([g.flatten() for g in gs]).norm())
+        if group is not None:
+            gs = st_mod._reduced_grads(gs, group)
+        return torch.cat([g.flatten() for g in gs]), norm
+    if cfg.model.family == "gan":
+        state = gan_state(cfg, entry["init"]["model"], entry["init"]["disc"])
+        modules = [state.gen, state.disc]
+        kw = dict(lambda_adv=tc.lambda_adv, lambda_l1=tc.lambda_l1,
+                  label_smoothing=tc.label_smoothing)
+        step = functools.partial(gan_train_step, impl=tc.gan_step_impl,
+                                 group=group, **kw)
+
+        def grads(batch, draws):
+            g = gan_grads(state, cfg, batch, draws)
+            return {k: reduce([g[k]]) for k in ("g", "d")}
+        run = lambda batch, draws: step(state, batch, lr, d_lr, draws,
+                                        grad_clip_norm=tc.grad_clip_norm)
+        return modules, run, grads
+    state = train_state(cfg, entry["init"]["model"],
+                        entry.get("lu_channels", 0))
+    modules = [state.model]
+    params = list(state.model.parameters())
+    if cfg.model.family == "generator":
+        loss_cfg = loss_config(tc)
+        step = functools.partial(generator_train_step, loss_cfg=loss_cfg,
+                                 group=group)
+        loss = lambda batch, draws: generator_loss(state.model, batch,
+                                                   loss_cfg, group)[0]
+        run = lambda batch, draws: step(state, batch, lr,
+                                        grad_clip_norm=tc.grad_clip_norm)
+    else:
+        step = functools.partial(forecaster_train_step, group=group)
+        loss = lambda batch, draws: forecaster_loss(state.model, *batch,
+                                                    draws)[0]
+        run = lambda batch, draws: step(state, batch, lr, draws,
+                                        grad_clip_norm=tc.grad_clip_norm)
+
+    def grads(batch, draws):
+        return {"g": reduce(list(torch.autograd.grad(loss(batch, draws),
+                                                     params)))}
+    return modules, run, grads
+
+
+def dp_drive(entry, group, rank=0, world=1):
+    """One DP run on this process: rank ``rank``'s block of every global
+    batch (the whole batch at world 1 without a group), the step-1
+    gradient, then the steps, each between reset_counts() and a read of
+    the counts. Returns the record: gradients, metrics, counts, times and
+    the final params, on the CPU."""
+    from pl_convlstm_gan_tpu_torch.data import _process_slice
+    from pl_convlstm_gan_tpu_torch.parallel.mesh import broadcast_module
+    rows = _process_slice(np.arange(entry["batch"]), rank, world)
+    dev = torch.device(DEVICE)
+    batches = [to_device(tuple(np.ascontiguousarray(a[rows]) for a in bt),
+                         dev) for bt in entry["batches"]]
+    draws = [None if d is None else torch.from_numpy(
+        np.ascontiguousarray(d[:, rows])).to(dev) for d in entry["draws"]]
+    modules, run, grads_fn = dp_parts(entry, group)
+    broadcast_module(torch.nn.ModuleList(modules), group)
+    reset_counts()
+    got = grads_fn(batches[0], draws[0])
+    grads = {k: g.cpu() for k, (g, _) in got.items()}
+    grad_norms = {k: n for k, (_, n) in got.items()}
+    metrics, counts, times = [], [], []
+    for batch, d in zip(batches, draws):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(run(batch, d))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append((convlstm_cell_fwd.launches,
+                       convlstm_cell_fwd.launches_z))
+    params = [p.detach().cpu() for m in modules for p in m.parameters()]
+    return dict(grads=grads, grad_norms=grad_norms, metrics=metrics,
+                counts=counts, step_ms=times, params=params)
+
+
+def dp_worker(rank, world, port, work, backend, names):
+    """A rank of the dp phase (``chip_smoke.py --dp-worker ...``): joins the
+    process group through the port's bootstrap (torchrun's variables,
+    ``backend``), drives each named run on its block and saves the records
+    to ``<work>/<backend>_rank<rank>.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK="0")
+    import torch.distributed as dist
+    from pl_convlstm_gan_tpu_torch.parallel.mesh import maybe_init_distributed
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not maybe_init_distributed(backend=backend):
+        raise RuntimeError("dp worker: no process group")
+    if dist.get_backend() != backend or dist.get_world_size() != world:
+        raise RuntimeError(f"dp worker: {dist.get_backend()} at world "
+                           f"{dist.get_world_size()}")
+    setup = torch.load(os.path.join(work, "setup.pt"), weights_only=False)
+    out = {name: dp_drive(setup[name], dist.group.WORLD, rank, world)
+           for name in names.split(",")}
+    torch.save(out, os.path.join(work, f"{backend}_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_launch(work, backend, world, names):
+    """Start ``world`` ranks of this script as child processes, wait for
+    them within DP_TIMEOUT (killing every one on a timeout or a failure)
+    and return their records and seconds."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    port = _free_port()
+    cmd = [sys.executable, os.path.abspath(__file__), "--dp-worker"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + [str(r), str(world), str(port), work,
+                                     backend, ",".join(names)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"dp {backend} rank {r} exit "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    return ([torch.load(os.path.join(work, f"{backend}_rank{r}.pt"),
+                        weights_only=False) for r in range(world)],
+            time.perf_counter() - t0)
+
+
+def dp_compare(name, entry, ranks, ref, label):
+    """The ranks' records against the single-process record: params
+    identical across the ranks, the same metrics on every rank, exact K1
+    counts a step on every rank, and the DP run against one process:
+    per-step losses and params after the steps within TRAIN_TOL, the
+    step-1 gradients within dp_grad_tol."""
+    dtype_name = entry["dtype"]
+    for r, rec in enumerate(ranks):
+        if rec["counts"] != [tuple(entry["expect"])] * len(rec["counts"]):
+            raise AssertionError(f"dp {label} {name} rank {r}: K1 launches "
+                                 f"(without z, with z) {rec['counts']}, "
+                                 f"expected {tuple(entry['expect'])} a step")
+        if any(m["skipped"] for m in rec["metrics"]):
+            raise AssertionError(f"dp {label} {name} rank {r} skipped")
+    for rec in ranks[1:]:
+        if not all(torch.equal(a, b) for a, b in zip(ranks[0]["params"],
+                                                     rec["params"])):
+            raise AssertionError(f"dp {label} {name}: the ranks' params "
+                                 f"differ")
+        if rec["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError(f"dp {label} {name}: the ranks' metrics "
+                                 f"differ")
+    got = ranks[0]
+    keys = [k for k in ref["metrics"][0] if k != "skipped"]
+    errs = {"loss": max(abs(a[k] - c[k]) for a, c in zip(
+        got["metrics"], ref["metrics"]) for k in keys)}
+    for k in ref["grads"]:
+        errs[f"grad_{k}"] = float((got["grads"][k] - ref["grads"][k]).norm()
+                                  / ref["grads"][k].norm())
+    errs["param"] = max(float((a - c).abs().max())
+                        for a, c in zip(got["params"], ref["params"]))
+    tol = {k: TRAIN_TOL[k][dtype_name] for k in ("loss", "param")}
+    for k in ref["grads"]:
+        tol[f"grad_{k}"] = dp_grad_tol(
+            dtype_name, [r["grad_norms"][k] for r in ranks],
+            float(ref["grads"][k].norm()))
+    for key, err in errs.items():
+        if not (np.isfinite(err) and err <= tol[key]):
+            raise AssertionError(f"dp {label} {name}: {key} error {err:.3e} "
+                                 f"> {tol[key]}")
+    return errs, tol
+
+
+def phase_dp(seed):
+    """DP_RUNS at world 2 over gloo on the one card, then DP_NCCL_RUN at
+    world 1 over NCCL, each against one process's run on the whole global
+    batch (see dp_compare). No scaling numbers: the two ranks share one
+    card."""
+    setup = dp_setup(seed)
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(setup, os.path.join(work, "setup.pt"))
+        refs = {}
+        for name in setup:          # one process on the whole batch
+            refs[name] = dp_drive(setup[name], None)
+            torch.cuda.empty_cache()
+        ranks, gloo_s = dp_launch(work, "gloo", DP_WORLD, list(setup))
+        nccl_setup = dict(setup[DP_NCCL_RUN])
+        nccl, nccl_s = dp_launch(work, "nccl", 1, [DP_NCCL_RUN])
+    runs = {}
+    for name, entry in setup.items():
+        errs, tol = dp_compare(name, entry, [r[name] for r in ranks],
+                               refs[name], "gloo")
+        runs[name] = dict(
+            dtype=entry["dtype"], global_batch=entry["batch"],
+            per_rank_batch=entry["batch"] // DP_WORLD,
+            convlstm_impl=entry["impl"], cuts=entry["cuts"] + [
+                f"depth: {DP_STEPS} steps"],
+            launches_per_step_per_rank={
+                "convlstm_cell_fwd": entry["expect"][0],
+                "convlstm_cell_fwd_save_z": entry["expect"][1]},
+            errors=errs, tol=tol,
+            losses_dp=[{k: v for k, v in m.items() if k != "skipped"}
+                       for m in ranks[0][name]["metrics"]],
+            step_ms_rank0_shared_card=ranks[0][name]["step_ms"],
+            step_ms_one_process=refs[name]["step_ms"])
+        say(phase="dp_run", config=name, world=DP_WORLD, backend="gloo",
+            **runs[name])
+    errs, tol = dp_compare(DP_NCCL_RUN, nccl_setup, [nccl[0][DP_NCCL_RUN]],
+                           refs[DP_NCCL_RUN], "nccl")
+    exact = all(torch.equal(a, b) for a, b in zip(
+        nccl[0][DP_NCCL_RUN]["params"], refs[DP_NCCL_RUN]["params"]))
+    rec = dict(world=DP_WORLD, backend="gloo", steps=DP_STEPS, runs=runs,
+               gloo_seconds=gloo_s,
+               nccl={"config": DP_NCCL_RUN, "world": 1, "errors": errs,
+                     "tol": tol, "params_equal_one_process": exact,
+                     "launches_per_step": nccl_setup["expect"],
+                     "seconds": nccl_s},
+               scaling="not measured: one card (the two gloo ranks share it)")
+    say(phase="dp", **{k: v for k, v in rec.items() if k != "runs"})
+    return rec
+
+
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
-                   trainer, gans, gan_trainer, gens, gen_trainer, taps):
+                   trainer, gans, gan_trainer, gens, gen_trainer, taps,
+                   remat, dp):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
@@ -1968,6 +2489,22 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
         gan_trainer["train_launches"]["convlstm_cell_fwd"]
     gan_k1z["float32"]["gan_trainer_train"] = \
         gan_trainer["train_launches"]["convlstm_cell_fwd_save_z"]
+    # the remat and dp phases: K1's launches a step (dp: on each rank)
+    for label, r in remat["runs"].items():
+        if r["convlstm_impl"] == "pallas":
+            gan_k1z[remat["dtype"]][f"remat_gan_256_single_{label}_step"] = \
+                r["launches_per_step"]["convlstm_cell_fwd_save_z"]
+    for name, r in dp["runs"].items():
+        n = r["launches_per_step_per_rank"]
+        if n["convlstm_cell_fwd"]:
+            gan_k1[r["dtype"]][f"dp_{name}_step_per_rank"] = \
+                n["convlstm_cell_fwd"]
+        if n["convlstm_cell_fwd_save_z"]:
+            gan_k1z[r["dtype"]][f"dp_{name}_step_per_rank"] = \
+                n["convlstm_cell_fwd_save_z"]
+    nccl = dp["nccl"]
+    gan_k1z[dp["runs"][nccl["config"]]["dtype"]][
+        f"dp_nccl_{nccl['config']}_step"] = nccl["launches_per_step"][1]
     weights = [1, n_cells - 1]
 
     def gen_mix(recs):
@@ -2050,6 +2587,10 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-worker"]:      # a rank of the dp phase
+        rank, world, port, work, backend, names = sys.argv[2:8]
+        return dp_worker(int(rank), int(world), int(port), work, backend,
+                         names)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
@@ -2130,11 +2671,13 @@ def main() -> int:
         gens = {dtype_name: phase_generator(tmp, dtype_name, SEED)
                 for dtype_name in ("float32", "bfloat16")}
         gen_trainer = phase_generator_trainer(tmp, SEED)
+    remat = phase_remat(SEED)
+    dp = phase_dp(SEED)
     taps = phase_tap_structure()
 
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
-        gans, gan_trainer, gens, gen_trainer, taps)}), flush=True)
+        gans, gan_trainer, gens, gen_trainer, taps, remat, dp)}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

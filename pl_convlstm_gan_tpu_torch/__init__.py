@@ -6,7 +6,9 @@ the reference. Ported so far: the downscaling Generator (model, four-term
 physics loss, train/eval steps, ``Trainer``, predictor, CLI; synthetic and
 Fenhe data), the forecaster's serving paths (batch predict, streaming),
 its training and GAN training (discriminator, BCE losses, both GAN step
-variants; train/eval steps, trainer, checkpoints),
+variants; train/eval steps, trainer, checkpoints), rematerialized
+recurrence (``model.remat``) and data-parallel training of every family
+over ``torch.distributed`` (launched by ``torchrun``),
 with hand-written CUDA kernels: the fused ConvLSTM cell step (which also
 writes the conv pre-activation for the custom backward in training), the
 conv head, and the tap-structure experiment's two contractions.
@@ -29,6 +31,8 @@ Layout
                SSIM, POD/FAR/CSI/HSS, sharpness
 - ``data``     synthetic sequences, synthetic and Fenhe downscaling data,
                splits, batching, device prefetch
+- ``parallel`` the data-parallel process group (``mesh``) and the DP
+               train steps (``train_parallel``)
 - ``train``    Generator, forecaster and GAN train steps, eval steps,
                ``Trainer``, ``SequenceTrainer``, checkpoints, plateau,
                early stopping, metrics log

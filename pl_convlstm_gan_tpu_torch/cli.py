@@ -34,6 +34,20 @@ time through ``StreamingForecaster`` and writes an
 per horizon, branched from the state after the last frame. Every mode runs
 on the GPU unless ``--device cpu`` is given. Export and the other modes are
 not ported yet.
+
+Data parallelism: launched by ``torchrun`` (or with the JAX package's
+``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``), every rank
+runs this CLI; it joins the process group before anything touches the
+device (``parallel.mesh.maybe_init_distributed``: NCCL on the GPUs, each
+rank on ``cuda:LOCAL_RANK``; gloo with ``--device cpu``), the trainers
+split each global batch over the ranks, rank 0 alone recovers a stranded
+checkpoint (the others wait at a barrier), and rank 0 alone prints the
+results and writes the outputs:
+
+    torchrun --nproc_per_node 8 -m pl_convlstm_gan_tpu_torch \\
+        --config dp_v5e16 --mode train [--resume]
+    torchrun --nproc_per_node 2 -m pl_convlstm_gan_tpu_torch \\
+        --config ci_smoke_seq --mode train --device cpu
 """
 from __future__ import annotations
 
@@ -98,21 +112,24 @@ def _trainer(config, args):
 
 
 def _train(config, args):
+    from .parallel.mesh import print0
     from .train.checkpoint import recover_checkpoint_dir
 
     if args.resume and not config.training.resume_from:
         for name in ("latest", "best_model"):
             ckpt = os.path.join(config.output.output_dir, name)
+            # rank 0 recovers; every rank then sees the same directory
             if recover_checkpoint_dir(ckpt):
                 config.training.resume_from = ckpt
-                print(f"Resuming from {ckpt}")
+                print0(f"Resuming from {ckpt}")
                 break
         else:
-            print("--resume: no checkpoint found, starting fresh")
+            print0("--resume: no checkpoint found, starting fresh")
     return _trainer(config, args).train()
 
 
 def _evaluate(config, args):
+    from .parallel.mesh import print0
     trainer = _trainer(config, args)
     dataset = trainer.setup_data()
     if config.model.family == "generator":
@@ -122,7 +139,7 @@ def _evaluate(config, args):
     trainer.restore(args.checkpoint or os.path.join(config.output.output_dir,
                                                     "best_model"))
     metrics = trainer.evaluate_test()
-    print(f"Test metrics: {metrics}")
+    print0(f"Test metrics: {metrics}")
     return metrics
 
 
@@ -135,6 +152,7 @@ def main(argv=None):
     """Run one mode; returns the history (train) or the test metrics
     (eval)."""
     from .config import load_config
+    from .parallel.mesh import is_primary, maybe_init_distributed
     from .predict import load_predictor
 
     parser = argparse.ArgumentParser(
@@ -179,12 +197,18 @@ def main(argv=None):
         raise SystemExit("--output-frames must be non-negative "
                          "(0 = config value)")
 
+    # before anything touches the device: joins the process group that
+    # torchrun (or the JAX package's coordinator variables) names
+    maybe_init_distributed(args.device)
     config = load_config(args.config)
     training = args.mode in ("train", "eval")
     config.validate(training=training)
     if training:
         return _train(config, args) if args.mode == "train" else \
             _evaluate(config, args)
+    if not is_primary():
+        return      # inference runs on rank 0 (load_predictor splits a
+                    # batch over the GPUs itself: data_parallel)
     if args.mode == "stream" and config.model.family == "generator":
         raise SystemExit("stream mode needs a sequence family "
                          "(forecaster/gan), not the Generator")

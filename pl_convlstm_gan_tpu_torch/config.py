@@ -14,8 +14,10 @@ with the port's meaning (``convlstm_cell_impl``): ``pallas`` runs the cells
 on the hand-written CUDA kernel K1 (in training: K1 writing z and the custom
 backward, ``ops.kernels.convlstm_kernel.ConvLSTMCellFn``); ``xla`` and
 ``auto`` run the plain PyTorch step. ``validate(training=True)`` refuses the
-training settings the port has not ported yet (TP, DP, remat, the frames
-source, grain), each naming its ROADMAP item.
+training settings the port has not ported yet (TP, the frames source,
+grain), each naming its ROADMAP item. ``mesh.data_axis`` is the number of
+data-parallel ranks (0: the world size); ``parallel.mesh.data_group``
+holds it against the process group the run was launched with.
 """
 from __future__ import annotations
 
@@ -306,12 +308,6 @@ class Config:
         refusals = [
             (self.mesh.model_axis > 1,
              "mesh.model_axis > 1: tensor-parallel training is ROADMAP A10"),
-            (self.mesh.data_axis > 1,
-             "mesh.data_axis > 1: data-parallel training is ROADMAP A9; the "
-             "port trains on one device"),
-            (self.model.remat,
-             "model.remat: true: remat via torch.utils.checkpoint is ROADMAP "
-             "A3 (left)"),
             (self.data.source == "frames",
              "data.source 'frames': the on-disk frames source is ROADMAP A6 "
              "(left)"),

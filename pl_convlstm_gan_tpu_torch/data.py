@@ -10,12 +10,15 @@ is imported only when a Fenhe dataset is built), ``data/splits.py``
 (``Subset``, ``split_dataset_random``, ``year_indices``,
 ``split_dataset_by_year``) and the single-process half of
 ``data/pipeline.py`` (``batch_iterator``, ``eval_batches`` with
-wrap-padding). ``prefetch_to_device`` takes the place of the JAX
-``prefetch_to_device``: it copies each batch from pinned host memory with
-``non_blocking`` a batch or two ahead of the step that reads it.
+wrap-padding, and ``_process_slice``: under data parallelism each rank
+takes its contiguous block of every global batch, in JAX's index order, and
+every rank yields the same number of batches, since a rank that entered an
+extra step would deadlock the collectives). ``prefetch_to_device`` takes
+the place of the JAX ``prefetch_to_device``: it copies each batch from
+pinned host memory with ``non_blocking`` a batch or two ahead of the step
+that reads it.
 
-Not ported: the on-disk frames source and grain (ROADMAP A6), the
-multi-host slicing (ROADMAP A9).
+Not ported: the on-disk frames source and grain (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -428,27 +431,49 @@ def _stack(items):
     return tuple(np.stack([it[i] for it in items]) for i in range(len(items[0])))
 
 
+def _process_slice(idx, process_index: int = 0, process_count: int = 1):
+    """Rank ``process_index``'s contiguous block of a global batch's index
+    list (``process_count`` equal blocks; the whole list for one
+    process)."""
+    if process_count == 1:
+        return idx
+    local = len(idx) // process_count
+    if local * process_count != len(idx):
+        raise ValueError(f"global batch {len(idx)} not divisible by "
+                         f"{process_count} processes")
+    return idx[process_index * local:(process_index + 1) * local]
+
+
 def batch_iterator(dataset, batch_size: int, shuffle: bool = False,
-                   seed: int = 0, epoch: int = 0) -> Iterator:
+                   seed: int = 0, epoch: int = 0, process_index: int = 0,
+                   process_count: int = 1) -> Iterator:
     """One epoch of full numpy batches (the last partial batch is dropped);
-    the order is shuffled by seed + epoch."""
+    the order is shuffled by seed + epoch. ``batch_size`` is the global
+    batch: every process draws the same order and yields its block of each
+    batch, so every process yields the same number of batches."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
         np.random.default_rng(seed + epoch).shuffle(order)
     for start in range(0, n - n % batch_size, batch_size):
-        yield _stack([dataset[int(i)] for i in order[start:start + batch_size]])
+        idx = _process_slice(order[start:start + batch_size], process_index,
+                            process_count)
+        yield _stack([dataset[int(i)] for i in idx])
 
 
-def eval_batches(dataset, batch_size: int) -> Iterator:
+def eval_batches(dataset, batch_size: int, process_index: int = 0,
+                 process_count: int = 1) -> Iterator:
     """Full-coverage eval batching: yields (batch, n_valid). The last partial
-    batch is wrap-padded to the full batch size; eval steps give the rows
-    with index >= n_valid weight zero."""
+    batch is wrap-padded to the full (global) batch size; eval steps give
+    the rows with global index >= n_valid weight zero. A process yields its
+    block of every global batch (rows ``process_index * local`` on), with
+    the global ``n_valid``."""
     n = len(dataset)
     for start in range(0, n, batch_size):
         n_valid = min(batch_size, n - start)
-        idx = [(start + j) % n for j in range(batch_size)]
-        yield _stack([dataset[i] for i in idx]), n_valid
+        idx = _process_slice([(start + j) % n for j in range(batch_size)],
+                            process_index, process_count)
+        yield _stack([dataset[int(i)] for i in idx]), n_valid
 
 
 def to_device(batch, device: torch.device):

@@ -267,7 +267,8 @@ def point_supervision_sums(pred, s_coords, s_values, scale_factor=1.0,
     return ((pred_at - obs).abs() * weights * mask).sum(), mask.sum()
 
 
-def _ratio(num, count):
+def safe_ratio(num, count):
+    """num / count, 0 where count is 0."""
     return torch.where(count > 0, num / count.clamp(min=1), 0.0)
 
 
@@ -276,16 +277,16 @@ def point_supervision_loss(pred, s_coords, s_values, scale_factor=1.0,
                            weight_strategy: str = "log", batch_mask=None):
     """Masked, intensity-weighted L1 at the station pixels (0 when no
     entry is valid)."""
-    return _ratio(*point_supervision_sums(pred, s_coords, s_values,
-                                          scale_factor, use_weighted_loss,
-                                          weight_strategy, batch_mask))
+    return safe_ratio(*point_supervision_sums(pred, s_coords, s_values,
+                                              scale_factor, use_weighted_loss,
+                                              weight_strategy, batch_mask))
 
 
 def _batch_mean(per_sample: torch.Tensor, batch_mask):
     if batch_mask is None:
         return per_sample.mean()
     m = batch_mask.to(per_sample.dtype)
-    return _ratio((per_sample * m).sum(), m.sum())
+    return safe_ratio((per_sample * m).sum(), m.sum())
 
 
 def _per_sample_mean(err: torch.Tensor) -> torch.Tensor:
@@ -319,13 +320,18 @@ def combined_loss(pred, lr_input, s_coords, s_values, scale_factor=1.0,
                   lambda_point: float = 1.0, lambda_conserve: float = 1.0,
                   lambda_smooth: float = 0.1, lambda_temporal: float = 0.05,
                   use_weighted_loss: bool = True, weight_strategy: str = "log",
-                  batch_mask=None):
+                  batch_mask=None, point=None):
     """(lp*point + lc*conserve + ls*smooth + lt*temporal, {"point",
-    "conserve", "smooth", "temporal"})."""
+    "conserve", "smooth", "temporal"}). ``point``: the point term when the
+    caller forms it from ``point_supervision_sums`` (the train step does,
+    over the count of every rank under data parallelism); None computes it
+    here."""
+    if point is None:
+        point = point_supervision_loss(pred, s_coords, s_values, scale_factor,
+                                       use_weighted_loss, weight_strategy,
+                                       batch_mask)
     parts = {
-        "point": point_supervision_loss(pred, s_coords, s_values,
-                                        scale_factor, use_weighted_loss,
-                                        weight_strategy, batch_mask),
+        "point": point,
         "conserve": conservation_loss(pred, lr_input, batch_mask),
         "smooth": gradient_loss(pred, batch_mask),
         "temporal": temporal_consistency_loss(pred, batch_mask)}

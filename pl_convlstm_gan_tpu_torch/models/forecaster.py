@@ -14,15 +14,65 @@ replayed in torch, so a caller (or a test) supplies the draws.
 backward), the port's meaning of the config's ``xla`` and ``pallas``. With
 'kernel' on the card each cell's weight is packed for K1 once per forward
 pass, not once per step.
+
+``remat`` (JAX's ``nn.remat`` over the scan body) runs each step of the
+recurrence, the cell stack and the head, under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: the forward keeps
+a step's inputs (the frame it reads and the carried (h, c)) and the backward
+runs the step again. ``remat_policy`` picks what the step keeps besides:
+``""`` nothing; ``"save_z"`` each cell's conv pre-activation (the plain
+cell's z, tagged ``ops.convlstm.Z_NAME``; JAX's ``save_only_these_names``),
+so the backward recomputes only the gates; ``"dots"`` the output of every
+convolution and matrix product (JAX's ``dots_saveable``). K1 is a launch
+the dispatcher never sees, so on the kernel path no policy keeps what it
+writes: the backward launches K1 with z again for every cell and step, and
+``save_z`` is refused there as JAX refuses it for its Pallas cell. The packed
+weights are made once per forward pass, outside the checkpointed steps. The
+step draws no random numbers, so no RNG state is kept for the recompute.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from ..ops.convlstm import Z_NAME, current_checkpoint_name
 from .layers import Conv2dTorch, ConvLSTMCell
+
+REMAT_POLICIES = ("", "save_z", "dots")
+_aten = torch.ops.aten
+# the ops whose outputs "dots" keeps, as jax.checkpoint_policies.dots_saveable
+_DOT_OPS = frozenset({_aten.convolution.default, _aten.mm.default,
+                      _aten.addmm.default, _aten.bmm.default,
+                      _aten.baddbmm.default})
+
+
+def _keep(policy: str, op) -> bool:
+    if policy == "dots":
+        return op in _DOT_OPS
+    return (op is _aten.convolution.default
+            and current_checkpoint_name() == Z_NAME)
+
+
+def _policy_fn(policy, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if _keep(policy, op)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context_fn(policy: str):
+    """``checkpoint``'s ``context_fn`` for a ``remat_policy`` (None for
+    ``""``: keep nothing)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"Unknown remat_policy: {policy!r} (valid: "
+                         f"{sorted(REMAT_POLICIES)})")
+    if not policy:
+        return None
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_policy_fn, policy))
 
 
 class _Core(nn.Module):
@@ -51,8 +101,21 @@ class ConvLSTMForecaster(nn.Module):
                  input_frames: int = 5, output_frames: int = 20,
                  in_channels: int = 1, kernel_size: int = 3,
                  dtype: Optional[torch.dtype] = None,
-                 convlstm_impl: str = "torch"):
+                 convlstm_impl: str = "torch", remat: bool = False,
+                 remat_policy: str = ""):
         super().__init__()
+        context_fn = remat_context_fn(remat_policy)
+        if remat and remat_policy == "save_z" and convlstm_impl == "kernel":
+            raise ValueError(
+                "remat_policy 'save_z' requires the plain cell (convlstm_impl "
+                "'xla'/'auto'): K1 writes z outside the dispatcher, so the "
+                "policy could keep nothing of it")
+        self.remat = remat
+        self.remat_policy = remat_policy
+        self._remat_kwargs = dict(use_reentrant=False,
+                                  preserve_rng_state=False)
+        if context_fn is not None:
+            self._remat_kwargs["context_fn"] = context_fn
         self.hidden_dims = tuple(hidden_dims)
         self.input_frames = input_frames
         self.output_frames = output_frames
@@ -97,6 +160,7 @@ class ConvLSTMForecaster(nn.Module):
         prev_out = None       # set by the head at step t_in - 1, read after
         cells = self.core.cells()
         packed = [cell.pack(cdtype) for cell in cells]
+        remat = self.remat and torch.is_grad_enabled()
         preds = []
         for s in range(steps):
             if s < t_in:
@@ -106,12 +170,30 @@ class ConvLSTMForecaster(nn.Module):
                 x = torch.where(use, teacher_seq[s], prev_out)
             else:
                 x = prev_out
-            for li, cell in enumerate(cells):
-                h, cst = cell(x, *states[li], packed=packed[li])
-                states[li] = (h, cst)
-                x = h
             # the head's output is read only from step t_in - 1 on
-            if s >= t_in - 1:
-                prev_out = self.core.head(x)
+            with_head = s >= t_in - 1
+            flat = [t for st in states for t in st]
+            if remat:
+                out = checkpoint(self._step, x, packed, with_head, *flat,
+                                 **self._remat_kwargs)
+            else:
+                out = self._step(x, packed, with_head, *flat)
+            states = [(out[2 * i], out[2 * i + 1]) for i in range(len(cells))]
+            if with_head:
+                prev_out = out[-1]
                 preds.append(prev_out)
         return torch.stack(preds).permute(1, 0, 4, 2, 3).float()
+
+    def _step(self, x, packed, with_head, *flat):
+        """One step of the recurrence, a function of its tensor inputs alone:
+        the cells on input x and the carried (h, c) of each cell (``flat``:
+        h0, c0, h1, c1, ...), then, when ``with_head``, the head. Returns the
+        new (h, c) of each cell, flattened, and the head's output last."""
+        out = []
+        for li, cell in enumerate(self.core.cells()):
+            h, c = cell(x, flat[2 * li], flat[2 * li + 1], packed=packed[li])
+            out += [h, c]
+            x = h
+        if with_head:
+            out.append(self.core.head(x))
+        return tuple(out)

@@ -10,12 +10,41 @@ Rounding points, the same in the plain step and in the CUDA kernel
 (``ops/kernels/convlstm_kernel.py``): the conv accumulates in float32, the bias
 is added in float32, the gates run in float32, and ``h'`` and ``c'`` are
 stored in the operands' type (float32 or bfloat16).
+
+``checkpoint_name`` tags the ops run inside it, as ``jax.ad_checkpoint.
+checkpoint_name`` names a value: the plain step computes z under the name
+``"convlstm_z"``, which the forecaster's ``save_z`` remat policy keeps
+(``models/forecaster.py``). Outside a checkpointed region the tag does
+nothing.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 from .nn import conv2d_nhwc_f32, hwio_from_oihw
+
+Z_NAME = "convlstm_z"
+_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tag the ops run inside the block with ``name`` (read by a selective
+    checkpoint policy through ``current_checkpoint_name``)."""
+    prev = getattr(_TAG, "name", None)
+    _TAG.name = name
+    try:
+        yield
+    finally:
+        _TAG.name = prev
+
+
+def current_checkpoint_name():
+    """The name of the innermost ``checkpoint_name`` block, or None."""
+    return getattr(_TAG, "name", None)
 
 
 def convlstm_gates(z: torch.Tensor, c: torch.Tensor):
@@ -35,7 +64,9 @@ def convlstm_step_torch(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                         weight: torch.Tensor, bias: torch.Tensor):
     """One ConvLSTM step in plain PyTorch. x: [B,H,W,Cx], h/c: [B,H,W,Ch],
     weight: OIHW [4Ch, Cx+Ch, K, K], bias [4Ch]. Returns (h', c') in x's type."""
-    z = conv2d_nhwc_f32(torch.cat([x, h], dim=-1), weight, bias)
+    xh = torch.cat([x, h], dim=-1)
+    with checkpoint_name(Z_NAME):
+        z = conv2d_nhwc_f32(xh, weight, bias)
     h_next, c_next = convlstm_gates(z, c.float())
     return h_next.to(x.dtype), c_next.to(x.dtype)
 

@@ -63,7 +63,8 @@ def build_model(config: Config, output_frames: int = 0,
             hidden_dims=tuple(mc.hidden_dims), input_frames=mc.input_frames,
             output_frames=output_frames or mc.output_frames,
             in_channels=mc.in_channels, kernel_size=mc.kernel_size,
-            dtype=dtype, convlstm_impl=impl)
+            dtype=dtype, convlstm_impl=impl, remat=mc.remat,
+            remat_policy=mc.remat_policy)
     if mc.family != "generator":
         raise ValueError(f"Unknown model family: {mc.family!r}")
     sizing = {"scale_factor": mc.scale_factor}
@@ -180,9 +181,17 @@ def build_predict_fn(config: Config, checkpoint_path: str,
     return model
 
 
+DATA_PARALLEL = ("auto", "off", "require")
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+
+
 def load_predictor(config: Config, checkpoint_path: str,
                    output_frames: int = 0, device=None,
-                   lu_channels: int = 0) -> Callable:
+                   lu_channels: int = 0, data_parallel: str = "auto",
+                   devices=None) -> Callable:
     """``build_predict_fn`` behind a function that takes numpy arrays or
     tensors, moves them to the device as float32, and runs without
     autograd.
@@ -191,14 +200,50 @@ def load_predictor(config: Config, checkpoint_path: str,
     device; ``output_frames`` serves another horizon than the config's.
     Generator family: predict(rain_lr [B,T,1,H,W], dem, lu) ->
     [B,T,1,H',W'] float32 (``lu_channels``: the LUCC class count,
-    ``lu.shape[1]``; by default the config's, else the checkpoint's)."""
+    ``lu.shape[1]``; by default the config's, else the checkpoint's).
+
+    ``data_parallel`` splits a batch over several devices in this one
+    process, as the JAX ``load_predictor`` shards it over its chips: one
+    replica of the model per device of ``devices`` (default: every visible
+    GPU when ``device`` is the GPU, else ``device`` alone), each chunk of
+    the batch on its own device (K1 and K2 launch on the stream of their
+    tensors' device), the outputs concatenated on the first. "auto" splits
+    when there is more than one device and the batch divides their count,
+    else runs the first replica; "off" never splits; "require" raises on
+    one device or on a batch that does not split evenly."""
+    if data_parallel not in DATA_PARALLEL:
+        raise ValueError(f"data_parallel must be auto|off|require, got "
+                         f"{data_parallel!r}")
     dev = resolve_device(device)
-    fn = build_predict_fn(config, checkpoint_path, output_frames, device=dev,
-                          lu_channels=lu_channels)
+    if devices is None:
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" and dev.index is None else [dev])
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    if data_parallel == "require" and n == 1:
+        raise ValueError(f"data_parallel='require' needs more than one "
+                         f"device, found {n}")
+    if data_parallel == "off" or n == 1:
+        devices = [dev]
+    fns = [build_predict_fn(config, checkpoint_path, output_frames, device=d,
+                            lu_channels=lu_channels) for d in devices]
+
+    def run(fn, d, inputs):
+        return fn(*(t.to(d, torch.float32) for t in inputs))
 
     def predict(*inputs):
-        inputs = [torch.as_tensor(np.asarray(a) if not isinstance(
-            a, torch.Tensor) else a).to(dev, torch.float32) for a in inputs]
+        inputs = [_as_tensor(a) for a in inputs]
+        b = inputs[0].shape[0]
         with torch.inference_mode():
-            return fn(*inputs)
+            if len(fns) == 1 or b % len(fns):
+                if len(fns) > 1 and data_parallel == "require":
+                    raise ValueError(f"batch {b} not divisible by "
+                                     f"{len(fns)} devices "
+                                     f"(data_parallel='require')")
+                return run(fns[0], devices[0], inputs)
+            chunks = zip(*(t.chunk(len(fns)) for t in inputs))
+            outs = [run(fn, d, part)
+                    for fn, d, part in zip(fns, devices, chunks)]
+            return torch.cat([o.to(devices[0]) for o in outs])
     return predict

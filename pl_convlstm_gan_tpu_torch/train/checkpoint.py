@@ -26,6 +26,13 @@ new one is complete. ``recover_checkpoint_dir`` (called by
 left by a dead process, or moves ``<path>.old`` back after a crash between
 the two renames; a pending save owned by a live writer in this process is
 left to that writer.
+
+Data parallelism: the replicas hold the same state, so rank 0 alone writes
+a checkpoint and alone touches the checkpoint directories (promotion,
+recovery); the other ranks wait at a barrier after each promotion and each
+recovery, as the JAX writer's ``sync_global_devices``. The files do not
+depend on the world size: a checkpoint written at world 2 restores at world
+1 and the other way round.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import barrier, is_primary
 
 STATE_FILE = "state.pt"
 HOST_FILE = "host_state.json"
@@ -67,13 +76,16 @@ def _write(tmp: str, device_state: Any, host_state: Dict) -> None:
 
 
 class CheckpointWriter:
-    """Async checkpoint writer; one save in flight at a time per writer."""
+    """Async checkpoint writer; one save in flight at a time per writer.
+    Under data parallelism every rank calls ``save`` and ``wait`` in the
+    same order; rank 0 writes."""
 
     def __init__(self):
         self._pending: Optional[Tuple[str, str]] = None  # (tmp_dir, final_dir)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
-        atexit.register(self.wait)
+        # at exit no barrier: the other ranks may be gone
+        atexit.register(self.wait, sync=False)
 
     def save(self, path: str, device_state: Any, host_state: Dict) -> None:
         """Start a save of ``device_state`` (tensors anywhere) and
@@ -83,6 +95,9 @@ class CheckpointWriter:
         path = os.path.abspath(path)
         self.wait()
         tmp = path + ".pending"
+        if not is_primary():
+            self._pending = (tmp, path)     # rank 0 writes it
+            return
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
@@ -99,12 +114,19 @@ class CheckpointWriter:
         self._pending = (tmp, path)
         _LIVE_PENDING.add(tmp)
 
-    def wait(self) -> None:
-        """Block until the in-flight save (if any) is promoted to its path."""
+    def wait(self, sync: bool = True) -> None:
+        """Block until the in-flight save (if any) is promoted to its path;
+        with ``sync``, every rank waits for rank 0's promotion."""
         if self._pending is None:
             return
         tmp, path = self._pending
         self._pending = None
+        if is_primary():
+            self._finish(tmp, path)
+        if sync:
+            barrier()
+
+    def _finish(self, tmp: str, path: str) -> None:
         self._thread.join()
         _LIVE_PENDING.discard(tmp)
         if self._error is not None:
@@ -135,8 +157,16 @@ def recover_checkpoint_dir(path: str) -> bool:
        promote it (it is newer than whatever sits at ``path``);
     2. ``path`` is missing and ``<path>.old`` is there (a crash between the
        two promotion renames): move it back.
-    Returns True iff a checkpoint exists at ``path`` afterwards."""
+    Returns True iff a checkpoint exists at ``path`` afterwards. Rank 0
+    alone recovers; every rank then waits at a barrier."""
     path = os.path.abspath(path)
+    if is_primary():
+        _recover(path)
+    barrier()
+    return os.path.isdir(path)
+
+
+def _recover(path: str) -> None:
     old, pending = path + ".old", path + ".pending"
     if pending in _LIVE_PENDING:
         pass       # a live writer in this process owns it
@@ -150,7 +180,6 @@ def recover_checkpoint_dir(path: str) -> bool:
     elif not os.path.isdir(path) and os.path.isdir(old):
         os.replace(old, path)
         print(f"Recovered checkpoint {path} from interrupted promotion ({old})")
-    return os.path.isdir(path)
 
 
 def restore_checkpoint(path: str, map_location="cpu") -> Tuple[Any, Dict]:

@@ -1,10 +1,10 @@
-"""SequenceTrainer: training of the forecaster and GAN families on one
-device.
+"""SequenceTrainer: training of the forecaster and GAN families, on one
+device or data-parallel over the ranks of a process group.
 
 Counterpart of the JAX package's ``train/sequence_trainer.py`` without its
-tensor-parallel and data-parallel branches (ROADMAP A10, A9), which it
-refuses, with the other unported settings (``model.remat``, the frames
-source, grain: ``Config.validate(training=True)``). What it keeps:
+tensor-parallel branch (ROADMAP A10), which it refuses, with the other
+unported settings (the frames source, grain: ``Config.validate(training=
+True)``). What it keeps:
 - synthetic moving-blob data, the seeded 70/15/15 split, shuffled batches
   per epoch (``data.py``), prefetched to the device;
 - the model of ``predict.build_model`` (``convlstm_impl: pallas`` runs the
@@ -21,6 +21,16 @@ source, grain: ``Config.validate(training=True)``). What it keeps:
   ``g_loss`` / ``d_loss`` in the history; eval and the best metric on the
   generator; checkpoints hold ``gen_params``, ``disc_params``,
   ``gen_opt_state``, ``disc_opt_state`` and ``step``;
+- ``model.remat`` / ``remat_policy``: the recurrence's steps under
+  ``torch.utils.checkpoint`` (``models/forecaster.py``);
+- data parallelism when launched by ``torchrun`` (``parallel/``): each rank
+  trains on its block of every global batch (``training.batch_size`` is
+  the global batch) with the steps of ``steps.py`` bound to the group, from
+  rank 0's initial state (one broadcast); every rank draws the global
+  ``[steps, B]`` scheduled-sampling draws from the one generator and takes
+  its own columns, so a run at world N equals the run at world 1 with the
+  same draws; eval sums each metric over the ranks before the host
+  aggregation; rank 0 alone prints, writes checkpoints and the metrics;
 - the best checkpoint (``best_model``), ``latest`` every
   ``save_model_interval`` epochs, resume (``training.resume_from``);
 - ``validate`` / ``evaluate_test`` (L1, SSIM, POD/FAR/CSI/HSS, sharpness);
@@ -30,19 +40,24 @@ No plots: the JAX trainer's matplotlib curves are not ported (ROADMAP A6).
 Usage:
     SequenceTrainer(config=load_config("nowcast_128_pallas")).train()  # GPU
     SequenceTrainer(config=cfg, device="cpu").train()
+    torchrun --nproc_per_node 8 -m pl_convlstm_gan_tpu_torch --config dp_v5e16
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config, load_config
 from ..data import (SyntheticSequenceDataset, batch_iterator, eval_batches,
                     prefetch_to_device, split_dataset_random, to_device)
+from ..parallel.mesh import (broadcast_module, data_group, print0,
+                             rank_and_world)
 from ..predict import build_discriminator, build_model, resolve_device
 from .checkpoint import CheckpointWriter, restore_checkpoint
 from .early_stopping import EarlyStopping
@@ -50,7 +65,8 @@ from .metrics_log import append_metrics_line, dump_history
 from .plateau import ReduceLROnPlateau
 from .steps import (GANTrainState, TrainState, aggregate_epoch_metrics,
                     aggregate_sequence_eval, forecaster_eval_step,
-                    forecaster_train_step, gan_train_step, make_optimizer)
+                    forecaster_train_step, gan_train_step, make_optimizer,
+                    sum_over_ranks)
 
 
 class SequenceTrainer:
@@ -62,6 +78,12 @@ class SequenceTrainer:
             raise ValueError("SequenceTrainer trains the forecaster and GAN "
                              "families; the Generator trains with Trainer")
         self.device = resolve_device(device)
+        self.group = data_group(self.config, self.device)
+        self.rank, self.world = (rank_and_world() if self.group is not None
+                                 else (0, 1))
+        if self.group is not None:
+            print0(f"Data parallelism over {self.world} ranks "
+                   f"({dist.get_backend(self.group)})")
         self.is_gan = self.config.model.family == "gan"
         self.output_dir = self.config.output.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
@@ -97,7 +119,8 @@ class SequenceTrainer:
     def _loader(self, dataset, epoch: int):
         it = batch_iterator(dataset, self.config.training.batch_size,
                             shuffle=True, seed=self.config.training.seed,
-                            epoch=epoch)
+                            epoch=epoch, process_index=self.rank,
+                            process_count=self.world)
         return prefetch_to_device(it, self.device)
 
     # ----------------------------------------------------------------- model
@@ -117,8 +140,15 @@ class SequenceTrainer:
             self.disc_lr = tc.disc_learning_rate or tc.learning_rate
             self.state = GANTrainState(model, disc, make_optimizer(model),
                                        make_optimizer(disc), 0)
+            loss = dict(lambda_adv=tc.lambda_adv, lambda_l1=tc.lambda_l1,
+                        label_smoothing=tc.label_smoothing)
+            self.train_step = functools.partial(
+                gan_train_step, impl=tc.gan_step_impl, group=self.group,
+                **loss)
         else:
             self.state = TrainState(model, make_optimizer(model), 0)
+            self.train_step = functools.partial(forecaster_train_step,
+                                                group=self.group)
         self.scheduler = ReduceLROnPlateau(
             lr=tc.learning_rate, factor=tc.scheduler_factor,
             patience=tc.scheduler_patience)
@@ -126,6 +156,9 @@ class SequenceTrainer:
                            if tc.eval_thresholds else None)
         if tc.resume_from:
             self.restore(tc.resume_from)
+        # the replicas start from rank 0's state (one broadcast)
+        broadcast_module(torch.nn.ModuleList(
+            [model, disc] if self.is_gan else [model]), self.group)
 
     @property
     def model(self):
@@ -148,12 +181,15 @@ class SequenceTrainer:
         metrics do not depend on the batch size."""
         if dataset is None or len(dataset) == 0:
             return None
+        bs = self.config.training.batch_size
+        row0 = self.rank * (bs // self.world)
         self.model.eval()
-        acc = [forecaster_eval_step(self.model, to_device(batch, self.device),
-                                    n_valid, self.thresholds,
-                                    self.config.training.eval_sharpness)
-               for batch, n_valid in eval_batches(
-                   dataset, self.config.training.batch_size)]
+        acc = [sum_over_ranks(forecaster_eval_step(
+                   self.model, to_device(batch, self.device), n_valid,
+                   self.thresholds, self.config.training.eval_sharpness,
+                   row0), self.group)
+               for batch, n_valid in eval_batches(dataset, bs, self.rank,
+                                                  self.world)]
         self.model.train()
         return aggregate_sequence_eval(acc)
 
@@ -171,29 +207,28 @@ class SequenceTrainer:
         lr = self.scheduler.lr
         gen = torch.Generator().manual_seed(tc.seed * 100_003 + epoch)
         steps = mc.input_frames + mc.output_frames - 1
+        local = tc.batch_size // self.world
         metrics_acc = []
         for i, batch in enumerate(self._loader(self.train_dataset, epoch)):
             draws = None
             if tf_prob > 0:
-                draws = torch.rand((steps, batch[0].shape[0]),
-                                   generator=gen) < tf_prob
-            if self.is_gan:
-                m = gan_train_step(self.state, batch, lr, self.disc_lr, draws,
-                                   tc.lambda_adv, tc.lambda_l1,
-                                   tc.label_smoothing, tc.grad_clip_norm,
-                                   tc.gan_step_impl)
-            else:
-                m = forecaster_train_step(self.state, batch, lr, draws,
-                                          tc.grad_clip_norm)
+                # the global batch's draws; this rank's columns
+                draws = torch.rand((steps, tc.batch_size), generator=gen)
+                draws = (draws < tf_prob)[:, self.rank * local:
+                                          (self.rank + 1) * local]
+            lrs = (lr, self.disc_lr) if self.is_gan else (lr,)
+            m = self.train_step(self.state, batch, *lrs, draws,
+                                grad_clip_norm=tc.grad_clip_norm)
             metrics_acc.append(m)
             if i % self.config.output.log_interval == 0:
                 if self.is_gan:
-                    print(f"Epoch {epoch} | G: {m['g_total']:.4f} "
-                          f"(adv {m['g_adv']:.4f}, l1 {m['g_l1']:.4f}) | "
-                          f"D: {m['d_total']:.4f} | tf_prob {tf_prob:.2f}")
+                    print0(
+                        f"Epoch {epoch} | G: {m['g_total']:.4f} (adv "
+                        f"{m['g_adv']:.4f}, l1 {m['g_l1']:.4f}) | D: "
+                        f"{m['d_total']:.4f} | tf_prob {tf_prob:.2f}")
                 else:
-                    print(f"Epoch {epoch} | L1: {m['total']:.4f} | "
-                          f"tf_prob {tf_prob:.2f}")
+                    print0(f"Epoch {epoch} | L1: {m['total']:.4f} | "
+                           f"tf_prob {tf_prob:.2f}")
         if not metrics_acc:
             raise ValueError(
                 f"No training batches: dataset has {len(self.train_dataset)} "
@@ -222,15 +257,15 @@ class SequenceTrainer:
             if val:
                 self.history["val_l1"].append(val["l1"])
                 self.history["val_ssim"].append(val["ssim"])
-                print(f"Epoch {epoch} | Train: {train_loss:.4f} | "
-                      f"Val L1: {val['l1']:.4f} | Val SSIM: {val['ssim']:.4f} "
-                      f"| {epoch_s:.1f}s")
+                print0(f"Epoch {epoch} | Train: {train_loss:.4f} | "
+                       f"Val L1: {val['l1']:.4f} | Val SSIM: "
+                       f"{val['ssim']:.4f} | {epoch_s:.1f}s")
                 current = val["l1"]
             else:
                 # NaN-pad so every history series stays aligned with 'epoch'
                 self.history["val_l1"].append(float("nan"))
                 self.history["val_ssim"].append(float("nan"))
-                print(f"Epoch {epoch} | Train: {train_loss:.4f}")
+                print0(f"Epoch {epoch} | Train: {train_loss:.4f}")
                 current = train_loss
             # logged before scheduler.step: the record carries the lr this
             # epoch trained at
@@ -245,21 +280,21 @@ class SequenceTrainer:
                 self.best_metric = current
                 self.best_epoch = epoch
                 self.save_best(epoch, current)
-                print(f"New best model saved! Epoch {epoch + 1}, "
-                      f"metric {current:.4f}")
+                print0(f"New best model saved! Epoch {epoch + 1}, "
+                       f"metric {current:.4f}")
             interval = self.config.output.save_model_interval
             if interval and (epoch + 1) % interval == 0:
                 self._ckpt_writer.save(os.path.join(self.output_dir, "latest"),
                                        self._device_state_dict(),
                                        self._host_state(epoch, current))
             if self.early_stopping is not None and self.early_stopping.early_stop:
-                print(f"Early stopping at epoch {epoch + 1}")
+                print0(f"Early stopping at epoch {epoch + 1}")
                 break
 
         self._ckpt_writer.wait()
         dump_history(self.output_dir, self.history)
-        print(f"\nTraining completed. Best epoch {self.best_epoch + 1}, "
-              f"metric {self.best_metric:.4f}")
+        print0(f"\nTraining completed. Best epoch {self.best_epoch + 1}, "
+               f"metric {self.best_metric:.4f}")
         return self.history
 
     def _log_epoch_metrics(self, epoch, epoch_s, train_avg, val_metrics):
@@ -319,4 +354,5 @@ class SequenceTrainer:
         self.scheduler.load_state_dict(host_state["scheduler"])
         if self.early_stopping is not None and host_state.get("early_stopping"):
             self.early_stopping.load_state_dict(host_state["early_stopping"])
-        print(f"Restored checkpoint from {path} (epoch {host_state['epoch']})")
+        print0(f"Restored checkpoint from {path} "
+               f"(epoch {host_state['epoch']})")

@@ -31,6 +31,32 @@ to G's parameters, so the G loss leaves nothing in D's ``.grad``.
 The scheduled-sampling draws are an argument (``teacher_draws`` [steps, B]
 bool; the trainer draws them from a ``torch.Generator``): ``jax.random``
 streams cannot be replayed in torch, so a test passes JAX's own draws.
+
+Data parallelism: every train step takes ``group``, a ``torch.distributed``
+process group (None: one process), as the JAX step bodies take
+``axis_name``, so one body owns the loss, the NaN-skip and the update on
+both paths (the trainers bind them to the data group;
+``parallel/train_parallel.py`` names the bound steps as the JAX package
+does).
+Under a group each rank runs the step on its block of the global batch and
+- the finite-loss decision is global (``_global_ok``: an all-reduce of the
+  ok flag with MIN, still one host decision; GAN: one for D, one for G), so
+  a non-finite loss on any rank skips the update on every rank, and the
+  replicas stay bit-equal; a skipped update reduces nothing;
+- the gradients are averaged over the ranks in one flat buffer before the
+  clip and Adam (``_reduced_grads``: SUM then a division by the world
+  size, as ``pmean``; gloo has no AVG); every sum over the ranks keeps its
+  dtype (``_all_reduce_sum``: one flat buffer a dtype);
+- the metrics are averaged over the ranks (``_mean_over``);
+- the Generator's point term scales its local weighted-error sum by
+  ``world / global count`` (the count's all-reduce carries no gradient),
+  and its station RMSE is ``sqrt(sum se / sum count)`` over the ranks
+  (``steps.py:136-150`` of the JAX package): the mean over ranks of the
+  local losses and gradients is then the global batch's. Every other loss
+  is a per-sample mean over equal blocks, whose mean over ranks is already
+  the global one.
+Explicit collectives, not ``DistributedDataParallel``: they are what
+``pmean`` is, and they keep the one body.
 """
 from __future__ import annotations
 
@@ -39,12 +65,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..losses import (combined_loss, conservation_loss, contingency_counts,
                       discriminator_loss, gan_generator_loss, gradient_loss,
-                      l1_loss, point_supervision_sums, scores_from_counts,
-                      sharpness_sums, ssim_per_sample, station_sq_err_sums,
-                      temporal_consistency_loss)
+                      l1_loss, point_supervision_sums, safe_ratio,
+                      scores_from_counts, sharpness_sums, ssim_per_sample,
+                      station_sq_err_sums, temporal_consistency_loss)
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -80,6 +107,63 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float
     return norm
 
 
+def _world(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _global_ok(total: torch.Tensor, group=None) -> bool:
+    """Whether ``total`` is finite; under a group on every rank (an
+    all-reduce of the flags with MIN), so that all ranks take one
+    decision. The host waits for the loss here."""
+    ok = torch.isfinite(total.detach()).to(torch.float32).reshape(1)
+    if group is not None:
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+    return bool(ok)
+
+
+def _all_reduce_sum(tensors: Sequence[torch.Tensor], group
+                    ) -> List[torch.Tensor]:
+    """The sums over the ranks of ``tensors``, in their own dtypes (integer
+    counts stay exact), through one flat buffer per dtype."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        for i, f in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = f.view_as(tensors[i])
+    return out
+
+
+def _reduced_grads(grads: Sequence[torch.Tensor], group
+                   ) -> List[torch.Tensor]:
+    """``grads`` averaged over the ranks of ``group`` (unchanged without
+    one), as ``pmean``."""
+    if group is None:
+        return list(grads)
+    world = _world(group)
+    return [g.div_(world) for g in _all_reduce_sum(grads, group)]
+
+
+def _mean_over(values: torch.Tensor, group) -> torch.Tensor:
+    """A float32 vector of metrics averaged over the ranks."""
+    if group is None:
+        return values
+    return _all_reduce_sum([values], group)[0] / _world(group)
+
+
+def sum_over_ranks(metrics: Dict[str, tuple], group) -> Dict[str, tuple]:
+    """An eval step's {metric: (sum, weight)} summed over the ranks of
+    ``group`` (unchanged without one), one collective a dtype: each rank's
+    sums cover its block of the batch, so the totals are the global
+    batch's; the int64 contingency counts are summed as int64."""
+    if group is None:
+        return metrics
+    keys = list(metrics)
+    summed = _all_reduce_sum([t for k in keys for t in metrics[k]], group)
+    return {k: (summed[2 * i], summed[2 * i + 1]) for i, k in enumerate(keys)}
+
+
 def _adam_update(optimizer, params, grads, lr: float, grad_clip_norm: float
                  ) -> None:
     """Clip ``grads`` by their global norm (optax's rule), then one Adam
@@ -104,56 +188,74 @@ def loss_config(training_config) -> Dict:
     return {k: getattr(training_config, k) for k in LOSS_KEYS}
 
 
-def generator_loss(model, batch, loss_cfg: Dict):
+def generator_loss(model, batch, loss_cfg: Dict, group=None):
     """(total, parts, pred, scale) of the Generator on batch = (rain_lr
-    [B,T,1,H,W], dem, lu, s_coords, s_values)."""
+    [B,T,1,H,W], dem, lu, s_coords, s_values). The point term is world
+    times this rank's weighted-error sum over the count of every rank (the
+    count's all-reduce carries no gradient), so that under ``group`` the
+    mean over ranks of the totals (and of their gradients) is the global
+    batch's loss; in one process it is the batch's point loss."""
     rain_lr, dem, lu, s_coords, s_values = batch
     pred = model(rain_lr, dem, lu)
     scale = pred.shape[-2] / rain_lr.shape[-2]
-    total, parts = combined_loss(
-        pred, rain_lr, s_coords, s_values, scale, loss_cfg["lambda_point"],
-        loss_cfg["lambda_conserve"], loss_cfg["lambda_smooth"],
-        loss_cfg["lambda_temporal"], loss_cfg["use_weighted_loss"],
+    p_num, p_cnt = point_supervision_sums(
+        pred, s_coords, s_values, scale, loss_cfg["use_weighted_loss"],
         loss_cfg["weight_strategy"])
+    if group is not None:
+        p_cnt = _all_reduce_sum([p_cnt.detach()], group)[0]
+    total, parts = combined_loss(
+        pred, rain_lr, s_coords, s_values, scale,
+        loss_cfg["lambda_point"], loss_cfg["lambda_conserve"],
+        loss_cfg["lambda_smooth"], loss_cfg["lambda_temporal"],
+        point=_world(group) * safe_ratio(p_num, p_cnt))
     return total, parts, pred, scale
 
 
 def generator_train_step(state: TrainState, batch, lr: float, loss_cfg: Dict,
-                         grad_clip_norm: float = 0.5) -> Dict[str, float]:
+                         grad_clip_norm: float = 0.5, group=None
+                         ) -> Dict[str, float]:
     """One update of ``state`` in place on batch = (rain_lr, dem, lu,
     s_coords, s_values): combined loss -> NaN-skip -> clip -> Adam at
     ``lr``. Returns {"total", "rmse" (station RMSE of this batch),
     "skipped", "point", "conserve", "smooth", "temporal"}, as the JAX
     step's metrics. One host decision (the finite loss), taken after the
-    backward is queued."""
+    backward is queued. Under ``group`` (data parallel, module docstring)
+    ``batch`` is this rank's block of the global batch, and the update and
+    the metrics are the global batch's."""
     params = list(state.model.parameters())
     state.optimizer.zero_grad(set_to_none=True)
-    total, parts, pred, scale = generator_loss(state.model, batch, loss_cfg)
+    total, parts, pred, scale = generator_loss(state.model, batch, loss_cfg,
+                                               group)
     total.backward()
-    ok = bool(torch.isfinite(total))
+    ok = _global_ok(total, group)
     if ok:
-        _adam_update(state.optimizer, params, [p.grad for p in params], lr,
+        _adam_update(state.optimizer, params,
+                     _reduced_grads([p.grad for p in params], group), lr,
                      grad_clip_norm)
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
     with torch.no_grad():
         se, cnt = station_sq_err_sums(pred, batch[3], batch[4], scale)
+        if group is not None:
+            se, cnt = _all_reduce_sum([se, cnt], group)
         rmse = torch.where(cnt > 0, torch.sqrt(se / cnt.clamp(min=1)), 0.0)
     names = ("total", "rmse", *parts)
-    values = torch.stack([t.detach().float() for t in (
-        total, rmse, *parts.values())]).tolist()
+    values = _mean_over(torch.stack([t.detach().float() for t in (
+        total, rmse, *parts.values())]), group).tolist()
     return {**dict(zip(names, values)), "skipped": int(not ok)}
 
 
 @torch.no_grad()
-def generator_eval_step(model, batch, n_valid: int, loss_cfg: Dict
-                        ) -> Dict[str, tuple]:
+def generator_eval_step(model, batch, n_valid: int, loss_cfg: Dict,
+                        row0: int = 0) -> Dict[str, tuple]:
     """{metric: (sum, weight)} of the Generator on one batch; rows with
-    index >= n_valid (wrap-padding) carry weight 0. Values stay on the
-    device; ``aggregate_generator_eval`` fetches them."""
+    index >= n_valid (wrap-padding) carry weight 0. ``row0`` is the global
+    index of the batch's first row (a rank's block under data
+    parallelism; ``sum_over_ranks`` then totals the sums). Values stay on
+    the device; ``aggregate_generator_eval`` fetches them."""
     rain_lr, dem, lu, s_coords, s_values = batch
     b = rain_lr.shape[0]
-    valid = torch.arange(b, device=rain_lr.device) < n_valid
+    valid = torch.arange(row0, row0 + b, device=rain_lr.device) < n_valid
     nv = valid.float().sum()
     pred = model(rain_lr, dem, lu)
     scale = pred.shape[-2] / rain_lr.shape[-2]
@@ -199,24 +301,29 @@ def forecaster_loss(model, inputs, targets, teacher_draws=None):
 
 def forecaster_train_step(state: TrainState, batch, lr: float,
                           teacher_draws: Optional[torch.Tensor] = None,
-                          grad_clip_norm: float = 0.5) -> Dict[str, float]:
+                          grad_clip_norm: float = 0.5, group=None
+                          ) -> Dict[str, float]:
     """One update of ``state`` in place on batch = (inputs [B,T_in,C,H,W],
     targets [B,T_out,C,H,W]); returns {"total": loss, "skipped": 0 or 1}.
 
     One host sync: the finite-loss decision. It is taken after the backward
-    is queued, so the host waits only for the forward."""
+    is queued, so the host waits only for the forward. Under ``group``
+    (data parallel, module docstring) ``batch`` and ``teacher_draws`` are
+    this rank's block of the global batch's."""
     inputs, targets = batch
     params = list(state.model.parameters())
     state.optimizer.zero_grad(set_to_none=True)
     total, _ = forecaster_loss(state.model, inputs, targets, teacher_draws)
     total.backward()
-    ok = bool(torch.isfinite(total))
+    ok = _global_ok(total, group)
     if ok:
-        _adam_update(state.optimizer, params, [p.grad for p in params], lr,
+        _adam_update(state.optimizer, params,
+                     _reduced_grads([p.grad for p in params], group), lr,
                      grad_clip_norm)
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
-    return {"total": float(total.detach()), "skipped": int(not ok)}
+    total = _mean_over(total.detach().float().reshape(1), group)
+    return {"total": float(total), "skipped": int(not ok)}
 
 
 # ---------------------------------------------------------------------- GAN
@@ -253,7 +360,7 @@ def gan_train_step(state: GANTrainState, batch, g_lr: float, d_lr: float,
                    teacher_draws: Optional[torch.Tensor] = None,
                    lambda_adv: float = 0.001, lambda_l1: float = 1.0,
                    label_smoothing: float = 0.0, grad_clip_norm: float = 0.5,
-                   impl: str = "default") -> Dict[str, float]:
+                   impl: str = "default", group=None) -> Dict[str, float]:
     """One GAN step of ``state`` in place on batch = (inputs, targets):
     G forward -> D update on (real, detached fake) -> G update against the
     updated D. Each of D and G skips its own update when its loss is not
@@ -266,7 +373,9 @@ def gan_train_step(state: GANTrainState, batch, g_lr: float, d_lr: float,
     with gradients (K1 with z) and the same teacher draws. "vjp": one
     forward with gradients; D reads ``fake.detach()``, and G's gradient
     goes back through that forward's graph. Two host syncs, the D and G
-    finite-loss decisions, each after its backward is queued."""
+    finite-loss decisions, each after its backward is queued. Under
+    ``group`` (data parallel, module docstring) each decision is global and
+    each side's gradients are averaged over the ranks."""
     if impl not in GAN_IMPLS:
         raise ValueError(f"Unknown gan_step_impl: {impl!r} (valid: "
                          f"{', '.join(GAN_IMPLS)})")
@@ -282,39 +391,42 @@ def gan_train_step(state: GANTrainState, batch, g_lr: float, d_lr: float,
     d_total, d_parts = gan_d_loss(disc, targets, fake.detach(),
                                   label_smoothing)
     d_grads = list(torch.autograd.grad(d_total, d_params))
-    d_ok = bool(torch.isfinite(d_total))
+    d_ok = _global_ok(d_total, group)
     if d_ok:
-        _adam_update(state.disc_optimizer, d_params, d_grads, d_lr,
-                     grad_clip_norm)
+        _adam_update(state.disc_optimizer, d_params,
+                     _reduced_grads(d_grads, group), d_lr, grad_clip_norm)
     del d_grads
 
     if impl == "default":
         fake = gen(inputs, targets, teacher_draws)
     g_total, g_parts = gan_g_loss(disc, fake, targets, lambda_adv, lambda_l1)
     g_grads = list(torch.autograd.grad(g_total, g_params))
-    g_ok = bool(torch.isfinite(g_total))
+    g_ok = _global_ok(g_total, group)
     if g_ok:
-        _adam_update(state.gen_optimizer, g_params, g_grads, g_lr,
-                     grad_clip_norm)
+        _adam_update(state.gen_optimizer, g_params,
+                     _reduced_grads(g_grads, group), g_lr, grad_clip_norm)
     state.step += 1
     names = ("d_total", "g_total", *d_parts, *g_parts)
-    values = torch.stack([t.detach().float() for t in (
-        d_total, g_total, *d_parts.values(), *g_parts.values())]).tolist()
+    values = _mean_over(torch.stack([t.detach().float() for t in (
+        d_total, g_total, *d_parts.values(), *g_parts.values())]),
+        group).tolist()
     return {**dict(zip(names, values)), "skipped": int(not (d_ok and g_ok))}
 
 
 @torch.no_grad()
 def forecaster_eval_step(model, batch, n_valid: int,
                          score_thresholds: Optional[Sequence[float]] = None,
-                         sharpness: bool = False) -> Dict[str, tuple]:
+                         sharpness: bool = False, row0: int = 0
+                         ) -> Dict[str, tuple]:
     """{metric: (sum, weight)} of a free-running rollout on one batch; rows
     with index >= n_valid (wrap-padding) carry weight 0. Contingency counts
     ride along raw (``counts@<th>``) so the host forms scores from global
-    counts. Values stay on the device; ``aggregate_sequence_eval`` fetches
-    them."""
+    counts. ``row0`` is the global index of the batch's first row (a rank's
+    block under data parallelism; ``sum_over_ranks`` then totals the sums).
+    Values stay on the device; ``aggregate_sequence_eval`` fetches them."""
     inputs, targets = batch
     b = inputs.shape[0]
-    valid = torch.arange(b, device=inputs.device) < n_valid
+    valid = torch.arange(row0, row0 + b, device=inputs.device) < n_valid
     vm = valid.float()
     nv = vm.sum()
     pred = model(inputs)

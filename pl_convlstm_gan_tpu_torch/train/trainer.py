@@ -1,9 +1,9 @@
-"""Trainer: training of the downscaling Generator on one device.
+"""Trainer: training of the downscaling Generator, on one device or
+data-parallel over the ranks of a process group.
 
-Counterpart of the JAX package's ``train/trainer.py`` without its
-data-parallel branch (ROADMAP A9, refused by ``Config.validate(training=
-True)``) and its plots (matplotlib's training curves and station scatter,
-ROADMAP A6). What it keeps, with the JAX trainer's public surface:
+Counterpart of the JAX package's ``train/trainer.py`` without its plots
+(matplotlib's training curves and station scatter, ROADMAP A6). What it
+keeps, with the JAX trainer's public surface:
 - ``setup_data``: ``SyntheticDownscalingDataset`` (``data.source:
   synthetic``) or ``FenheDataset`` (``fenhe``), split by year (Fenhe with
   ``split_method: year``) or by the seeded 70/15/15 permutation
@@ -23,7 +23,12 @@ ROADMAP A6). What it keeps, with the JAX trainer's public surface:
   epochs (bundle ``params`` / ``opt_state`` / ``step``), resume
   (``training.resume_from``), ``metrics.jsonl`` and ``history.json``;
 - ``validate`` / ``evaluate_test``: loss, station RMSE and the four parts,
-  aggregated exactly over wrap-padded batches.
+  aggregated exactly over wrap-padded batches;
+- data parallelism when launched by ``torchrun`` (``parallel/``), as
+  ``SequenceTrainer`` runs it: each rank trains on its block of every
+  global batch with the Generator step bound to the group (the point term
+  and the RMSE over the global station counts), from rank 0's initial state;
+  eval sums each metric over the ranks; rank 0 alone prints and writes.
 
 Usage:
     Trainer(config=load_config("default")).train()        # on the GPU
@@ -31,16 +36,20 @@ Usage:
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import Config, load_config
 from ..data import (FenheDataset, SyntheticDownscalingDataset, batch_iterator,
                     eval_batches, prefetch_to_device, split_dataset_by_year,
                     split_dataset_random, to_device)
+from ..parallel.mesh import (broadcast_module, data_group, print0,
+                             rank_and_world)
 from ..predict import build_model, resolve_device
 from .checkpoint import CheckpointWriter, restore_checkpoint
 from .early_stopping import EarlyStopping
@@ -48,7 +57,8 @@ from .metrics_log import append_metrics_line, dump_history
 from .plateau import ReduceLROnPlateau
 from .steps import (TrainState, aggregate_epoch_metrics,
                     aggregate_generator_eval, generator_eval_step,
-                    generator_train_step, loss_config, make_optimizer)
+                    generator_train_step, loss_config, make_optimizer,
+                    sum_over_ranks)
 
 
 class Trainer:
@@ -61,6 +71,12 @@ class Trainer:
                              f"{self.config.model.family!r} trains with "
                              f"SequenceTrainer")
         self.device = resolve_device(device)
+        self.group = data_group(self.config, self.device)
+        self.rank, self.world = (rank_and_world() if self.group is not None
+                                 else (0, 1))
+        if self.group is not None:
+            print0(f"Data parallelism over {self.world} ranks "
+                   f"({dist.get_backend(self.group)})")
         self.output_dir = self.config.output.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
         self.history = {
@@ -77,11 +93,11 @@ class Trainer:
             self.early_stopping = EarlyStopping(
                 patience=tc.early_stopping_patience,
                 min_delta=tc.early_stopping_min_delta)
-            print(f"Early stopping: enabled (patience="
-                  f"{tc.early_stopping_patience}, min_delta="
-                  f"{tc.early_stopping_min_delta})")
+            print0(f"Early stopping: enabled (patience="
+                   f"{tc.early_stopping_patience}, min_delta="
+                   f"{tc.early_stopping_min_delta})")
         else:
-            print("Early stopping: disabled")
+            print0("Early stopping: disabled")
 
     # ------------------------------------------------------------------ data
     def _build_dataset(self):
@@ -104,7 +120,8 @@ class Trainer:
         full = self._build_dataset()
         tc = self.config.training
         if tc.use_split:
-            print(f"\nSplitting dataset with method '{tc.split_method}'...")
+            print0(f"\nSplitting dataset with method "
+                   f"'{tc.split_method}'...")
             if tc.split_method == "year" and self.config.data.source == "fenhe":
                 splits = split_dataset_by_year(
                     full, tuple(tc.train_years), tuple(tc.val_years),
@@ -113,10 +130,10 @@ class Trainer:
                 splits = split_dataset_random(
                     full, seed=self.config.data.split_seed)
             self.train_dataset, self.val_dataset, self.test_dataset = splits
-            print(f"Train: {len(splits[0])} | Val: {len(splits[1])} | "
-                  f"Test: {len(splits[2])} samples\n")
+            print0(f"Train: {len(splits[0])} | Val: {len(splits[1])} | "
+                   f"Test: {len(splits[2])} samples\n")
         else:
-            print("\nTraining on the full dataset (no split)\n")
+            print0("\nTraining on the full dataset (no split)\n")
             self.train_dataset, self.val_dataset, self.test_dataset = \
                 full, None, None
         return full
@@ -124,7 +141,8 @@ class Trainer:
     def _loader(self, dataset, epoch: int):
         it = batch_iterator(dataset, self.config.training.batch_size,
                             shuffle=True, seed=self.config.training.seed,
-                            epoch=epoch)
+                            epoch=epoch, process_index=self.rank,
+                            process_count=self.world)
         return prefetch_to_device(it, self.device)
 
     # ----------------------------------------------------------------- model
@@ -144,11 +162,15 @@ class Trainer:
             lr=tc.learning_rate, factor=tc.scheduler_factor,
             patience=tc.scheduler_patience)
         self.loss_cfg = loss_config(tc)
-        print(f"Loss config: weighted="
-              f"{'on' if tc.use_weighted_loss else 'off'}, "
-              f"strategy={tc.weight_strategy}")
+        self.train_step = functools.partial(
+            generator_train_step, loss_cfg=self.loss_cfg, group=self.group)
+        print0(f"Loss config: weighted="
+               f"{'on' if tc.use_weighted_loss else 'off'}, "
+               f"strategy={tc.weight_strategy}")
         if tc.resume_from:
             self.restore(tc.resume_from)
+        # the replicas start from rank 0's state (one broadcast)
+        broadcast_module(self.model, self.group)
 
     # ------------------------------------------------------------------ eval
     def _run_eval(self, dataset) -> Optional[Dict[str, float]]:
@@ -156,11 +178,14 @@ class Trainer:
         metrics do not depend on the batch size."""
         if dataset is None or len(dataset) == 0:
             return None
+        bs = self.config.training.batch_size
+        row0 = self.rank * (bs // self.world)
         self.model.eval()
-        acc = [generator_eval_step(self.model, to_device(batch, self.device),
-                                   n_valid, self.loss_cfg)
-               for batch, n_valid in eval_batches(
-                   dataset, self.config.training.batch_size)]
+        acc = [sum_over_ranks(generator_eval_step(
+                   self.model, to_device(batch, self.device), n_valid,
+                   self.loss_cfg, row0), self.group)
+               for batch, n_valid in eval_batches(dataset, bs, self.rank,
+                                                  self.world)]
         self.model.train()
         return aggregate_generator_eval(acc, self.loss_cfg)
 
@@ -178,16 +203,16 @@ class Trainer:
         lr = self.scheduler.lr
         metrics_acc = []
         for i, batch in enumerate(self._loader(self.train_dataset, epoch)):
-            m = generator_train_step(self.state, batch, lr, self.loss_cfg,
-                                     tc.grad_clip_norm)
+            m = self.train_step(self.state, batch, lr,
+                                grad_clip_norm=tc.grad_clip_norm)
             metrics_acc.append(m)
             if i % self.config.output.log_interval == 0:
-                print(f"Epoch {epoch} | Loss: {m['total']:.4f} | "
-                      f"Point: {m['point']:.4f} | "
-                      f"Conserve: {m['conserve']:.4f} | "
-                      f"Smooth: {m['smooth']:.4f} | "
-                      f"Temporal: {m['temporal']:.4f} | "
-                      f"Batch RMSE: {m['rmse']:.4f}")
+                print0(f"Epoch {epoch} | Loss: {m['total']:.4f} | "
+                       f"Point: {m['point']:.4f} | "
+                       f"Conserve: {m['conserve']:.4f} | "
+                       f"Smooth: {m['smooth']:.4f} | "
+                       f"Temporal: {m['temporal']:.4f} | "
+                       f"Batch RMSE: {m['rmse']:.4f}")
         if not metrics_acc:
             raise ValueError(
                 f"No training batches: dataset has {len(self.train_dataset)} "
@@ -211,13 +236,13 @@ class Trainer:
 
             val = self.validate()
             if val:
-                print(f"Epoch {epoch} | Train RMSE: {avg['rmse']:.4f} | "
-                      f"Val Loss: {val['loss']:.4f} | "
-                      f"Val RMSE: {val['rmse']:.4f} | {epoch_s:.1f}s")
+                print0(f"Epoch {epoch} | Train RMSE: {avg['rmse']:.4f} | "
+                       f"Val Loss: {val['loss']:.4f} | "
+                       f"Val RMSE: {val['rmse']:.4f} | {epoch_s:.1f}s")
                 current = val["rmse"]
             else:
-                print(f"Epoch {epoch} finished. Avg Batch RMSE: "
-                      f"{avg['rmse']:.4f}")
+                print0(f"Epoch {epoch} finished. Avg Batch RMSE: "
+                       f"{avg['rmse']:.4f}")
                 current = avg["rmse"]
             # logged before scheduler.step: the record carries the lr this
             # epoch trained at
@@ -232,22 +257,23 @@ class Trainer:
                 self.best_rmse = current
                 self.best_epoch = epoch
                 self.save_best(epoch, current)
-                print(f"New best model saved! Epoch {epoch + 1}, "
-                      f"RMSE: {current:.4f}")
+                print0(f"New best model saved! Epoch {epoch + 1}, "
+                       f"RMSE: {current:.4f}")
             interval = self.config.output.save_model_interval
             if interval and (epoch + 1) % interval == 0:
                 self.save_latest(epoch, current)
             if self.early_stopping is not None and self.early_stopping.early_stop:
-                print(f"Early stopping at epoch {epoch + 1}; best epoch "
-                      f"{self.best_epoch + 1}, RMSE {self.best_rmse:.4f}")
+                print0(f"Early stopping at epoch {epoch + 1}; best "
+                       f"epoch {self.best_epoch + 1}, RMSE "
+                       f"{self.best_rmse:.4f}")
                 break
 
         self._ckpt_writer.wait()
         dump_history(self.output_dir, self.history)
-        print("\nTraining completed!")
-        print(f"Best model: Epoch {self.best_epoch + 1}, "
-              f"RMSE: {self.best_rmse:.4f}")
-        print(f"Results saved to {self.output_dir}/")
+        print0("\nTraining completed!")
+        print0(f"Best model: Epoch {self.best_epoch + 1}, "
+               f"RMSE: {self.best_rmse:.4f}")
+        print0(f"Results saved to {self.output_dir}/")
         return self.history
 
     def _log_epoch_metrics(self, epoch, epoch_s, train_avg, val_metrics):
@@ -298,5 +324,5 @@ class Trainer:
         self.scheduler.load_state_dict(host_state["scheduler"])
         if self.early_stopping is not None and host_state.get("early_stopping"):
             self.early_stopping.load_state_dict(host_state["early_stopping"])
-        print(f"Restored checkpoint from {path} (epoch {host_state['epoch']}, "
-              f"rmse {host_state['rmse']:.4f})")
+        print0(f"Restored checkpoint from {path} (epoch "
+               f"{host_state['epoch']}, rmse {host_state['rmse']:.4f})")

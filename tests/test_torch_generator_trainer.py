@@ -155,17 +155,23 @@ def test_trainer_on_fenhe_files_splits_by_year(tmp_path):
 
 def test_generator_training_settings():
     """The Generator family trains (configs/default.yaml passes
-    validate(training=True)); remat, DP and TP stay refused naming their
-    ROADMAP items, target_grid_size without input_grid_size stays an error,
-    and each trainer refuses the other's families."""
+    validate(training=True)); data parallelism (A9) is ported, so
+    data_axis 4 passes validate(training=True) and is refused by a
+    single-process Trainer, which has no 4 ranks (ValueError naming
+    torchrun); model.remat is a forecaster setting, which validate(
+    training=True) takes; TP stays refused, target_grid_size without
+    input_grid_size stays an error, and each trainer refuses the other's
+    families."""
     cfg = load_config("default")
     cfg.validate(training=True)
     for section, key, value, item in (("model", "remat", True, "A3"),
                                       ("mesh", "data_axis", 4, "A9")):
         bad = load_config("default")
         setattr(getattr(bad, section), key, value)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            bad.validate(training=True)
+        bad.validate(training=True)
+        if item == "A9":
+            with pytest.raises(ValueError, match="needs 4 ranks"):
+                Trainer(config=bad, device="cpu")
     bad = load_config("default")
     bad.mesh.model_axis = 2
     with pytest.raises(ValueError, match="DP-only"):

@@ -166,11 +166,26 @@ def test_unported_training_settings_are_refused(tmp_path, setting, value,
                                                 item):
     """validate(training=True), the trainer and --mode train refuse each
     setting the port does not train yet, naming its ROADMAP item; plain
-    validate() (serving) does not."""
+    validate() (serving) does not. A9 (data parallelism) and A3 (remat)
+    are ported: validate(training=True) takes both; data_axis 4 is then
+    refused by the trainer and the CLI of a single process, which has no
+    4 ranks to run it (ValueError naming torchrun), and remat trains
+    (tests/test_torch_remat.py, tests/test_torch_dp.py)."""
     cfg = _config(tmp_path / "out")
     section, key = setting.split(".")
     setattr(getattr(cfg, section), key, value)
     cfg.validate()
+    if item in ("A9", "A3"):
+        cfg.validate(training=True)
+        if item == "A3":
+            assert SequenceTrainer(config=cfg, device="cpu").config.model.remat
+            return
+        with pytest.raises(ValueError, match="4 ranks: launch with torchrun"):
+            SequenceTrainer(config=cfg, device="cpu")
+        with pytest.raises(ValueError, match="4 ranks: launch with torchrun"):
+            cli.main(["--config", _yaml(tmp_path, cfg, "bad"), "--mode",
+                      "train", "--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cfg.validate(training=True)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
