@@ -116,7 +116,26 @@ own line:
    exact K1 counts on every rank; then one NCCL group at world 1 (the
    production backend) running nowcast_128_pallas's DP steps. No scaling
    numbers: the box has one card;
-16. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
+16. tp: tensor parallelism at world 2 (data 1 x model 2) on the one card:
+   two ranks of this script (``--tp-worker``) in a gloo group, each holding
+   half of every ConvLSTM cell's channels (the plain cell: K1 is refused
+   under TP, which each rank checks before any launch), against one
+   process's steps on the same global batch from one canonical state:
+   tp_nowcast_128 at full width (3x256, 128^2, 5 -> 20) in bf16 as written
+   and in f32, its global batch cut 8 -> 2 (two ranks share the card), and
+   gan_64 (f32, default step) with model_axis 2; 2 steps each: per-step
+   losses within TRAIN_TOL, the params after the steps within TP_PARAM_TOL
+   (their move from the init, in norm; the unchanged init must fail it), Adam's
+   moments after step 1 within TP_MOMENT_TOL, the replicated params (head, D) bit-equal
+   on both ranks, the collectives a step counted exactly (72 all-gathers
+   forward, 71 all-reduces backward, the clip's norm and the replicated
+   mean), 0 K1 launches, peak allocated memory a rank against one process,
+   step ms on the shared card; then the TP trainer trains one epoch of
+   tp_nowcast_128 cut to 8 sequences, and one process serves its canonical
+   best_model (load_predictor) against the TP model's prediction of the
+   same request (plain path), and on K1/K2 (72 + 20 launches). No NCCL
+   (it refuses two ranks on one GPU), no scaling numbers;
+17. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
    shape through experiments.tap_structure.run() with its launch counts,
    then K3 and K4 against their plain versions (rtol 2^-7), timed in
    turns, beside the plain versions, 64 cuBLAS products and the bound;
@@ -124,8 +143,9 @@ own line:
    and the work-done guard (the 56 extra repetitions take at least their
    FLOPs at the bf16 peak; no rate above 1.05x the peak), with the
    steady-state TFLOP/s of that slope;
-17. one JSON line {"kernels": [...]} with each kernel's launches (per path,
-   the Generator's, remat's and dp's included), error, and its time beside
+18. one JSON line {"kernels": [...]} with each kernel's launches (per path,
+   the Generator's, remat's, dp's and tp's (0) included), error, and its
+   time beside
    its bound, its
    plain version's and the library call's (K1 with z as its own entry; K1
    to K4; K1 also over the Generator's two cells, ``generator_mix``);
@@ -2223,6 +2243,7 @@ def dp_parts(entry, group):
     to ``group`` (None: one process), as the trainers bind them. The
     gradient under a group is the mean over the ranks of each rank's
     gradient on its block (the DP step's reduction)."""
+    from pl_convlstm_gan_tpu_torch.parallel.mesh import as_groups
     from pl_convlstm_gan_tpu_torch.train import steps as st_mod
     cfg = dp_config(entry["name"], entry["batch"], entry["impl"])
     tc = cfg.training
@@ -2232,7 +2253,8 @@ def dp_parts(entry, group):
         norm of this process's own)."""
         norm = float(torch.cat([g.flatten() for g in gs]).norm())
         if group is not None:
-            gs = st_mod._reduced_grads(gs, group)
+            gs = st_mod._reduced_grads(gs, as_groups(group),
+                                       [False] * len(gs))
         return torch.cat([g.flatten() for g in gs]), norm
     if cfg.model.family == "gan":
         state = gan_state(cfg, entry["init"]["model"], entry["init"]["disc"])
@@ -2341,25 +2363,27 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def dp_launch(work, backend, world, names):
-    """Start ``world`` ranks of this script as child processes, wait for
-    them within DP_TIMEOUT (killing every one on a timeout or a failure)
-    and return their records and seconds."""
+def launch_ranks(flag, work, world, args, prefix, timeout):
+    """Start ``world`` ranks of this script (``flag`` and its arguments:
+    rank, world, port, work dir, then ``args``) as child processes, wait
+    for them within ``timeout`` seconds each (killing every one on a
+    timeout or a failure) and return their records
+    (``<work>/<prefix>_rank<r>.pt``) and seconds."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT")}
     port = _free_port()
-    cmd = [sys.executable, os.path.abspath(__file__), "--dp-worker"]
+    cmd = [sys.executable, os.path.abspath(__file__), flag]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd + [str(r), str(world), str(port), work,
-                                     backend, ",".join(names)],
+                                     *args],
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+            logs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2367,11 +2391,17 @@ def dp_launch(work, backend, world, names):
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            raise AssertionError(f"dp {backend} rank {r} exit "
+            raise AssertionError(f"{flag} {prefix} rank {r} exit "
                                  f"{p.returncode}:\n{log[-4000:]}")
-    return ([torch.load(os.path.join(work, f"{backend}_rank{r}.pt"),
+    return ([torch.load(os.path.join(work, f"{prefix}_rank{r}.pt"),
                         weights_only=False) for r in range(world)],
             time.perf_counter() - t0)
+
+
+def dp_launch(work, backend, world, names):
+    """The dp phase's ranks (``--dp-worker``) over ``backend``."""
+    return launch_ranks("--dp-worker", work, world,
+                        [backend, ",".join(names)], backend, DP_TIMEOUT)
 
 
 def dp_compare(name, entry, ranks, ref, label):
@@ -2466,9 +2496,566 @@ def phase_dp(seed):
     return rec
 
 
+# The tp phase: tensor parallelism at world 2 (data 1 x model 2) on the one
+# card, two ranks of this script (``--tp-worker``) in a gloo group (gloo
+# carries CUDA tensors; NCCL refuses two ranks on one GPU), each holding
+# half of every cell's channels, against one process's steps on the same
+# global batch from the same canonical state. Each run: (label, config,
+# compute dtype, global batch, teacher-forcing prob of the draws, cuts).
+# Memory (PERF.md's TP finding): a rank keeps, a cell-step, the float32
+# conv input (all of Cin + Ch, replicated) and its half of the gates'
+# float32 residuals: ~14 KB a pixel-sample over the 3 x 256 cells against
+# ~23 KB in one process, so 24 steps at B 8 would need ~45 GB a rank
+# (90 GB for two on one card): the global batch is cut to 2 (~11 GB a
+# rank, ~18 GB one process).
+TP_RUNS = (
+    ("tp_nowcast_128", "tp_nowcast_128", "bfloat16", 2, 0.5,
+     ["training.batch_size 8 -> 2 (the global batch; two ranks share one "
+      "card: PERF.md's memory reckoning)"]),
+    ("tp_nowcast_128_f32", "tp_nowcast_128", "float32", 2, 0.0,
+     ["precision.compute_dtype bfloat16 -> float32",
+      "training.batch_size 8 -> 2"]),
+    ("tp_gan_64", "gan_64", "float32", 8, 0.0,
+     ["mesh.model_axis 1 -> 2 (gan_64's family, widths and default step "
+      "under TP)"]),
+)
+TP_MODEL = 2            # the model axis of every TP run
+TP_WORLD = 2            # the gloo phase: data 1 x model 2 on the one card
+TP_STEPS = 2
+# TP against one process on the same global batch. The TP path rounds to
+# the compute dtype the values one process rounds: the forward's h' and c'
+# from float32 z of the same sums (each rank computes its channels' whole
+# sums; cuDNN may take another algorithm for 4Ch/2 output channels, so
+# float32 orders differ), and the backward's gradient of the conv input
+# after the model group's float32 sum of the ranks' partial gradients
+# (copy_in sits on the float32 conv input), rounded once, as one process
+# rounds its whole sum. These are two paths that round the same values, so
+# TRAIN_TOL holds for the losses. With a data axis of 1 nothing is rounded
+# from other values (dp_grad_tol's term is 0). Adam's moments after step 1
+# are the clipped step-1 gradient g (mu = 0.1 g, nu = 0.001 g^2): float32
+# within 1e-5 of each tensor's largest magnitude; bfloat16 in norm over all
+# of a model's moments: mu within TRAIN_TOL's bfloat16 gradient bound
+# (1e-3) plus the clip's scale (its norm's relative error is at most that
+# bound too), 2e-3; nu twice that (a square doubles a relative error),
+# 4e-3.
+TP_MOMENT_TOL = {"float32": {"exp_avg": 1e-5, "exp_avg_sq": 1e-5},
+                 "bfloat16": {"exp_avg": 2 * TRAIN_TOL["grad"]["bfloat16"],
+                              "exp_avg_sq": 4 * TRAIN_TOL["grad"]["bfloat16"]}}
+# The params after the steps, held by their move from the canonical init:
+# ||(p_tp - p0) - (p_one - p0)|| / ||p_one - p0|| over all of a model's
+# params. The unchanged init reads 1, a run that skips its last update
+# about 1/2 (two Adam steps of about lr each), one that applies it with the
+# wrong sign about 1. Adam moves an element by about lr a step whatever its
+# gradient's size (m_hat / sqrt(v_hat) ~ +-1), so an element whose gradient
+# lies within the gradient error of 0 may move the other way: 2 lr apart.
+# With a relative gradient error e in norm, such elements are a share of
+# about e / pi of a normally distributed gradient (at most e), so the
+# update's error in norm is at most 2 sqrt(e) of the update: e is
+# TP_MOMENT_TOL's mu bound (float32 1e-5 -> 6.3e-3; bfloat16 2e-3 ->
+# 8.9e-2). A bound per element (of its tensor's largest magnitude) cannot
+# hold in float32: Adam divides each element's gradient error by the
+# gradient, and an element whose gradient is 1e-3 of its tensor's largest
+# carries 1e3 times the relative error into its update (the record's
+# worst_param_element: the farthest element and its gradient's share).
+TP_PARAM_TOL = {d: 2 * float(np.sqrt(t["exp_avg"]))
+                for d, t in TP_MOMENT_TOL.items()}
+# the trainer round trip under TP: tp_nowcast_128 cut to 8 sequences (5 to
+# train: 2 steps of the global batch 2), one epoch; then one process serves
+# its canonical best_model
+TP_TRAINER = dict(sequences=8, epochs=1, batch=2)
+TP_TIMEOUT = 900        # seconds a rank may take
+
+
+def tp_config(name, dtype_name, batch):
+    cfg = load_config(name)
+    cfg.precision.compute_dtype = dtype_name
+    cfg.training.batch_size = batch
+    cfg.mesh.model_axis = TP_MODEL
+    cfg.validate(training=True)
+    return cfg
+
+
+def tp_expected_collectives(cfg, data=1):
+    """Per train step of cfg at ``data`` x TP_MODEL: the forward
+    all-gathers (one a cell and step; the GAN default step runs G twice),
+    the backward's copy_in all-reduces (one a cell and step, less cell 0
+    at step 0, whose input needs no gradient) and every all_reduce: those,
+    the clip's norm over the model group and the replicated gradients'
+    mean (the head; D's too), and with more than one data replica the
+    finite-loss decision, the shards' gradient mean and the metrics (the
+    GAN: D's decision too)."""
+    mc = cfg.model
+    per_pass = len(mc.hidden_dims) * (mc.input_frames + mc.output_frames - 1)
+    gan = mc.family == "gan"
+    twice = gan and cfg.training.gan_step_impl == "default"
+    copies = per_pass - 1
+    dp = data > 1
+    reduces = copies + 2 + 3 * dp + ((1 + dp) if gan else 0)
+    return dict(gather_h=per_pass * (2 if twice else 1), copy_in=copies,
+                all_reduce=reduces)
+
+
+def tp_setup(seed, runs=TP_RUNS, data=1):
+    """label -> what a rank needs to run one of ``runs`` at ``data`` data
+    replicas: the seeded canonical initial state dicts, the global batches
+    and draws (numpy)."""
+    setup = {}
+    for label, name, dtype_name, batch, tf_prob, cuts in runs:
+        cfg = tp_config(name, dtype_name, batch)
+        mc = cfg.model
+        size = cfg.data.synthetic_image_size
+        scan = mc.input_frames + mc.output_frames - 1
+        init = {"model": flax_to_state_dict(nowcast_params(cfg, seed))}
+        if mc.family == "gan":
+            init["disc"] = flax_to_state_dict(disc_params(cfg, seed + 1))
+        ds = SyntheticSequenceDataset(TP_STEPS * batch, mc.input_frames,
+                                      mc.output_frames, size, seed=seed)
+        gen = torch.Generator().manual_seed(seed)
+        batches = list(batch_iterator(ds, batch))
+        setup[label] = dict(
+            name=name, dtype=dtype_name, batch=batch, cuts=cuts, init=init,
+            batches=batches, expect=tp_expected_collectives(cfg, data),
+            draws=[(torch.rand((scan, batch), generator=gen) < tf_prob
+                    ).numpy() if tf_prob > 0 else None for _ in batches])
+    return setup
+
+
+def tp_count_all_reduce():
+    """Wrap torch.distributed.all_reduce (the port calls it through the
+    module) to count its calls; returns the counter."""
+    import torch.distributed as dist
+    count = {"n": 0}
+    inner = dist.all_reduce
+
+    def all_reduce(*args, **kwargs):
+        count["n"] += 1
+        return inner(*args, **kwargs)
+    dist.all_reduce = all_reduce
+    return count
+
+
+def tp_drive(entry, group, pos, count=None):
+    """One TP run on this process: under ``group`` (MeshGroups) this rank's
+    shards of the canonical state on its data replica's rows, else one
+    process on the global batch; TP_STEPS steps, each between the counts
+    set to 0 and read: K1 (without z, with z), the cells' all-gathers and
+    all-reduces, every all_reduce (``count``); step ms; peak allocated
+    memory. Returns, on the CPU: metrics, counts, times, the canonical
+    Adam moments after step 1, the canonical params after the steps, and
+    this rank's replicated params."""
+    from pl_convlstm_gan_tpu_torch.parallel import tp_collectives as tpc
+    from pl_convlstm_gan_tpu_torch.parallel.tensor_parallel import (
+        canonical_state_dict, is_cell_param, shard_state_dict)
+    cfg = tp_config(entry["name"], entry["dtype"], entry["batch"])
+    tc = cfg.training
+    dev = torch.device(DEVICE)
+    tp_group = None if group is None else group.model
+    model = build_model(cfg, tp_group=tp_group)
+    init = entry["init"]["model"]
+    model.load_state_dict(init if group is None else shard_state_dict(
+        init, pos.model_index, pos.model_count))
+    model.to(dev).train()
+    names = [n for n, _ in model.named_parameters()]
+    lr, d_lr = tc.learning_rate, tc.disc_learning_rate or tc.learning_rate
+    if cfg.model.family == "gan":
+        disc = build_discriminator(cfg)
+        disc.load_state_dict(entry["init"]["disc"])
+        disc.to(dev).train()
+        state = GANTrainState(model, disc, make_optimizer(model),
+                              make_optimizer(disc))
+        opts = {"g": state.gen_optimizer, "d": state.disc_optimizer}
+        run = lambda b, d: gan_train_step(
+            state, b, lr, d_lr, d, tc.lambda_adv, tc.lambda_l1,
+            tc.label_smoothing, tc.grad_clip_norm, tc.gan_step_impl, group)
+    else:
+        state = TrainState(model, make_optimizer(model), 0)
+        opts = {"g": state.optimizer}
+        run = lambda b, d: forecaster_train_step(
+            state, b, lr, d, tc.grad_clip_norm, group)
+
+    def moments():
+        out = {}
+        for key, opt in opts.items():
+            sd = opt.state_dict()
+            if key == "g" and group is not None:
+                sd = canonical_state_dict(sd, tp_group, names)
+            out[key] = {i: {m: st[m].detach().to("cpu", copy=True)
+                            for m in ("exp_avg", "exp_avg_sq")}
+                        for i, st in sd["state"].items()}
+        return out
+
+    from pl_convlstm_gan_tpu_torch.data import _process_slice
+    rows = np.arange(entry["batch"])
+    if group is not None:
+        rows = _process_slice(rows, pos.data_index, pos.data_count)
+    batches = [to_device(tuple(np.ascontiguousarray(a[rows]) for a in bt),
+                         dev) for bt in entry["batches"]]
+    draws = [None if d is None else torch.from_numpy(
+        np.ascontiguousarray(d[:, rows])).to(dev) for d in entry["draws"]]
+    metrics, counts, times, peaks, first = [], [], [], [], None
+    for i, (batch, d) in enumerate(zip(batches, draws)):
+        reset_counts()
+        tpc.reset_counts()
+        if count is not None:
+            count["n"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics.append(run(batch, d))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        counts.append(dict(
+            convlstm_cell_fwd=convlstm_cell_fwd.launches,
+            convlstm_cell_fwd_save_z=convlstm_cell_fwd.launches_z,
+            gather_h=tpc.gather_h.calls, copy_in=tpc.copy_in.calls,
+            all_reduce=None if count is None else count["n"]))
+        if i == 0:
+            first = moments()
+    sd = model.state_dict()
+    canonical = (sd if group is None
+                 else canonical_state_dict(sd, tp_group))
+    replicated = {k: v.cpu() for k, v in sd.items() if not is_cell_param(k)}
+    params = {"g": {k: v.cpu() for k, v in canonical.items()}}
+    if cfg.model.family == "gan":
+        params["d"] = {k: v.cpu() for k, v in state.disc.state_dict().items()}
+        replicated.update({f"disc.{k}": v for k, v in params["d"].items()})
+    return dict(metrics=metrics, counts=counts, step_ms=times,
+                peak_gb=max(peaks), moments_step1=first, params=params,
+                replicated=replicated)
+
+
+def tp_trainer_round_trip(work):
+    """The TP trainer (every rank): tp_nowcast_128 cut to TP_TRAINER, one
+    epoch, canonical checkpoints in ``<work>/tp_trainer``; then the trained
+    TP model's prediction of one request (B 2, seed 0) under no_grad.
+    Returns the prediction (CPU), the history and the seconds."""
+    from pl_convlstm_gan_tpu_torch.train import SequenceTrainer
+    cfg = load_config("tp_nowcast_128")
+    cfg.data.synthetic_num_sequences = TP_TRAINER["sequences"]
+    cfg.training.epochs = TP_TRAINER["epochs"]
+    cfg.training.batch_size = TP_TRAINER["batch"]
+    cfg.output.output_dir = os.path.join(work, "tp_trainer")
+    cfg.validate(training=True)
+    t0 = time.perf_counter()
+    trainer = SequenceTrainer(config=cfg)
+    history = trainer.train()
+    seconds = time.perf_counter() - t0
+    frames = torch.from_numpy(tp_request(cfg)).to(DEVICE)
+    trainer.model.eval()
+    with torch.no_grad():
+        pred = trainer.model(frames)
+    return dict(pred=pred.cpu(), history=history, seconds=seconds)
+
+
+def tp_request(cfg):
+    mc = cfg.model
+    size = cfg.data.synthetic_image_size
+    return np.random.default_rng(SEED).random(
+        (TP_TRAINER["batch"], mc.input_frames, mc.in_channels, size, size),
+        dtype=np.float32)
+
+
+def tp_worker(rank, world, port, work, backend, labels):
+    """A rank of the tp phases (``chip_smoke.py --tp-worker ...``): joins
+    the process group through the port's bootstrap (torchrun's variables,
+    ``backend``; NCCL: each rank on cuda:rank), cuts it into world /
+    TP_MODEL data x TP_MODEL model with ``parallel.mesh.train_group``,
+    checks that the kernel cell is refused under TP before any launch,
+    drives the named runs of ``<work>/setup.pt`` (and, where ``labels``
+    holds "trainer", the trainer round trip) and saves the records to
+    ``<work>/<backend>_rank<rank>.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK=str(rank if backend == "nccl" else 0))
+    import torch.distributed as dist
+    from pl_convlstm_gan_tpu_torch.models import ConvLSTMForecaster
+    from pl_convlstm_gan_tpu_torch.parallel.mesh import (
+        maybe_init_distributed, mesh_position, train_group)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not maybe_init_distributed(backend=backend):
+        raise RuntimeError("tp worker: no process group")
+    setup = torch.load(os.path.join(work, "setup.pt"), weights_only=False)
+    labels = labels.split(",")
+    first = setup[next(k for k in labels if k != "trainer")]
+    group = train_group(tp_config(first["name"], first["dtype"],
+                                  first["batch"]), DEVICE)
+    pos = mesh_position(TP_MODEL)
+    if (dist.get_world_size(group.model), pos.data_count) != (
+            TP_MODEL, world // TP_MODEL):
+        raise RuntimeError(f"tp worker: layout {tuple(pos)}")
+    reset_counts()
+    try:
+        ConvLSTMForecaster((256,), convlstm_impl="kernel",
+                           tp_group=group.model)
+        raise AssertionError("tp: the kernel cell was not refused under TP")
+    except ValueError as e:
+        refused = str(e)
+    expect_counts("tp: kernel cell refused", 0, 0, 0)
+    count = tp_count_all_reduce()
+    out = {"position": tuple(pos), "refused": refused}
+    for label in labels:
+        if label == "trainer":
+            out[label] = tp_trainer_round_trip(work)
+        else:
+            out[label] = tp_drive(setup[label], group, pos, count)
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(work, f"{backend}_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_compare(label, entry, ranks, ref):
+    """The ranks' records against the one-process record (see TP_RUNS,
+    TP_MOMENT_TOL and TP_PARAM_TOL): exact counts a step on every rank (no
+    K1, the collectives of tp_expected_collectives), no skipped step, the
+    same metrics and canonical params on every rank, the replicated params
+    bit for bit; then losses within TRAIN_TOL, the params after the steps
+    within TP_PARAM_TOL (with the same measure of the unchanged init, which
+    must exceed it) and Adam's moments after step 1 within TP_MOMENT_TOL
+    (float32 only with more than one data replica: in bfloat16 each replica
+    would round its block's gradient, dp_grad_tol's term). Returns the
+    errors, the bounds, the init's readings, the element farthest from one
+    process, and the failures (the caller raises after recording them)."""
+    dtype_name = entry["dtype"]
+    want = dict(convlstm_cell_fwd=0, convlstm_cell_fwd_save_z=0,
+                **entry["expect"])
+    for r, rec in enumerate(ranks):
+        if rec["counts"] != [want] * TP_STEPS:
+            raise AssertionError(f"tp {label} rank {r}: counts "
+                                 f"{rec['counts']}, expected {want} a step")
+        if any(m["skipped"] for m in rec["metrics"]):
+            raise AssertionError(f"tp {label} rank {r} skipped")
+    a = ranks[0]
+    for b in ranks[1:]:
+        if a["metrics"] != b["metrics"]:
+            raise AssertionError(f"tp {label}: the ranks' metrics differ")
+        for key in a["replicated"]:
+            if not torch.equal(a["replicated"][key], b["replicated"][key]):
+                raise AssertionError(f"tp {label}: replicated {key} "
+                                     f"differs between the ranks")
+        for side in a["params"]:
+            for k, v in a["params"][side].items():
+                if not torch.equal(v, b["params"][side][k]):
+                    raise AssertionError(f"tp {label}: canonical {k} "
+                                         f"differs between the ranks")
+    if dtype_name != "float32" and len(ranks) > TP_MODEL:
+        raise ValueError(f"tp {label}: bfloat16 with more than one data "
+                         f"replica has no moment bound here")
+    keys = [k for k in ref["metrics"][0] if k != "skipped"]
+    errs = {"loss": max(abs(g[k] - w[k]) for g, w in zip(
+        a["metrics"], ref["metrics"]) for k in keys)}
+    tol = {"loss": TRAIN_TOL["loss"][dtype_name]}
+    init_reads, worst = {}, {}
+    starts = {"g": entry["init"]["model"], "d": entry["init"].get("disc")}
+    for side, ref_p in ref["params"].items():
+        p0 = starts[side]
+
+        def move_err(got):
+            d = torch.cat([(got[k] - p0[k]).flatten() for k in ref_p])
+            w = torch.cat([(v - p0[k]).flatten() for k, v in ref_p.items()])
+            return float((d - w).norm() / w.norm())
+
+        errs[f"param_{side}"] = move_err(a["params"][side])
+        init_reads[f"param_{side}"] = move_err(p0)
+        tol[f"param_{side}"] = TP_PARAM_TOL[dtype_name]
+        # the element farthest from one process, and its step-1 gradient
+        # as a share of its tensor's largest (mu = 0.1 g)
+        diff = {k: (a["params"][side][k] - v).abs().flatten()
+                for k, v in ref_p.items()}
+        k = max(diff, key=lambda k: float(diff[k].max()))
+        j = int(diff[k].argmax())
+        mu = ref["moments_step1"][side][list(ref_p).index(k)]["exp_avg"]
+        mu = mu.flatten().abs()
+        worst[side] = dict(tensor=k, abs_err=float(diff[k][j]),
+                           tensor_max=float(ref_p[k].abs().max()),
+                           grad_share=float(mu[j] / mu.max()))
+    for side, got in a["moments_step1"].items():
+        ref_m = ref["moments_step1"][side]
+        for m in ("exp_avg", "exp_avg_sq"):
+            g = [got[i][m] for i in sorted(ref_m)]
+            w = [ref_m[i][m] for i in sorted(ref_m)]
+            key = f"{m}_{side}"
+            if dtype_name == "float32":      # per tensor, of its largest
+                errs[key] = max(float((x - y).abs().max() / y.abs().max())
+                                for x, y in zip(g, w))
+            else:                            # in norm over the model
+                gf = torch.cat([x.flatten() for x in g])
+                wf = torch.cat([y.flatten() for y in w])
+                errs[key] = float((gf - wf).norm() / wf.norm())
+            tol[key] = TP_MOMENT_TOL[dtype_name][m]
+    bad = [f"{key} error {err:.3e} > {tol[key]}" for key, err in errs.items()
+           if not (np.isfinite(err) and err <= tol[key])]
+    bad += [f"{key}: the unchanged init reads {v:.3e} <= {tol[key]}"
+            for key, v in init_reads.items() if not v > tol[key]]
+    return errs, tol, init_reads, worst, bad
+
+
+def tp_serve_checkpoint(work):
+    """One process serves the TP trainer's canonical best_model (in
+    ``work``): (the request, the plain path's prediction, K1/K2's and
+    their exact launch counts)."""
+    ckpt = os.path.join(work, "tp_trainer", "best_model")
+    cfg = load_config("tp_nowcast_128")
+    cfg.model.rollout_impl = "torch"
+    plain = load_predictor(cfg, ckpt)
+    kernel = load_predictor(load_config("tp_nowcast_128"), ckpt)  # auto
+    frames = torch.from_numpy(tp_request(cfg)).cuda()
+    want = plain(frames)
+    reset_counts()
+    served = kernel(frames)
+    steps = cfg.model.input_frames + cfg.model.output_frames - 1
+    launches = expect_counts("tp trainer: served on K1/K2",
+                             steps * len(cfg.model.hidden_dims),
+                             cfg.model.output_frames)
+    return want, served, launches
+
+
+def tp_trainer_record(ranks, want, served, launches):
+    """The trainer round trip's checks: the ranks' predictions bit-equal,
+    the TP model's against one process serving its checkpoint (plain), and
+    K1/K2 against plain."""
+    # PATH_TOL's bfloat16 atol is 4 ulps of outputs below MAX_OUTPUT; the
+    # trained model's outputs may reach a higher binade, where 4 ulps are
+    # 4 * 2^(e - 7) for outputs in [2^e, 2^(e+1))
+    top = float(want.abs().max())
+    atol = max(PATH_TOL["bfloat16"][0],
+               4 * 2.0 ** (np.floor(np.log2(top)) - 7))
+    rtol = PATH_TOL["bfloat16"][1]
+    tr = ranks[0]["trainer"]
+    if any(not torch.equal(tr["pred"], r["trainer"]["pred"])
+           for r in ranks[1:]):
+        raise AssertionError("tp trainer: the ranks' predictions differ")
+    return dict(
+        sequences=TP_TRAINER["sequences"], epochs=TP_TRAINER["epochs"],
+        global_batch=TP_TRAINER["batch"], seconds=tr["seconds"],
+        train_loss=tr["history"]["total_loss"],
+        val_l1=tr["history"]["val_l1"],
+        tp_vs_one_process_plain=check_close(
+            "tp trainer: TP model against one process (plain)",
+            tr["pred"], want.cpu(), atol, rtol),
+        kernel_vs_plain=check_close(
+            "tp trainer: one process on K1/K2 against plain", served, want,
+            atol, rtol),
+        served_launches=launches, max_abs_output=top, tol=[atol, rtol])
+
+
+def phase_tp(seed, backend="gloo", runs=TP_RUNS, layouts=None):
+    """``runs`` in each of ``layouts`` (world -> the labels it runs, "trainer"
+    for the trainer round trip; default: every run and the trainer at
+    TP_WORLD = data 1 x model 2) over ``backend``, each against one
+    process's run on the same global batch (tp_compare). Over gloo the
+    ranks share the one card (NCCL refuses two ranks on one GPU): no
+    scaling numbers. Over NCCL (``--tp-nccl``) each rank has a GPU. The
+    trainer round trip: the TP trainer's canonical best_model served by
+    one process (load_predictor) on the plain path against the TP model's
+    own prediction of the same request, and on K1/K2 against the plain
+    path, with exact launch counts."""
+    layouts = layouts or {TP_WORLD: (*[r[0] for r in runs], "trainer")}
+    refs = {}
+    for label, entry in tp_setup(seed, runs).items():   # one process
+        refs[label] = tp_drive(entry, None, None)
+        torch.cuda.empty_cache()
+    rec = dict(backend=backend, steps=TP_STEPS, layouts={})
+    failures = []
+    for world, labels in layouts.items():
+        data = world // TP_MODEL
+        setup = tp_setup(seed, [r for r in runs if r[0] in labels], data)
+        trainer = "trainer" in labels
+        with tempfile.TemporaryDirectory() as work:
+            torch.save(setup, os.path.join(work, "setup.pt"))
+            ranks, seconds = launch_ranks(
+                "--tp-worker", work, world,
+                [backend, ",".join([*setup, *(["trainer"] * trainer)])],
+                backend, TP_TIMEOUT)
+            served = tp_serve_checkpoint(work) if trainer else None
+        refused = {r["refused"] for r in ranks}
+        if len(refused) != 1 or "tensor parallelism requires the plain " \
+                "cell" not in ranks[0]["refused"]:
+            raise AssertionError(f"tp: kernel cell refusal {refused}")
+        out = dict(world=world, layout={"data": data, "model": TP_MODEL},
+                   seconds=seconds, kernel_cell_refused=ranks[0]["refused"],
+                   runs={})
+        for label, entry in setup.items():
+            errs, tol, init_reads, worst, bad = tp_compare(
+                label, entry, [r[label] for r in ranks], refs[label])
+            failures += [f"tp {label} at world {world}: {b}" for b in bad]
+            run = dict(
+                config=entry["name"], dtype=entry["dtype"],
+                global_batch=entry["batch"], layout=out["layout"],
+                cuts=entry["cuts"] + [f"depth: {TP_STEPS} steps"],
+                collectives_per_step=entry["expect"],
+                launches_per_step_per_rank={"convlstm_cell_fwd": 0,
+                                            "convlstm_cell_fwd_save_z": 0},
+                errors=errs, tol=tol, unchanged_init_reads=init_reads,
+                worst_param_element=worst,
+                peak_gb_per_rank=[r[label]["peak_gb"] for r in ranks],
+                peak_gb_one_process=refs[label]["peak_gb"],
+                step_ms_per_rank=[r[label]["step_ms"] for r in ranks],
+                step_ms_one_process=refs[label]["step_ms"],
+                scaling=("no scaling: one card" if backend == "gloo"
+                         else f"{world} GPUs against one"))
+            say(phase="tp_run", backend=backend, **run)
+            out["runs"][label] = run
+        if trainer:
+            out["trainer"] = tp_trainer_record(ranks, *served)
+        say(phase="tp", backend=backend,
+            **{k: v for k, v in out.items() if k != "runs"})
+        rec["layouts"][world] = out
+    if failures:
+        raise AssertionError("tp: " + "; ".join(failures))
+    return rec
+
+
+# TP over NCCL, one rank a GPU (``chip_smoke.py --tp-nccl``, on four GPUs;
+# not part of the one-card run): phase_tp with these runs and layouts.
+# tp_nowcast_128 at full width at the global batch 4 (one process on one
+# card, the reference, holds ~42 GB at B 4; the config's 8 does not fit
+# it), at data 1 x model 2 on two GPUs (bf16 as written, and f32) and at
+# data 2 x model 2 on four (f32: in bf16 each data replica rounds its
+# block's gradient, for which tp_compare has no moment bound), each against
+# one process on cuda:0: TP's only scaling numbers.
+TP_NCCL_RUNS = (
+    ("tp_nowcast_128_b4", "tp_nowcast_128", "bfloat16", 4, 0.5,
+     ["training.batch_size 8 -> 4 (the one-process reference fits one "
+      "card)"]),
+    ("tp_nowcast_128_f32_b4", "tp_nowcast_128", "float32", 4, 0.0,
+     ["precision.compute_dtype bfloat16 -> float32",
+      "training.batch_size 8 -> 4"]),
+)
+TP_NCCL_LAYOUTS = {2: ("tp_nowcast_128_b4", "tp_nowcast_128_f32_b4"),
+                   4: ("tp_nowcast_128_f32_b4",)}
+
+
+def tp_nccl_main() -> int:
+    """``chip_smoke.py --tp-nccl``: phase_tp over NCCL on four GPUs, then
+    each card's name and power limit, and the device line."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke --tp-nccl: needs four CUDA devices",
+              file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say(phase="env", python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count())
+    phase_tp(SEED, "nccl", TP_NCCL_RUNS, TP_NCCL_LAYOUTS)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                    trainer, gans, gan_trainer, gens, gen_trainer, taps,
-                   remat, dp):
+                   remat, dp, tp):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
@@ -2505,6 +3092,12 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
     nccl = dp["nccl"]
     gan_k1z[dp["runs"][nccl["config"]]["dtype"]][
         f"dp_nccl_{nccl['config']}_step"] = nccl["launches_per_step"][1]
+    # the tp phase: K1 is refused under TP (the plain cell), 0 a step
+    for label, r in tp["layouts"][TP_WORLD]["runs"].items():
+        n = r["launches_per_step_per_rank"]
+        gan_k1[r["dtype"]][f"{label}_step_per_rank"] = n["convlstm_cell_fwd"]
+        gan_k1z[r["dtype"]][f"{label}_step_per_rank"] = \
+            n["convlstm_cell_fwd_save_z"]
     weights = [1, n_cells - 1]
 
     def gen_mix(recs):
@@ -2591,6 +3184,12 @@ def main() -> int:
         rank, world, port, work, backend, names = sys.argv[2:8]
         return dp_worker(int(rank), int(world), int(port), work, backend,
                          names)
+    if sys.argv[1:2] == ["--tp-worker"]:      # a rank of the tp phases
+        rank, world, port, work, backend, labels = sys.argv[2:8]
+        return tp_worker(int(rank), int(world), int(port), work, backend,
+                         labels)
+    if sys.argv[1:2] == ["--tp-nccl"]:        # TP over NCCL on 4 GPUs
+        return tp_nccl_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
@@ -2673,11 +3272,13 @@ def main() -> int:
         gen_trainer = phase_generator_trainer(tmp, SEED)
     remat = phase_remat(SEED)
     dp = phase_dp(SEED)
+    tp = phase_tp(SEED)
     taps = phase_tap_structure()
 
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
-        gans, gan_trainer, gens, gen_trainer, taps, remat, dp)}), flush=True)
+        gans, gan_trainer, gens, gen_trainer, taps, remat, dp, tp)}),
+        flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

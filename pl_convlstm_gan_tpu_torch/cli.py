@@ -48,6 +48,15 @@ results and writes the outputs:
         --config dp_v5e16 --mode train [--resume]
     torchrun --nproc_per_node 2 -m pl_convlstm_gan_tpu_torch \\
         --config ci_smoke_seq --mode train --device cpu
+
+Tensor parallelism (``mesh.model_axis`` > 1, the sequence families): the
+trainers cut the world into data and model groups (``parallel/mesh.py``)
+and shard every ConvLSTM cell over the model group; train and eval run on
+every rank, checkpoints are canonical, so predict and stream (rank 0, one
+process) read them as any other:
+
+    torchrun --nproc_per_node 2 -m pl_convlstm_gan_tpu_torch \\
+        --config tp_nowcast_128 --mode train [--resume]
 """
 from __future__ import annotations
 

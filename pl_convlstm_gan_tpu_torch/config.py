@@ -14,10 +14,12 @@ with the port's meaning (``convlstm_cell_impl``): ``pallas`` runs the cells
 on the hand-written CUDA kernel K1 (in training: K1 writing z and the custom
 backward, ``ops.kernels.convlstm_kernel.ConvLSTMCellFn``); ``xla`` and
 ``auto`` run the plain PyTorch step. ``validate(training=True)`` refuses the
-training settings the port has not ported yet (TP, the frames source,
+training settings the port has not ported yet (the frames source,
 grain), each naming its ROADMAP item. ``mesh.data_axis`` is the number of
-data-parallel ranks (0: the world size); ``parallel.mesh.data_group``
-holds it against the process group the run was launched with.
+data-parallel ranks (0: the world size, over ``mesh.model_axis`` under
+tensor parallelism) and ``mesh.model_axis`` the ranks that shard each
+ConvLSTM cell's channels; ``parallel.mesh`` holds both against the process
+group the run was launched with.
 """
 from __future__ import annotations
 
@@ -306,8 +308,6 @@ class Config:
         """The training settings the port does not run yet, each refused with
         the ROADMAP item that ports it."""
         refusals = [
-            (self.mesh.model_axis > 1,
-             "mesh.model_axis > 1: tensor-parallel training is ROADMAP A10"),
             (self.data.source == "frames",
              "data.source 'frames': the on-disk frames source is ROADMAP A6 "
              "(left)"),

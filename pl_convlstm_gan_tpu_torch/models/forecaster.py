@@ -29,6 +29,13 @@ writes: the backward launches K1 with z again for every cell and step, and
 ``save_z`` is refused there as JAX refuses it for its Pallas cell. The packed
 weights are made once per forward pass, outside the checkpointed steps. The
 step draws no random numbers, so no RNG state is kept for the recompute.
+
+``tp_group`` (a model group of n ranks; ``parallel/mesh.py``) shards every
+cell's channels over the group (``models/layers.ConvLSTMCell``): each cell
+carries the full h and this rank's c [..., F/n], and gathers its new h once
+a step; the full h goes to the next cell, to the head and to the cell's own
+next step. The head stays replicated, so every rank of the group computes
+the same predictions. Every hidden width must divide by n.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -79,13 +87,15 @@ class _Core(nn.Module):
     """The per-step modules, named as in the flax tree (``core.cell_<i>``,
     ``core.head``) so that state_dict keys mirror the flax params."""
 
-    def __init__(self, in_channels, hidden_dims, kernel_size, dtype, impl):
+    def __init__(self, in_channels, hidden_dims, kernel_size, dtype, impl,
+                 tp_group=None):
         super().__init__()
         cin = in_channels
         self.n_cells = len(hidden_dims)
         for i, feat in enumerate(hidden_dims):
-            self.add_module(f"cell_{i}", ConvLSTMCell(cin, feat, kernel_size,
-                                                      impl=impl, dtype=dtype))
+            self.add_module(f"cell_{i}", ConvLSTMCell(
+                cin, feat, kernel_size, impl=impl, dtype=dtype,
+                tp_group=tp_group))
             cin = feat
         self.head = Conv2dTorch(cin, in_channels, (3, 3), padding=1,
                                 dtype=dtype)
@@ -102,8 +112,14 @@ class ConvLSTMForecaster(nn.Module):
                  in_channels: int = 1, kernel_size: int = 3,
                  dtype: Optional[torch.dtype] = None,
                  convlstm_impl: str = "torch", remat: bool = False,
-                 remat_policy: str = ""):
+                 remat_policy: str = "", tp_group=None):
         super().__init__()
+        n_tp = 1 if tp_group is None else dist.get_world_size(tp_group)
+        bad = [f for f in hidden_dims if f % n_tp]
+        if bad:
+            raise ValueError(f"hidden_dims {bad} not divisible by the "
+                             f"{n_tp} ranks of the model group")
+        self.n_tp = n_tp
         context_fn = remat_context_fn(remat_policy)
         if remat and remat_policy == "save_z" and convlstm_impl == "kernel":
             raise ValueError(
@@ -123,7 +139,7 @@ class ConvLSTMForecaster(nn.Module):
         self.dtype = dtype
         self.convlstm_impl = convlstm_impl
         self.core = _Core(in_channels, self.hidden_dims, kernel_size, dtype,
-                          convlstm_impl)
+                          convlstm_impl, tp_group)
 
     def forward(self, frames: torch.Tensor, targets: torch.Tensor | None = None,
                 teacher_draws: torch.Tensor | None = None) -> torch.Tensor:
@@ -156,7 +172,8 @@ class ConvLSTMForecaster(nn.Module):
 
         zeros = lambda f: torch.zeros((b, hgt, wid, f), dtype=cdtype,
                                       device=frames.device)
-        states = [(zeros(f), zeros(f)) for f in self.hidden_dims]
+        # the full h and this rank's c (all of it without a model group)
+        states = [(zeros(f), zeros(f // self.n_tp)) for f in self.hidden_dims]
         prev_out = None       # set by the head at step t_in - 1, read after
         cells = self.core.cells()
         packed = [cell.pack(cdtype) for cell in cells]

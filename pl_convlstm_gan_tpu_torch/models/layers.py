@@ -12,12 +12,15 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.convlstm import (convlstm_precompute_x, convlstm_step,
-                            convlstm_step_precomputed, pack_step_weight)
+                            convlstm_step_precomputed, convlstm_step_tp,
+                            pack_step_weight)
 from ..ops.nn import conv2d_nhwc_f32, torch_init_bound
 from ..ops.pixel_shuffle import pixel_shuffle
+from ..parallel.tensor_parallel import local_shard, shard_cell_params
 
 
 def _init_uniform(param: torch.Tensor, fan_in: int) -> None:
@@ -57,20 +60,46 @@ class Conv2dTorch(nn.Module):
 class ConvLSTMCell(nn.Module):
     """One ConvLSTM cell: weight [4F, Cin+F, K, K] (OIHW), bias [4F], gate order
     i|f|o|g, input channels ordered concat(x, h). ``impl`` picks the plain step
-    ('torch') or the fused CUDA kernel ('kernel')."""
+    ('torch') or the fused CUDA kernel ('kernel').
+
+    ``tp_group`` (a model group of n ranks) shards the cell's channels
+    (``parallel/tensor_parallel.py``): the parameters are this rank's
+    blocks of the shard-major layout, weight [4F/n, Cin+F, K, K] and bias
+    [4F/n] (marked ``tp_sharded``), sliced from the full init that every
+    rank draws from the same generator state, so a TP model starts from the
+    weights of one process. The forward then takes the full h and this
+    rank's c [..., F/n] and returns the full h' (one all-gather) and the
+    local c' (``ops.convlstm.convlstm_step_tp``). The kernel cell computes
+    the full width's gates and is refused, as the JAX package refuses its
+    Pallas cell under tensor parallelism."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 impl: str = "torch", dtype: Optional[torch.dtype] = None):
+                 impl: str = "torch", dtype: Optional[torch.dtype] = None,
+                 tp_group=None):
         super().__init__()
         cin = in_features + features
         self.impl = impl
         self.dtype = dtype
-        self.weight = nn.Parameter(
-            torch.empty(4 * features, cin, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.empty(4 * features))
+        self.tp_group = tp_group
+        weight = torch.empty(4 * features, cin, kernel_size, kernel_size)
+        bias = torch.empty(4 * features)
         fan_in = kernel_size * kernel_size * cin
-        _init_uniform(self.weight.data, fan_in)
-        _init_uniform(self.bias.data, fan_in)
+        _init_uniform(weight, fan_in)
+        _init_uniform(bias, fan_in)
+        if tp_group is not None:
+            if impl == "kernel":
+                raise ValueError(
+                    "tensor parallelism requires the plain cell "
+                    "(convlstm_impl 'xla'/'auto'): the kernel cell computes "
+                    "the full width's gates")
+            n = dist.get_world_size(tp_group)
+            rank = dist.get_rank(tp_group)
+            weight, bias = (local_shard(t, rank, n).clone()
+                            for t in shard_cell_params(weight, bias, n))
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+        if tp_group is not None:
+            self.weight.tp_sharded = self.bias.tp_sharded = True
 
     def pack(self, dtype: torch.dtype):
         """K1's packed weight at the compute ``dtype`` (``pack_step_weight``;
@@ -80,6 +109,10 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, x, h, c, packed=None):
         dtype = self.dtype or x.dtype
+        if self.tp_group is not None:
+            return convlstm_step_tp(x.to(dtype), h.to(dtype), c.to(dtype),
+                                    self.weight.to(dtype),
+                                    self.bias.to(dtype), self.tp_group)
         return convlstm_step(x.to(dtype), h.to(dtype), c.to(dtype),
                              self.weight.to(dtype), self.bias.to(dtype),
                              impl=self.impl, packed=packed)

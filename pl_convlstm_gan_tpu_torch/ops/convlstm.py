@@ -24,6 +24,7 @@ import threading
 
 import torch
 
+from ..parallel.tp_collectives import copy_in, gather_h
 from .nn import conv2d_nhwc_f32, hwio_from_oihw
 
 Z_NAME = "convlstm_z"
@@ -69,6 +70,47 @@ def convlstm_step_torch(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         z = conv2d_nhwc_f32(xh, weight, bias)
     h_next, c_next = convlstm_gates(z, c.float())
     return h_next.to(x.dtype), c_next.to(x.dtype)
+
+
+# Tensor parallelism (``parallel/tensor_parallel.py``): a cell's 4*Ch conv
+# outputs are stored shard-major per gate ([i_0|f_0|o_0|g_0 | i_1|...]), so
+# that rank s of a model group of n holds the complete gates of hidden
+# channels [s*Ch/n, (s+1)*Ch/n) and runs the canonical gate math on them.
+
+def convlstm_gates_tp(z: torch.Tensor, c: torch.Tensor, n_shards: int):
+    """Gate math on the full shard-major z [..., 4*Ch] and the canonical c
+    [..., Ch] (the JAX package's ``convlstm_gates_tp``). Returns (h', c') in
+    the canonical channel order; a reshape away from ``convlstm_gates`` on
+    the un-permuted z."""
+    ch = c.shape[-1]
+    chl = ch // n_shards
+    zr = z.reshape(*z.shape[:-1], n_shards, 4, chl)
+    cr = c.reshape(*c.shape[:-1], n_shards, chl)
+    i = torch.sigmoid(zr[..., 0, :])
+    f = torch.sigmoid(zr[..., 1, :])
+    o = torch.sigmoid(zr[..., 2, :])
+    g = torch.tanh(zr[..., 3, :])
+    c_next = f * cr + i * g
+    h_next = o * torch.tanh(c_next)
+    return h_next.reshape(c.shape), c_next.reshape(c.shape)
+
+
+def convlstm_step_tp(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                     weight: torch.Tensor, bias: torch.Tensor, group):
+    """One ConvLSTM step of this rank of a model group: x [B,H,W,Cx] and the
+    full h [B,H,W,Ch] (both replicated over the group), this rank's c
+    [B,H,W,Ch/n], and its shards ``weight`` [4Ch/n, Cx+Ch, K, K] and
+    ``bias`` [4Ch/n]. The conv input, in float32, goes through ``copy_in``
+    (its gradient is summed over the group in float32, then rounded once to
+    the operands' type, as one process rounds the whole sum), the local
+    z [B,H,W,4Ch/n] is computed under ``Z_NAME`` (remat's ``save_z`` keeps
+    it) and the canonical gates run on it. Returns the full h' (one
+    all-gather, ``gather_h``) and the local c', in x's type."""
+    xh = copy_in(torch.cat([x, h], dim=-1).float(), group)
+    with checkpoint_name(Z_NAME):
+        z = conv2d_nhwc_f32(xh, weight, bias)
+    h_next, c_next = convlstm_gates(z, c.float())
+    return gather_h(h_next.to(x.dtype), group), c_next.to(x.dtype)
 
 
 def pack_step_weight(weight: torch.Tensor, impl: str = "torch"):

@@ -47,14 +47,16 @@ def compute_dtype(config: Config) -> torch.dtype:
 
 
 def build_model(config: Config, output_frames: int = 0,
-                lu_channels: int = 0):
+                lu_channels: int = 0, tp_group=None):
     """The (randomly initialised) module a config describes:
     ``ConvLSTMForecaster`` (families forecaster and gan; ``output_frames``
     overrides the rollout horizon, which the recurrent weights do not
     depend on) or ``Generator`` (family generator; ``lu_channels``, else
     ``model.lu_channels``, is the LUCC class count; ``input_grid_size`` is
     passed when ``target_grid_size`` is configured).
-    ``model.convlstm_impl`` picks the cells' step (``convlstm_cell_impl``)."""
+    ``model.convlstm_impl`` picks the cells' step (``convlstm_cell_impl``).
+    ``tp_group`` (training under tensor parallelism: the model group) shards
+    the forecaster's cells; serving builds the whole model."""
     mc = config.model
     dtype = torch.bfloat16 if compute_dtype(config) == torch.bfloat16 else None
     impl = convlstm_cell_impl(mc.convlstm_impl)
@@ -64,7 +66,7 @@ def build_model(config: Config, output_frames: int = 0,
             output_frames=output_frames or mc.output_frames,
             in_channels=mc.in_channels, kernel_size=mc.kernel_size,
             dtype=dtype, convlstm_impl=impl, remat=mc.remat,
-            remat_policy=mc.remat_policy)
+            remat_policy=mc.remat_policy, tp_group=tp_group)
     if mc.family != "generator":
         raise ValueError(f"Unknown model family: {mc.family!r}")
     sizing = {"scale_factor": mc.scale_factor}

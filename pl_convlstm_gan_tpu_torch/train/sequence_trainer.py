@@ -1,9 +1,8 @@
 """SequenceTrainer: training of the forecaster and GAN families, on one
 device or data-parallel over the ranks of a process group.
 
-Counterpart of the JAX package's ``train/sequence_trainer.py`` without its
-tensor-parallel branch (ROADMAP A10), which it refuses, with the other
-unported settings (the frames source, grain: ``Config.validate(training=
+Counterpart of the JAX package's ``train/sequence_trainer.py``; it refuses
+the unported settings (the frames source, grain: ``Config.validate(training=
 True)``). What it keeps:
 - synthetic moving-blob data, the seeded 70/15/15 split, shuffled batches
   per epoch (``data.py``), prefetched to the device;
@@ -31,6 +30,15 @@ True)``). What it keeps:
   its own columns, so a run at world N equals the run at world 1 with the
   same draws; eval sums each metric over the ranks before the host
   aggregation; rank 0 alone prints, writes checkpoints and the metrics;
+- tensor parallelism (``mesh.model_axis`` m > 1, under ``torchrun``): the
+  world cut model-minor into data and model groups (``parallel/mesh.py``),
+  every cell of the forecaster (of a GAN, the generator) channel-sharded
+  over the model group, the head and a GAN's discriminator replicated; the
+  ranks of a model group read the same rows and draws (those of their data
+  index), so the run equals one process's on the same global batch;
+  checkpoints are canonical (the shards gathered over the model group and
+  permuted back, written by rank 0) and restore into any layout, one
+  process included;
 - the best checkpoint (``best_model``), ``latest`` every
   ``save_model_interval`` epochs, resume (``training.resume_from``);
 - ``validate`` / ``evaluate_test`` (L1, SSIM, POD/FAR/CSI/HSS, sharpness);
@@ -41,6 +49,8 @@ Usage:
     SequenceTrainer(config=load_config("nowcast_128_pallas")).train()  # GPU
     SequenceTrainer(config=cfg, device="cpu").train()
     torchrun --nproc_per_node 8 -m pl_convlstm_gan_tpu_torch --config dp_v5e16
+    torchrun --nproc_per_node 2 -m pl_convlstm_gan_tpu_torch \
+        --config tp_nowcast_128
 """
 from __future__ import annotations
 
@@ -56,8 +66,9 @@ import torch.distributed as dist
 from ..config import Config, load_config
 from ..data import (SyntheticSequenceDataset, batch_iterator, eval_batches,
                     prefetch_to_device, split_dataset_random, to_device)
-from ..parallel.mesh import (broadcast_module, data_group, print0,
-                             rank_and_world)
+from ..parallel.mesh import (broadcast_module, mesh_position, print0,
+                             train_group)
+from ..parallel.tensor_parallel import canonical_state_dict, shard_state_dict
 from ..predict import build_discriminator, build_model, resolve_device
 from .checkpoint import CheckpointWriter, restore_checkpoint
 from .early_stopping import EarlyStopping
@@ -78,12 +89,18 @@ class SequenceTrainer:
             raise ValueError("SequenceTrainer trains the forecaster and GAN "
                              "families; the Generator trains with Trainer")
         self.device = resolve_device(device)
-        self.group = data_group(self.config, self.device)
-        self.rank, self.world = (rank_and_world() if self.group is not None
-                                 else (0, 1))
-        if self.group is not None:
-            print0(f"Data parallelism over {self.world} ranks "
-                   f"({dist.get_backend(self.group)})")
+        self.group = train_group(self.config, self.device)
+        self.tp = self.config.mesh.model_axis > 1
+        # this rank's data index and the data replicas (the rows it reads),
+        # and its place in the model group
+        (self.data_index, self.n_data, self.model_index,
+         self.n_model) = mesh_position(self.config.mesh.model_axis)
+        if self.tp:
+            print0(f"DPxTP layout: {{'data': {self.n_data}, 'model': "
+                   f"{self.n_model}}} ({dist.get_backend()})")
+        elif self.group is not None:
+            print0(f"Data parallelism over {self.n_data} ranks "
+                   f"({dist.get_backend()})")
         self.is_gan = self.config.model.family == "gan"
         self.output_dir = self.config.output.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
@@ -119,8 +136,8 @@ class SequenceTrainer:
     def _loader(self, dataset, epoch: int):
         it = batch_iterator(dataset, self.config.training.batch_size,
                             shuffle=True, seed=self.config.training.seed,
-                            epoch=epoch, process_index=self.rank,
-                            process_count=self.world)
+                            epoch=epoch, process_index=self.data_index,
+                            process_count=self.n_data)
         return prefetch_to_device(it, self.device)
 
     # ----------------------------------------------------------------- model
@@ -130,7 +147,8 @@ class SequenceTrainer:
         # here leaves the caller's random state alone
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(tc.seed)
-            model = build_model(self.config)
+            model = build_model(self.config, tp_group=(
+                self.group.model if self.tp else None))
         model.to(self.device)
         if self.is_gan:
             with torch.random.fork_rng(devices=[]):
@@ -156,7 +174,8 @@ class SequenceTrainer:
                            if tc.eval_thresholds else None)
         if tc.resume_from:
             self.restore(tc.resume_from)
-        # the replicas start from rank 0's state (one broadcast)
+        # the replicas start from rank 0's state (one broadcast; under TP
+        # the shards from the data group's rank 0)
         broadcast_module(torch.nn.ModuleList(
             [model, disc] if self.is_gan else [model]), self.group)
 
@@ -182,14 +201,14 @@ class SequenceTrainer:
         if dataset is None or len(dataset) == 0:
             return None
         bs = self.config.training.batch_size
-        row0 = self.rank * (bs // self.world)
+        row0 = self.data_index * (bs // self.n_data)
         self.model.eval()
         acc = [sum_over_ranks(forecaster_eval_step(
                    self.model, to_device(batch, self.device), n_valid,
                    self.thresholds, self.config.training.eval_sharpness,
                    row0), self.group)
-               for batch, n_valid in eval_batches(dataset, bs, self.rank,
-                                                  self.world)]
+               for batch, n_valid in eval_batches(dataset, bs, self.data_index,
+                                                  self.n_data)]
         self.model.train()
         return aggregate_sequence_eval(acc)
 
@@ -207,15 +226,15 @@ class SequenceTrainer:
         lr = self.scheduler.lr
         gen = torch.Generator().manual_seed(tc.seed * 100_003 + epoch)
         steps = mc.input_frames + mc.output_frames - 1
-        local = tc.batch_size // self.world
+        local = tc.batch_size // self.n_data
         metrics_acc = []
         for i, batch in enumerate(self._loader(self.train_dataset, epoch)):
             draws = None
             if tf_prob > 0:
-                # the global batch's draws; this rank's columns
+                # the global batch's draws; this data replica's columns
                 draws = torch.rand((steps, tc.batch_size), generator=gen)
-                draws = (draws < tf_prob)[:, self.rank * local:
-                                          (self.rank + 1) * local]
+                draws = (draws < tf_prob)[:, self.data_index * local:
+                                          (self.data_index + 1) * local]
             lrs = (lr, self.disc_lr) if self.is_gan else (lr,)
             m = self.train_step(self.state, batch, *lrs, draws,
                                 grad_clip_norm=tc.grad_clip_norm)
@@ -308,16 +327,37 @@ class SequenceTrainer:
 
     # ------------------------------------------------------------ checkpoint
     def _device_state_dict(self):
+        """The checkpoint's tensors, canonical: under TP the generator's
+        shards (params and Adam moments) gathered over the model group and
+        permuted back, on every rank (a collective; rank 0 writes)."""
         if self.is_gan:
             st = self.state
-            return {"gen_params": st.gen.state_dict(),
+            return {"gen_params": self._canonical(st.gen.state_dict()),
                     "disc_params": st.disc.state_dict(),
-                    "gen_opt_state": st.gen_optimizer.state_dict(),
+                    "gen_opt_state": self._canonical(
+                        st.gen_optimizer.state_dict(), True),
                     "disc_opt_state": st.disc_optimizer.state_dict(),
                     "step": st.step}
-        return {"params": self.model.state_dict(),
-                "opt_state": self.state.optimizer.state_dict(),
+        return {"params": self._canonical(self.model.state_dict()),
+                "opt_state": self._canonical(
+                    self.state.optimizer.state_dict(), True),
                 "step": self.state.step}
+
+    def _param_names(self):
+        return [n for n, _ in self.model.named_parameters()]
+
+    def _canonical(self, sd, optimizer=False):
+        if not self.tp:
+            return sd
+        return canonical_state_dict(
+            sd, self.group.model, self._param_names() if optimizer else None)
+
+    def _local(self, sd, optimizer=False):
+        """This rank's shards of a canonical state dict (under TP)."""
+        if not self.tp:
+            return sd
+        return shard_state_dict(sd, self.model_index, self.n_model,
+                                self._param_names() if optimizer else None)
 
     def _host_state(self, epoch: int, metric: float) -> Dict:
         return {"epoch": epoch, "metric": metric, "history": self.history,
@@ -337,15 +377,18 @@ class SequenceTrainer:
     def restore(self, path: str):
         self._ckpt_writer.wait()   # finalize any in-flight save of this path
         device_state, host_state = restore_checkpoint(path)
+        # checkpoints are canonical: under TP this rank's shards of them
         if self.is_gan:
             st = self.state
-            st.gen.load_state_dict(device_state["gen_params"])
+            st.gen.load_state_dict(self._local(device_state["gen_params"]))
             st.disc.load_state_dict(device_state["disc_params"])
-            st.gen_optimizer.load_state_dict(device_state["gen_opt_state"])
+            st.gen_optimizer.load_state_dict(
+                self._local(device_state["gen_opt_state"], True))
             st.disc_optimizer.load_state_dict(device_state["disc_opt_state"])
         else:
-            self.model.load_state_dict(device_state["params"])
-            self.state.optimizer.load_state_dict(device_state["opt_state"])
+            self.model.load_state_dict(self._local(device_state["params"]))
+            self.state.optimizer.load_state_dict(
+                self._local(device_state["opt_state"], True))
         self.state.step = int(device_state["step"])
         self.history = host_state["history"]
         self.best_metric = host_state.get("best_metric", host_state["metric"])

@@ -32,12 +32,13 @@ The scheduled-sampling draws are an argument (``teacher_draws`` [steps, B]
 bool; the trainer draws them from a ``torch.Generator``): ``jax.random``
 streams cannot be replayed in torch, so a test passes JAX's own draws.
 
-Data parallelism: every train step takes ``group``, a ``torch.distributed``
-process group (None: one process), as the JAX step bodies take
-``axis_name``, so one body owns the loss, the NaN-skip and the update on
-both paths (the trainers bind them to the data group;
-``parallel/train_parallel.py`` names the bound steps as the JAX package
-does).
+Parallel training: every train step takes ``group`` (None: one process), as
+the JAX step bodies take ``axis_name``, so one body owns the loss, the
+NaN-skip and the update on every path. The step reads it as
+``parallel.mesh.MeshGroups`` (``as_groups``): data parallelism alone is
+(world, None, world), and a bare process group means data parallelism over
+it (the trainers bind ``train_group``'s; ``parallel/train_parallel.py``
+names the bound steps as the JAX package does).
 Under a group each rank runs the step on its block of the global batch and
 - the finite-loss decision is global (``_global_ok``: an all-reduce of the
   ok flag with MIN, still one host decision; GAN: one for D, one for G), so
@@ -57,6 +58,20 @@ Under a group each rank runs the step on its block of the global batch and
   the global one.
 Explicit collectives, not ``DistributedDataParallel``: they are what
 ``pmean`` is, and they keep the one body.
+
+Tensor parallelism (``parallel/``): ``MeshGroups`` then has a model
+group, and the model's cells hold their shards (parameters marked ``tp_sharded``). Each rank of a model
+group runs the step on its data replica's block and computes the same loss
+(the cells' outputs are gathered every step and the head is replicated), so
+- the finite-loss decision and the metrics run over the data group alone
+  (with one data replica: none);
+- the shards' gradients are averaged over the data group, the replicated
+  parameters' (the head, a GAN's discriminator) over every rank: equal on
+  the ranks of a model group already, their mean keeps the replicas
+  bit-equal;
+- the clip's global norm is the whole logical gradient's: the squared norms
+  of the shards summed over the model group, each replicated gradient
+  counted once (``clip_by_global_norm_``).
 """
 from __future__ import annotations
 
@@ -72,6 +87,7 @@ from ..losses import (combined_loss, conservation_loss, contingency_counts,
                       l1_loss, point_supervision_sums, safe_ratio,
                       scores_from_counts, sharpness_sums, ssim_per_sample,
                       station_sq_err_sums, temporal_consistency_loss)
+from ..parallel.mesh import MeshGroups, as_groups
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -94,13 +110,23 @@ def make_optimizer(model: torch.nn.Module) -> torch.optim.Adam:
                             eps=ADAM_EPS)
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float
-                         ) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         sharded: Optional[Sequence[bool]] = None,
+                         model_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: g -> g / norm * max_norm when the
     global norm >= max_norm, else unchanged. Returns the norm (a tensor: no
-    host sync)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    host sync). The norm is the whole model's: the squared norms of the
+    shards (``sharded`` marks them) summed over ``model_group`` (one
+    all-reduce under tensor parallelism), plus the replicated gradients',
+    each counted once."""
+    sharded = sharded or [False] * len(grads)
+    sq = [torch.linalg.vector_norm(g).square() for g in grads]
+    shard_sq = sum((q for q, s in zip(sq, sharded) if s),
+                   torch.zeros((), device=sq[0].device)).reshape(1)
+    if model_group is not None and any(sharded):
+        dist.all_reduce(shard_sq, group=model_group)
+    norm = torch.sqrt(sum((q for q, s in zip(sq, sharded) if not s),
+                          shard_sq[0]))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -111,13 +137,14 @@ def _world(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def _global_ok(total: torch.Tensor, group=None) -> bool:
-    """Whether ``total`` is finite; under a group on every rank (an
+def _global_ok(total: torch.Tensor, groups: MeshGroups) -> bool:
+    """Whether ``total`` is finite; on every rank of the data group (an
     all-reduce of the flags with MIN), so that all ranks take one
-    decision. The host waits for the loss here."""
+    decision. The host waits for the loss here. The loss is the same on
+    the ranks of a model group."""
     ok = torch.isfinite(total.detach()).to(torch.float32).reshape(1)
-    if group is not None:
-        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+    if groups.data is not None:
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=groups.data)
     return bool(ok)
 
 
@@ -135,44 +162,55 @@ def _all_reduce_sum(tensors: Sequence[torch.Tensor], group
     return out
 
 
-def _reduced_grads(grads: Sequence[torch.Tensor], group
-                   ) -> List[torch.Tensor]:
-    """``grads`` averaged over the ranks of ``group`` (unchanged without
-    one), as ``pmean``."""
-    if group is None:
-        return list(grads)
-    world = _world(group)
-    return [g.div_(world) for g in _all_reduce_sum(grads, group)]
+def _reduced_grads(grads: Sequence[torch.Tensor], groups: MeshGroups,
+                   sharded: Sequence[bool]) -> List[torch.Tensor]:
+    """``grads`` averaged as ``pmean``: the shards (``sharded``) over the
+    data group, the replicated gradients over every rank (data parallelism
+    alone: every gradient over the world, one flat sum a dtype)."""
+    out = list(grads)
+    for shard, grp in ((True, groups.data), (False, groups.every)):
+        idx = [i for i, s in enumerate(sharded) if s == shard]
+        if grp is None or not idx:
+            continue
+        world = _world(grp)
+        for i, g in zip(idx, _all_reduce_sum([grads[i] for i in idx], grp)):
+            out[i] = g.div_(world)
+    return out
 
 
-def _mean_over(values: torch.Tensor, group) -> torch.Tensor:
-    """A float32 vector of metrics averaged over the ranks."""
-    if group is None:
+def _mean_over(values: torch.Tensor, groups: MeshGroups) -> torch.Tensor:
+    """A float32 vector of metrics averaged over the data group."""
+    if groups.data is None:
         return values
-    return _all_reduce_sum([values], group)[0] / _world(group)
+    return _all_reduce_sum([values], groups.data)[0] / _world(groups.data)
 
 
 def sum_over_ranks(metrics: Dict[str, tuple], group) -> Dict[str, tuple]:
-    """An eval step's {metric: (sum, weight)} summed over the ranks of
-    ``group`` (unchanged without one), one collective a dtype: each rank's
-    sums cover its block of the batch, so the totals are the global
-    batch's; the int64 contingency counts are summed as int64."""
-    if group is None:
+    """An eval step's {metric: (sum, weight)} summed over the ranks of the
+    data group of ``group`` (``as_groups``; unchanged without one), one
+    collective a dtype: each rank's sums cover its block of the batch, so
+    the totals are the global batch's; the int64 contingency counts are
+    summed as int64."""
+    data = as_groups(group).data
+    if data is None:
         return metrics
     keys = list(metrics)
-    summed = _all_reduce_sum([t for k in keys for t in metrics[k]], group)
+    summed = _all_reduce_sum([t for k in keys for t in metrics[k]], data)
     return {k: (summed[2 * i], summed[2 * i + 1]) for i, k in enumerate(keys)}
 
 
-def _adam_update(optimizer, params, grads, lr: float, grad_clip_norm: float
-                 ) -> None:
-    """Clip ``grads`` by their global norm (optax's rule), then one Adam
-    step of ``params`` at ``lr``; leaves no ``.grad`` behind."""
-    clip_by_global_norm_(grads, grad_clip_norm)
+def _adam_update(optimizer, params, grads, lr: float, grad_clip_norm: float,
+                 groups: MeshGroups) -> None:
+    """Average ``grads`` over ``groups`` (``_reduced_grads``), clip them by
+    their global norm (optax's rule), then one Adam step of ``params`` at
+    ``lr``; leaves no ``.grad`` behind."""
+    sharded = [getattr(p, "tp_sharded", False) for p in params]
+    grads = _reduced_grads(grads, groups, sharded)
+    clip_by_global_norm_(grads, grad_clip_norm, sharded, groups.model)
     for p, g in zip(params, grads):
         p.grad = g
-    for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+    for pg in optimizer.param_groups:
+        pg["lr"] = float(lr)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
 
@@ -222,22 +260,22 @@ def generator_train_step(state: TrainState, batch, lr: float, loss_cfg: Dict,
     backward is queued. Under ``group`` (data parallel, module docstring)
     ``batch`` is this rank's block of the global batch, and the update and
     the metrics are the global batch's."""
+    group = as_groups(group)
     params = list(state.model.parameters())
     state.optimizer.zero_grad(set_to_none=True)
     total, parts, pred, scale = generator_loss(state.model, batch, loss_cfg,
-                                               group)
+                                               group.data)
     total.backward()
     ok = _global_ok(total, group)
     if ok:
-        _adam_update(state.optimizer, params,
-                     _reduced_grads([p.grad for p in params], group), lr,
-                     grad_clip_norm)
+        _adam_update(state.optimizer, params, [p.grad for p in params], lr,
+                     grad_clip_norm, group)
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
     with torch.no_grad():
         se, cnt = station_sq_err_sums(pred, batch[3], batch[4], scale)
-        if group is not None:
-            se, cnt = _all_reduce_sum([se, cnt], group)
+        if group.data is not None:
+            se, cnt = _all_reduce_sum([se, cnt], group.data)
         rmse = torch.where(cnt > 0, torch.sqrt(se / cnt.clamp(min=1)), 0.0)
     names = ("total", "rmse", *parts)
     values = _mean_over(torch.stack([t.detach().float() for t in (
@@ -310,6 +348,7 @@ def forecaster_train_step(state: TrainState, batch, lr: float,
     is queued, so the host waits only for the forward. Under ``group``
     (data parallel, module docstring) ``batch`` and ``teacher_draws`` are
     this rank's block of the global batch's."""
+    group = as_groups(group)
     inputs, targets = batch
     params = list(state.model.parameters())
     state.optimizer.zero_grad(set_to_none=True)
@@ -317,9 +356,8 @@ def forecaster_train_step(state: TrainState, batch, lr: float,
     total.backward()
     ok = _global_ok(total, group)
     if ok:
-        _adam_update(state.optimizer, params,
-                     _reduced_grads([p.grad for p in params], group), lr,
-                     grad_clip_norm)
+        _adam_update(state.optimizer, params, [p.grad for p in params], lr,
+                     grad_clip_norm, group)
     state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
     total = _mean_over(total.detach().float().reshape(1), group)
@@ -379,6 +417,7 @@ def gan_train_step(state: GANTrainState, batch, g_lr: float, d_lr: float,
     if impl not in GAN_IMPLS:
         raise ValueError(f"Unknown gan_step_impl: {impl!r} (valid: "
                          f"{', '.join(GAN_IMPLS)})")
+    group = as_groups(group)
     inputs, targets = batch
     gen, disc = state.gen, state.disc
     g_params, d_params = list(gen.parameters()), list(disc.parameters())
@@ -393,8 +432,8 @@ def gan_train_step(state: GANTrainState, batch, g_lr: float, d_lr: float,
     d_grads = list(torch.autograd.grad(d_total, d_params))
     d_ok = _global_ok(d_total, group)
     if d_ok:
-        _adam_update(state.disc_optimizer, d_params,
-                     _reduced_grads(d_grads, group), d_lr, grad_clip_norm)
+        _adam_update(state.disc_optimizer, d_params, d_grads, d_lr,
+                     grad_clip_norm, group)
     del d_grads
 
     if impl == "default":
@@ -403,8 +442,8 @@ def gan_train_step(state: GANTrainState, batch, g_lr: float, d_lr: float,
     g_grads = list(torch.autograd.grad(g_total, g_params))
     g_ok = _global_ok(g_total, group)
     if g_ok:
-        _adam_update(state.gen_optimizer, g_params,
-                     _reduced_grads(g_grads, group), g_lr, grad_clip_norm)
+        _adam_update(state.gen_optimizer, g_params, g_grads, g_lr,
+                     grad_clip_norm, group)
     state.step += 1
     names = ("d_total", "g_total", *d_parts, *g_parts)
     values = _mean_over(torch.stack([t.detach().float() for t in (

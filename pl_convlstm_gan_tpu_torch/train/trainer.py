@@ -48,8 +48,8 @@ from ..config import Config, load_config
 from ..data import (FenheDataset, SyntheticDownscalingDataset, batch_iterator,
                     eval_batches, prefetch_to_device, split_dataset_by_year,
                     split_dataset_random, to_device)
-from ..parallel.mesh import (broadcast_module, data_group, print0,
-                             rank_and_world)
+from ..parallel.mesh import (broadcast_module, print0, rank_and_world,
+                             train_group)
 from ..predict import build_model, resolve_device
 from .checkpoint import CheckpointWriter, restore_checkpoint
 from .early_stopping import EarlyStopping
@@ -71,12 +71,12 @@ class Trainer:
                              f"{self.config.model.family!r} trains with "
                              f"SequenceTrainer")
         self.device = resolve_device(device)
-        self.group = data_group(self.config, self.device)
+        self.group = train_group(self.config, self.device)
         self.rank, self.world = (rank_and_world() if self.group is not None
                                  else (0, 1))
         if self.group is not None:
             print0(f"Data parallelism over {self.world} ranks "
-                   f"({dist.get_backend(self.group)})")
+                   f"({dist.get_backend()})")
         self.output_dir = self.config.output.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
         self.history = {

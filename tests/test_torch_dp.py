@@ -10,7 +10,7 @@ the JAX package:
 joins a gloo group through the port's own bootstrap
 (``parallel.mesh.maybe_init_distributed`` reading torchrun's variables),
 runs every case that ``setup.pt`` in the work dir holds on its block of
-each global batch with the port's DP steps, checks ``data_group``'s
+each global batch with the port's DP steps, checks ``train_group``'s
 refusals and the checkpoint writer at world 2, and saves what it got to
 ``rank<r>.pt``. The worker imports no JAX. The tests below start two
 workers with a free port and a timeout each, then compare.
@@ -138,19 +138,22 @@ def _worker(rank, world, port, work):
 
     from pl_convlstm_gan_tpu_torch.config import Config
     from pl_convlstm_gan_tpu_torch.parallel.mesh import (
-        data_group, maybe_init_distributed)
+        maybe_init_distributed, train_group)
     from pl_convlstm_gan_tpu_torch.train.checkpoint import (
         CheckpointWriter, restore_checkpoint)
     from pl_convlstm_gan_tpu_torch.train.steps import sum_over_ranks
 
-    # a trainer's data_group joins the group the variables name, with no
+    # a trainer's train_group joins the group the variables name, with no
     # maybe_init_distributed before it
     assert not dist.is_initialized()
     cfg = Config()
     cfg.training.batch_size = B
-    group = data_group(cfg, "cpu")
+    group = train_group(cfg, "cpu").data
     results = {"joined": (group is dist.group.WORLD, dist.get_backend(),
-                          dist.get_world_size())}
+                          dist.get_world_size()),
+               "train_group": tuple(None if g is None else
+                                    g is dist.group.WORLD
+                                    for g in train_group(cfg, "cpu"))}
     assert maybe_init_distributed(device="cpu")
     cases = torch.load(os.path.join(work, "setup.pt"), weights_only=False)
     results.update({name: _run_case(case, rank, world, group)
@@ -167,7 +170,7 @@ def _worker(rank, world, port, work):
         cfg = Config()
         cfg.mesh.data_axis, cfg.training.batch_size = axis, batch
         try:
-            refusals[f"{axis}/{batch}"] = data_group(cfg) is group
+            refusals[f"{axis}/{batch}"] = train_group(cfg).data is group
         except ValueError as e:
             refusals[f"{axis}/{batch}"] = str(e)
     results["refusals"] = refusals
@@ -509,7 +512,7 @@ def test_global_nan_skip_leaves_every_rank_unchanged(run):
 
 
 def test_data_group_refusals_and_one_checkpoint_writer(run):
-    """At world 2, data_group takes mesh.data_axis 0 and 2 and refuses 1 and
+    """At world 2, train_group takes mesh.data_axis 0 and 2 and refuses 1 and
     3 (a rank cannot sit out the collectives) and a global batch of 5; both
     ranks saved to one path, rank 0 alone wrote it (its epoch, 0, is what
     both ranks restore), and no pending directory is left."""
@@ -528,13 +531,22 @@ def test_data_group_refusals_and_one_checkpoint_writer(run):
 
 def test_data_group_joins_the_group_the_environment_names(run):
     """Each worker had torchrun's variables set and called no
-    maybe_init_distributed: data_group (a trainer's first call) joined the
-    world-2 gloo group itself and returned it, so a trainer built under
-    torchrun without the CLI trains data-parallel, never as one of two
-    independent full-batch runs."""
+    maybe_init_distributed: train_group (a trainer's first call) joined the
+    world-2 gloo group itself and returned it as its data group, so a
+    trainer built under torchrun without the CLI trains data-parallel, never
+    as one of two independent full-batch runs."""
     _, got, _ = run
     for r in range(WORLD):
         assert got[r]["joined"] == (True, "gloo", WORLD)
+
+
+def test_train_group_of_data_parallelism_is_world_none_world(run):
+    """A trainer's steps take train_group's MeshGroups: data parallelism
+    alone is (the world, no model group, the world), so the one step body
+    averages every gradient over the world, as the data group did."""
+    _, got, _ = run
+    for r in range(WORLD):
+        assert got[r]["train_group"] == (True, None, True)
 
 
 def test_eval_sums_over_ranks_keep_int64_counts_exact(run):

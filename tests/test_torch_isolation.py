@@ -48,7 +48,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "ops.kernels.tap_structure_kernel", "experiments.tap_structure",
                 "models.generator", "train.trainer", "ops.resize",
                 "ops.coords", "ops.pixel_shuffle", "parallel.mesh",
-                "parallel.train_parallel"):
+                "parallel.train_parallel", "parallel.tensor_parallel",
+                "parallel.tp_collectives"):
         assert f"pl_convlstm_gan_tpu_torch.{mod}" in modules
     code = _PROBE.format(blocked=BLOCKED, modules=modules,
                          chip_smoke=str(REPO / "chip_smoke.py"))

@@ -242,14 +242,19 @@ def test_save_z_on_the_kernel_cell_and_unknown_policies_are_refused():
 def test_remat_configs_validate_for_training_and_tp_stays_refused():
     """gan_256_single and dp_v5e16 (remat save_z; dp_v5e16 data_axis 0)
     pass validate(training=True) and build a remat save_z generator;
-    tp_nowcast_128 stays refused naming A10."""
+    tp_nowcast_128 (A10, ported) passes validate(training=True) too, and
+    stays refused by a one-process trainer, which has no second rank for
+    its model axis (ValueError naming torchrun; it trains under torchrun:
+    tests/test_torch_tp.py)."""
     for name in ("gan_256_single", "dp_v5e16"):
         cfg = load_config(name)
         cfg.validate(training=True)
         model = build_model(cfg)
         assert model.remat and model.remat_policy == "save_z"
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        load_config("tp_nowcast_128").validate(training=True)
+    cfg = load_config("tp_nowcast_128")
+    cfg.validate(training=True)
+    with pytest.raises(ValueError, match="2 ranks: launch with torchrun"):
+        SequenceTrainer(config=cfg, device="cpu")
 
 
 def test_remat_forward_without_grad_equals_the_plain_forward():

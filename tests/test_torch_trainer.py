@@ -166,23 +166,27 @@ def test_unported_training_settings_are_refused(tmp_path, setting, value,
                                                 item):
     """validate(training=True), the trainer and --mode train refuse each
     setting the port does not train yet, naming its ROADMAP item; plain
-    validate() (serving) does not. A9 (data parallelism) and A3 (remat)
-    are ported: validate(training=True) takes both; data_axis 4 is then
-    refused by the trainer and the CLI of a single process, which has no
-    4 ranks to run it (ValueError naming torchrun), and remat trains
-    (tests/test_torch_remat.py, tests/test_torch_dp.py)."""
+    validate() (serving) does not. A9 (data parallelism), A10 (tensor
+    parallelism) and A3 (remat) are ported: validate(training=True) takes
+    them; data_axis 4 and model_axis 2 are then refused by the trainer and
+    the CLI of a single process, which has no 4 (or 2) ranks to run them
+    (ValueError naming torchrun), and remat trains
+    (tests/test_torch_remat.py, tests/test_torch_dp.py,
+    tests/test_torch_tp.py)."""
     cfg = _config(tmp_path / "out")
     section, key = setting.split(".")
     setattr(getattr(cfg, section), key, value)
     cfg.validate()
-    if item in ("A9", "A3"):
+    if item in ("A9", "A10", "A3"):
         cfg.validate(training=True)
         if item == "A3":
             assert SequenceTrainer(config=cfg, device="cpu").config.model.remat
             return
-        with pytest.raises(ValueError, match="4 ranks: launch with torchrun"):
+        ranks = {"A9": 4, "A10": 2}[item]
+        match = f"{ranks} ranks: launch with torchrun"
+        with pytest.raises(ValueError, match=match):
             SequenceTrainer(config=cfg, device="cpu")
-        with pytest.raises(ValueError, match="4 ranks: launch with torchrun"):
+        with pytest.raises(ValueError, match=match):
             cli.main(["--config", _yaml(tmp_path, cfg, "bad"), "--mode",
                       "train", "--device", "cpu"])
         return
