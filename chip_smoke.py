@@ -35,21 +35,39 @@ own line:
    rollout_impl="torch" from the same carried state; p50 times of one
    observe and of forecast(30), kernel and plain, beside the forecast's
    bound; torch.profiler over one B 1 forecast(30) (idle share);
-6. precip_256 (2x64 cells, 256x256, bf16, B 1): observe_window of 5 frames
+6. export: the serving artifacts (serve.py) of nowcast_128 at full width,
+   in float32 and bfloat16, weights from the seed through weights.py.
+   export_model on the card takes the kernel path (one plcg_torch.rollout
+   node); a child process of this script (``--export-worker``) with the
+   checkpoint deleted serves the 3 requests from the artifact alone:
+   torch.equal to the eager kernel predictor, within PATH_TOL of the plain
+   path, 72 K1 + 20 K2 a request; a plain artifact exported on the CPU
+   serves on the card within PATH_TOL, and a kernel artifact exported on
+   the CPU (K1's weights packed there) torch.equal to the eager kernel
+   path with 72 K1 + 20 K2 a request; export_streaming (horizons 10, 30,
+   kernel entries) served by load_streaming_exported: the first request's
+   frames observed one at a time and forecast(10), forecast(30), then
+   forecast(30) at B 1 and B 8, each torch.equal to StreamingForecaster's
+   kernel path with 3 K1 + 1 K2 an observed frame and 3h K1 + h K2 a
+   forecast(h); configs/default.yaml's Generator (B 8, 16^2 -> 128^2)
+   exported on its plain cells, within PATH_TOL of its eager plain path;
+   p50 of an artifact request (exported on the card and on the CPU),
+   observe and forecast(30) beside the eager path's, in turns;
+7. precip_256 (2x64 cells, 256x256, bf16, B 1): observe_window of 5 frames
    and forecast(30) against the plain path, timed; then fit: rollout_impl
    auto on models that K1 or K2 refuse (bf16 Ch 12, f32 7x7 cells, f32 head
    of 6 channels) serves a request and a stream on the plain path with zero
    K1/K2 launches and the bits of rollout_impl torch, rollout_impl kernel
    and pallas raise naming the rule, and nowcast_128 in both dtypes still
    takes the kernels with exact launch counts;
-7. cell_save_z: K1 writing z (the training form, save_z=True) against its
+8. cell_save_z: K1 writing z (the training form, save_z=True) against its
    plain version at the cell shapes of 2 in both dtypes (h', c' and z; the
    Generator's cells included),
    timed beside K1 without z, its bound, plain and library times, TFLOP/s
    and the share of the bound; then
    ConvLSTMCellFn's backward on the card against torch autograd through
    convlstm_step_torch at the (64, 64) shape: all five gradients;
-8. train: configs/nowcast_128_pallas.yaml at full width (3x64, 128x128, B
+9. train: configs/nowcast_128_pallas.yaml at full width (3x64, 128x128, B
    4, 5 -> 20, bf16 compute on f32 params), weights from seed 0 through
    weights.py, batches from the port's SyntheticSequenceDataset (seed 0):
    the step-1 gradients, then 5 steps on the kernel path (convlstm_impl
@@ -58,11 +76,11 @@ own line:
    losses, gradients and params after 5 steps within TRAIN_TOL; p50 step
    times; 72 K1 without z per eval batch; torch.profiler over one kernel
    step (device time by kernel group, idle share); then 2 steps in f32;
-9. trainer: the CLI's train path on nowcast_128_pallas with 24 sequences
+10. trainer: the CLI's train path on nowcast_128_pallas with 24 sequences
    and 2 epochs, --resume to 3 epochs (starts at epoch 2), --mode eval,
    and load_predictor on the trainer's best_model serving one request on
    K1/K2, each with exact launch counts;
-10. gan: GAN training at full width (generator 2x64, discriminator
+11. gan: GAN training at full width (generator 2x64, discriminator
    64/128/256), from one seeded state on the kernel path (convlstm_impl
    pallas: K1 with z and ConvLSTMCellFn in G) and on the plain path (auto):
    gan_64 as written (f32, default step: K1 without z and K1 with z, 28 of
@@ -73,10 +91,10 @@ own line:
    steps within TRAIN_TOL, default against vjp, p50 step times, peak
    memory, and a profiled kernel step (K1 / cuDNN convs of G / of D /
    elementwise, idle share);
-11. gan_trainer: the CLI's train path on gan_64 cut to 24 sequences and 2
+12. gan_trainer: the CLI's train path on gan_64 cut to 24 sequences and 2
    epochs, --resume to 3, --mode eval, and load_predictor serving the
    best_model's gen_params on K1/K2, with exact launch counts;
-12. generator: the downscaling Generator of configs/default.yaml at full
+13. generator: the downscaling Generator of configs/default.yaml at full
    width (hidden (16, 32), T 5, 16x16 -> 128x128, B 8, 16 stations), in
    float32 as written and in bfloat16, weights from seed 0 through
    weights.py, batches of the port's SyntheticDownscalingDataset (64 days,
@@ -88,11 +106,11 @@ own line:
    losses, params after the steps within TRAIN_TOL), an eval batch, the
    steps' p50 in turns and a profiled kernel step (K1 / cuDNN convs /
    elementwise, idle share);
-13. generator_trainer: the CLI on configs/default.yaml with convlstm_impl
+14. generator_trainer: the CLI on configs/default.yaml with convlstm_impl
    pallas, cut to 64 days and 2 epochs, --resume to 3, --mode eval and
    --mode predict on an .npz of rain_lr/dem/lu, with exact launch counts
    and each stage's seconds;
-14. remat: gan_256_single as written (bf16, vjp, B 2, 5 -> 30, 256x256,
+15. remat: gan_256_single as written (bf16, vjp, B 2, 5 -> 30, 256x256,
    remat save_z on the plain cell) against the same run without remat,
    then the kernel path (convlstm_impl pallas) under remat policies "" and
    "dots" against the kernel path without remat, 3 steps each from one
@@ -101,7 +119,7 @@ own line:
    (68 with z without remat, 136 under remat: the backward runs each step
    again, K1 included), p50 step times and the peak of allocated memory of
    every run;
-15. dp: data parallelism at world 2 on the one card: two ranks of this
+16. dp: data parallelism at world 2 on the one card: two ranks of this
    script (``--dp-worker``) in a gloo group (gloo carries CUDA tensors;
    NCCL refuses two ranks on one GPU), started as child processes under a
    timeout, each on its half of the global batch with the port's train
@@ -116,7 +134,7 @@ own line:
    exact K1 counts on every rank; then one NCCL group at world 1 (the
    production backend) running nowcast_128_pallas's DP steps. No scaling
    numbers: the box has one card;
-16. tp: tensor parallelism at world 2 (data 1 x model 2) on the one card:
+17. tp: tensor parallelism at world 2 (data 1 x model 2) on the one card:
    two ranks of this script (``--tp-worker``) in a gloo group, each holding
    half of every ConvLSTM cell's channels (the plain cell: K1 is refused
    under TP, which each rank checks before any launch), against one
@@ -135,7 +153,7 @@ own line:
    best_model (load_predictor) against the TP model's prediction of the
    same request (plain path), and on K1/K2 (72 + 20 launches). No NCCL
    (it refuses two ranks on one GPU), no scaling numbers;
-17. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
+18. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
    shape through experiments.tap_structure.run() with its launch counts,
    then K3 and K4 against their plain versions (rtol 2^-7), timed in
    turns, beside the plain versions, 64 cuBLAS products and the bound;
@@ -143,14 +161,19 @@ own line:
    and the work-done guard (the 56 extra repetitions take at least their
    FLOPs at the bf16 peak; no rate above 1.05x the peak), with the
    steady-state TFLOP/s of that slope;
-18. one JSON line {"kernels": [...]} with each kernel's launches (per path,
-   the Generator's, remat's, dp's and tp's (0) included), error, and its
+19. one JSON line {"kernels": [...]} with each kernel's launches (per path,
+   the artifacts' (export_predict, export_stream), the Generator's,
+   remat's, dp's and tp's (0) included), error, and its
    time beside
    its bound, its
    plain version's and the library call's (K1 with z as its own entry; K1
    to K4; K1 also over the Generator's two cells, ``generator_mix``);
 then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
+
+On four GPUs: ``--tp-nccl`` runs phase 17 over NCCL, one rank a GPU;
+``--dp-nccl`` runs phase 16's NCCL run (nowcast_128_pallas, global batch 4)
+at world 2 and 4, one rank a GPU, against one process.
 """
 import functools
 import itertools
@@ -161,6 +184,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -186,7 +210,10 @@ from pl_convlstm_gan_tpu_torch.ops.nn import oihw_from_hwio
 from pl_convlstm_gan_tpu_torch.predict import (
     build_discriminator, build_model, build_predict_fn, load_predictor,
     rollout_choice)
-from pl_convlstm_gan_tpu_torch.streaming import StreamingForecaster
+from pl_convlstm_gan_tpu_torch.serve import (
+    export_model, export_streaming, load_exported, load_streaming_exported,
+    parse_stream_header)
+from pl_convlstm_gan_tpu_torch.streaming import StreamState, StreamingForecaster
 from pl_convlstm_gan_tpu_torch.train.steps import (
     GANTrainState, TrainState, forecaster_eval_step, forecaster_loss,
     forecaster_train_step, gan_d_loss, gan_g_loss, gan_train_step,
@@ -214,22 +241,22 @@ PATH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 0.0)}
 MAX_OUTPUT = 0.0625
 K1_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/convlstm_cell.cu"
 K2_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/conv_head.cu"
-K1_REPLACES = "pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:120"
+K1_REPLACES = "pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:121"
 K2_REPLACES = "pl_convlstm_gan_tpu/ops/pallas/rollout_kernel.py:407"
 # every TPU kernel each CUDA kernel stands for (PERF.md's table)
 _ROLLOUT = "pl_convlstm_gan_tpu/ops/pallas/rollout_kernel.py"
 K1_STANDS_FOR = [
-    "P1 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:120 (save_z=False)",
-    "P2 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:246 (save_z=False)",
+    "P1 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:121 (save_z=False)",
+    "P2 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:247 (save_z=False)",
     f"P3 cells {_ROLLOUT}:505 via rollout_pallas :672",
     f"P4 cells {_ROLLOUT}:505 via rollout_pallas_from_state :706"]
 K2_STANDS_FOR = [f"P3 head_pass {_ROLLOUT}:407 via rollout_pallas :672",
                  f"P4 head_pass {_ROLLOUT}:407 via rollout_pallas_from_state :706"]
 # K1 writing z (the training form) stands for P1/P2 with save_z=True
 K1Z_STANDS_FOR = [
-    "P1 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:120 (save_z=True, "
+    "P1 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:121 (save_z=True, "
     "z stored at :81-82) via _fwd :331",
-    "P2 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:246 (save_z=True, "
+    "P2 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:247 (save_z=True, "
     "z stored at :213-215) via _fwd :331"]
 # z against the plain version's z: the same KERNEL_TOL atol, plus one bf16
 # ulp relative (2^-7 |z|) because z reaches |z| ~ 2 here, where one ulp
@@ -940,6 +967,297 @@ def phase_stream(ckpt, dtype_name, request, frames8):
     return rec, sf, warm_b1
 
 
+# ------------------------------------------------------------------ export
+# The serving artifacts (serve.py) at nowcast_128's full width, weights from
+# the seed through weights.py: the kernel path's programs hold the
+# plcg_torch ops, which launch K1/K2 as the eager kernel path does.
+EXPORT_HORIZONS = (10, 30)
+EXPORT_TIMEOUT = 600    # seconds the serving child may take
+
+
+def graph_ops(blob):
+    """The call targets of an exported program's graph."""
+    import io
+    program = torch.export.load(io.BytesIO(blob))
+    return {str(n.target) for n in program.graph.nodes
+            if n.op == "call_function"}
+
+
+def export_worker(work, dtype_name):
+    """``chip_smoke.py --export-worker <work> <dtype>``: a process that has
+    only the artifact <work>/model_<dtype>.pt2 (the checkpoint is deleted)
+    serves the requests of <work>/requests.npy through serve.load_exported
+    and saves the outputs and the K1 / K2 / K1-with-z counts of the
+    requests to <work>/served_<dtype>.pt."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(work, f"model_{dtype_name}.pt2"), "rb") as f:
+        serve = load_exported(f.read())
+    requests = torch.from_numpy(np.load(os.path.join(work, "requests.npy")))
+    requests = requests.to(DEVICE)
+    reset_counts()
+    outs = [serve(r) for r in requests]
+    torch.cuda.synchronize()
+    torch.save({"outs": [o.cpu() for o in outs],
+                "counts": (convlstm_cell_fwd.launches, conv_head_fwd.launches,
+                           convlstm_cell_fwd.launches_z)},
+               os.path.join(work, f"served_{dtype_name}.pt"))
+    return 0
+
+
+def export_batch(tmp, dtype_name, requests, seed):
+    """export_model on the card (the kernel path: one plcg_torch.rollout
+    node), then a child process with the checkpoint deleted serves the
+    requests from the artifact alone: equal to the eager kernel predictor
+    (torch.equal), within PATH_TOL of the plain path, 72 K1 + 20 K2 a
+    request. A plain artifact exported on the CPU serves on the card within
+    PATH_TOL; a kernel artifact exported on the CPU (K1's weights packed
+    there) serves on the card equal to the eager kernel path, 72 K1 + 20
+    K2 a request. Artifacts and eager requests timed in turns."""
+    cfg = load_config("nowcast_128")
+    cfg.precision.compute_dtype = dtype_name
+    cfg.validate()
+    cfg_torch = load_config("nowcast_128")
+    cfg_torch.precision.compute_dtype = dtype_name
+    cfg_torch.model.rollout_impl = "torch"
+    steps = cfg.model.input_frames + cfg.model.output_frames - 1
+    k1, k2 = steps * len(cfg.model.hidden_dims), cfg.model.output_frames
+    work = tempfile.mkdtemp(dir=tmp)
+    ckpt = write_checkpoint(os.path.join(work, "weights.npz"), cfg, seed)
+    t0 = time.perf_counter()
+    blob = export_model(cfg, ckpt, (requests[0][:1],))
+    export_s = time.perf_counter() - t0
+    if "plcg_torch.rollout.default" not in graph_ops(blob):
+        raise AssertionError(f"export {dtype_name}: the artifact holds no "
+                             f"plcg_torch.rollout node")
+    plain_blob = export_model(cfg_torch, ckpt, (requests[0][:1].cpu(),),
+                              device="cpu")
+    cfg_kernel = load_config("nowcast_128")
+    cfg_kernel.precision.compute_dtype = dtype_name
+    cfg_kernel.model.rollout_impl = "kernel"
+    cpu_blob = export_model(cfg_kernel, ckpt, (requests[0][:1].cpu(),),
+                            device="cpu")
+    if "plcg_torch.rollout.default" not in graph_ops(cpu_blob):
+        raise AssertionError(f"export {dtype_name}: the kernel artifact "
+                             f"exported on the CPU holds no "
+                             f"plcg_torch.rollout node")
+    eager = load_predictor(cfg, ckpt)
+    eager_plain = load_predictor(cfg_torch, ckpt)
+    outs = [eager(r) for r in requests]
+    refs = [eager_plain(r) for r in requests]
+    os.remove(ckpt)
+    with open(os.path.join(work, f"model_{dtype_name}.pt2"), "wb") as f:
+        f.write(blob)
+    np.save(os.path.join(work, "requests.npy"),
+            torch.stack(requests).cpu().numpy())
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--export-worker", work, dtype_name],
+                         capture_output=True, text=True,
+                         timeout=EXPORT_TIMEOUT)
+    if res.returncode != 0:
+        raise AssertionError(f"export {dtype_name}: the serving child exit "
+                             f"{res.returncode}:\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-4000:]}")
+    served = torch.load(os.path.join(work, f"served_{dtype_name}.pt"),
+                        weights_only=False)
+    n = len(requests)
+    if served["counts"] != (n * k1, n * k2, 0):
+        raise AssertionError(f"export {dtype_name}: the child launched "
+                             f"(K1, K2, K1 with z) {served['counts']}, "
+                             f"expected {(n * k1, n * k2, 0)}")
+    atol, rtol = PATH_TOL[dtype_name]
+    errs = []
+    for i, (got, want, ref) in enumerate(zip(served["outs"], outs, refs)):
+        if not torch.equal(got, want.cpu()):
+            raise AssertionError(f"export {dtype_name} request {i}: the "
+                                 f"artifact differs from the eager kernel "
+                                 f"path")
+        errs.append(check_close(f"export {dtype_name} request {i} vs plain",
+                                got.to(DEVICE), ref, atol, rtol))
+    serve_plain = load_exported(plain_blob, device=DEVICE)
+    reset_counts()
+    plain_outs = [serve_plain(r) for r in requests]
+    expect_counts(f"export {dtype_name} plain artifact", 0, 0)
+    plain_errs = [check_close(f"export {dtype_name} plain artifact {i}", o,
+                              r, atol, rtol)
+                  for i, (o, r) in enumerate(zip(plain_outs, refs))]
+    serve_cpu = load_exported(cpu_blob, device=DEVICE)
+    for i, (r, want) in enumerate(zip(requests, outs)):
+        reset_counts()
+        got = serve_cpu(r)
+        expect_counts(f"export {dtype_name} CPU-exported kernel artifact "
+                      f"request {i}", k1, k2)
+        if not torch.equal(got, want):
+            raise AssertionError(f"export {dtype_name} request {i}: the "
+                                 f"kernel artifact exported on the CPU "
+                                 f"differs from the eager kernel path")
+    serve = load_exported(blob)
+    reset_counts()
+    out = serve(requests[0])
+    launches = expect_counts(f"export {dtype_name} request", k1, k2)
+    if not torch.equal(out, outs[0]):
+        raise AssertionError(f"export {dtype_name}: the artifact in this "
+                             f"process differs from the eager kernel path")
+    req = requests[0]
+    times = p50_ms({"artifact": lambda: serve(req),
+                    "artifact_from_cpu": lambda: serve_cpu(req),
+                    "eager": lambda: eager(req)})
+    rec = dict(dtype=dtype_name, export_s=export_s, artifact_bytes=len(blob),
+               child_launches=served["counts"], launches=launches,
+               equal_to_eager_kernel_path=True, max_abs_err_vs_plain=max(errs),
+               plain_artifact_from_cpu_max_abs_err=max(plain_errs),
+               plain_artifact_bit_equal=all(torch.equal(o, r) for o, r in
+                                            zip(plain_outs, refs)),
+               kernel_artifact_from_cpu_equal_to_eager_kernel_path=True,
+               tol=[atol, rtol],
+               artifact_p50_ms=times["artifact"][0],
+               artifact_from_cpu_p50_ms=times["artifact_from_cpu"][0],
+               eager_kernel_p50_ms=times["eager"][0],
+               artifact_ms=times["artifact"][1], eager_ms=times["eager"][1])
+    say(phase="export_predict", **rec)
+    return rec
+
+
+def export_stream(tmp, dtype_name, request, frames8, seed):
+    """export_streaming on the card (kernel entries, horizons
+    EXPORT_HORIZONS) served by load_streaming_exported: the first request's
+    frames observed one at a time, then forecast(h) for each exported h;
+    then forecast(30) at B 1 and B 8 from states observed the same way.
+    Each equal to StreamingForecaster's kernel path, 3 K1 + 1 K2 an
+    observed frame, 3h K1 + h K2 a forecast(h); observe and forecast(30)
+    timed in turns with the eager path."""
+    cfg = load_config("nowcast_128")
+    cfg.precision.compute_dtype = dtype_name
+    ckpt = write_checkpoint(os.path.join(tempfile.mkdtemp(dir=tmp),
+                                         "weights.npz"), cfg, seed)
+    cfg, sf, _ = stream_pair("nowcast_128", dtype_name, ckpt)
+    n_cells, t_in = len(cfg.model.hidden_dims), cfg.model.input_frames
+    _, _, _, hgt, wid = request.shape
+    t0 = time.perf_counter()
+    blob = export_streaming(cfg, ckpt, hgt, wid, horizons=EXPORT_HORIZONS)
+    export_s = time.perf_counter() - t0
+    meta = parse_stream_header(blob)[0]
+    if meta["rollout"] != "kernel" or \
+            meta["kernel_horizons"] != list(EXPORT_HORIZONS):
+        raise AssertionError(f"export stream {dtype_name}: header {meta}")
+    os.remove(ckpt)
+    server = load_streaming_exported(blob)
+
+    def observe_both(frames):
+        """-> (artifact state, eager state, the artifact's K1/K2 counts
+        summed over the observed frames)"""
+        state = server.init_state(frames.shape[0])
+        eager = sf.init_state(frames.shape[0], hgt, wid)
+        seen = Counter()
+        for t in range(t_in):
+            reset_counts()
+            state, now = server.observe(state, frames[:, t])
+            seen.update(expect_counts(f"export stream {dtype_name} observe",
+                                      n_cells, 1))
+            eager, eager_now = sf.observe(eager, frames[:, t])
+            if not (torch.equal(now, eager_now) and states_equal(
+                    StreamState(*state), eager)):
+                raise AssertionError(f"export stream {dtype_name}: observe "
+                                     f"differs from the eager kernel path")
+        return state, eager, seen
+
+    def forecast_both(state, eager, h, what):
+        """-> the artifact's K1/K2 counts of forecast(h)"""
+        reset_counts()
+        out = server.forecast(state, h)
+        seen = expect_counts(f"export stream {dtype_name} {what} "
+                             f"forecast({h})", n_cells * h, h)
+        if not torch.equal(out, sf.forecast(eager, h)):
+            raise AssertionError(f"export stream {dtype_name} {what}: "
+                                 f"forecast({h}) differs from the eager "
+                                 f"kernel path")
+        return seen
+
+    h = STREAM_HORIZON
+    state, eager, launches = observe_both(request)
+    for hz in EXPORT_HORIZONS:
+        seen = forecast_both(state, eager, hz, "request")
+        if hz == h:
+            launches.update(seen)
+    launches = dict(launches)
+    per_batch = []
+    for nb in STREAM_BATCHES:
+        state, eager, _ = observe_both(frames8[:nb])
+        forecast_both(state, eager, h, f"B {nb}")
+        frame = frames8[:nb, -1]
+        times = p50_ms({
+            "artifact_forecast": lambda: server.forecast(state, h),
+            "eager_forecast": lambda: sf.forecast(eager, h),
+            "artifact_observe": lambda: server.observe(state, frame),
+            "eager_observe": lambda: sf.observe(eager, frame)})
+        per_batch.append(dict(
+            batch=nb, horizon=h,
+            artifact_forecast_p50_ms=times["artifact_forecast"][0],
+            eager_forecast_p50_ms=times["eager_forecast"][0],
+            artifact_observe_p50_ms=times["artifact_observe"][0],
+            eager_observe_p50_ms=times["eager_observe"][0],
+            artifact_forecast_ms=times["artifact_forecast"][1],
+            eager_forecast_ms=times["eager_forecast"][1]))
+    rec = dict(dtype=dtype_name, export_s=export_s, artifact_bytes=len(blob),
+               horizons=list(EXPORT_HORIZONS), launches=launches,
+               launches_counted_as=f"the first request's {t_in} frames "
+               f"observed one at a time, then forecast({h})",
+               equal_to_eager_kernel_path=True, per_batch=per_batch)
+    say(phase="export_stream", **rec)
+    return rec
+
+
+def export_generator(tmp, dtype_name, seed):
+    """configs/default.yaml's Generator (B 8, 16^2 -> 128^2) exported with
+    convlstm_impl pallas on its plain cells (serve.py's decision: its K1 is
+    not a registered op) and served on the card within PATH_TOL of its
+    eager plain path, with no K1 launch; timed in turns."""
+    ds = SyntheticDownscalingDataset(**GEN_DATA)
+    lu_c = ds.num_lu_classes
+    cfg = generator_config(dtype_name, "pallas")
+    plain = generator_config(dtype_name, "auto")
+    mc = cfg.model
+    ckpt = write_generator_checkpoint(os.path.join(
+        tempfile.mkdtemp(dir=tmp), "generator.npz"), cfg, lu_c, seed)
+    batch = to_device(next(batch_iterator(ds, cfg.training.batch_size)),
+                      torch.device(DEVICE))[:3]
+    blob = export_model(cfg, ckpt, tuple(x[:1] for x in batch),
+                        lu_channels=lu_c)
+    eager = load_predictor(plain, ckpt)
+    os.remove(ckpt)
+    serve = load_exported(blob)
+    reset_counts()
+    out = serve(*batch)
+    expect_counts(f"export generator {dtype_name}", 0, 0)
+    ref = eager(*batch)
+    hgt, wid = batch[0].shape[-2:]
+    want = (batch[0].shape[0], mc.T, 1, hgt * mc.scale_factor,
+            wid * mc.scale_factor)
+    err = check_generator_output(f"export generator {dtype_name}", out, ref,
+                                 want, dtype_name)
+    times = p50_ms({"artifact": lambda: serve(*batch),
+                    "eager_plain": lambda: eager(*batch)})
+    rec = dict(dtype=dtype_name, max_abs_err_vs_eager_plain=err,
+               bit_equal=bool(torch.equal(out, ref)),
+               tol=PATH_TOL[dtype_name], artifact_bytes=len(blob),
+               artifact_p50_ms=times["artifact"][0],
+               eager_plain_p50_ms=times["eager_plain"][0])
+    say(phase="export_generator", **rec)
+    return rec
+
+
+def phase_export(tmp, requests, frames8, seed):
+    """The export phase (see the module docstring, 6): batch, streaming
+    and Generator artifacts in both dtypes."""
+    rec = {}
+    for dtype_name in ("float32", "bfloat16"):
+        rec[dtype_name] = dict(
+            predict=export_batch(tmp, dtype_name, requests, seed),
+            stream=export_stream(tmp, dtype_name, requests[0], frames8, seed),
+            generator=export_generator(tmp, dtype_name, seed))
+    return rec
+
+
 def phase_precip_256(tmp, seed):
     """precip_256 through the same streaming code: bf16, B 1, 256x256."""
     dtype_name = "bfloat16"
@@ -1045,7 +1363,7 @@ def profile_train_step(step, phase="train_profile"):
 def phase_train(dtype_name, seed):
     """nowcast_128_pallas at full width: the kernel path (K1 with z and the
     custom backward) against the plain path from one state (see the module
-    docstring, 8). Returns the record."""
+    docstring, 9). Returns the record."""
     steps = TRAIN_STEPS[dtype_name]
     cfg = train_config(dtype_name)
     mc = cfg.model
@@ -2186,12 +2504,12 @@ def dp_config(name, batch, impl):
     return cfg
 
 
-def dp_setup(seed):
-    """name -> what a rank needs to run DP_RUNS[name]: the seeded initial
+def dp_setup(seed, runs=DP_RUNS):
+    """name -> what a rank needs to run runs[name]: the seeded initial
     state dicts, the global batches and draws (numpy), and the K1 counts a
     step each rank must show (without z, with z)."""
     setup = {}
-    for name, batch, impl, tf_prob, cuts in DP_RUNS:
+    for name, batch, impl, tf_prob, cuts in runs:
         cfg = dp_config(name, batch, impl)
         mc = cfg.model
         entry = dict(name=name, batch=batch, impl=impl, cuts=cuts)
@@ -2337,7 +2655,7 @@ def dp_worker(rank, world, port, work, backend, names):
     to ``<work>/<backend>_rank<rank>.pt``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      LOCAL_RANK="0")
+                      LOCAL_RANK=str(rank if backend == "nccl" else 0))
     import torch.distributed as dist
     from pl_convlstm_gan_tpu_torch.parallel.mesh import maybe_init_distributed
     torch.backends.cudnn.allow_tf32 = False
@@ -3053,9 +3371,58 @@ def tp_nccl_main() -> int:
     return 0
 
 
+# DP over NCCL at world 2 and 4, one rank a GPU (``chip_smoke.py --dp-nccl``,
+# on four GPUs; not part of the one-card run): phase_dp's NCCL run
+# (DP_NCCL_RUN at its global batch 4: 2 or 1 a rank), each against one
+# process on cuda:0 on the whole batch (dp_compare).
+DP_NCCL_WORLDS = (2, 4)
+
+
+def dp_nccl_main() -> int:
+    """``chip_smoke.py --dp-nccl``: the runs above, then each card's name
+    and power limit, and the device line."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke --dp-nccl: needs four CUDA devices",
+              file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say(phase="env", python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count())
+    setup = dp_setup(SEED, [r for r in DP_RUNS if r[0] == DP_NCCL_RUN])
+    entry = setup[DP_NCCL_RUN]
+    ref = dp_drive(entry, None)
+    torch.cuda.empty_cache()
+    for world in DP_NCCL_WORLDS:
+        with tempfile.TemporaryDirectory() as work:
+            torch.save(setup, os.path.join(work, "setup.pt"))
+            ranks, seconds = dp_launch(work, "nccl", world, [DP_NCCL_RUN])
+        ranks = [r[DP_NCCL_RUN] for r in ranks]
+        errs, tol = dp_compare(DP_NCCL_RUN, entry, ranks, ref,
+                               f"nccl world {world}")
+        say(phase="dp_nccl", config=DP_NCCL_RUN, world=world,
+            global_batch=entry["batch"],
+            per_rank_batch=entry["batch"] // world, dtype=entry["dtype"],
+            launches_per_step_per_rank=entry["expect"], errors=errs, tol=tol,
+            params_equal_one_process=all(torch.equal(a, b) for a, b in zip(
+                ranks[0]["params"], ref["params"])),
+            step_ms_per_rank=[r["step_ms"] for r in ranks],
+            step_ms_one_process=ref["step_ms"], seconds=seconds)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                    trainer, gans, gan_trainer, gens, gen_trainer, taps,
-                   remat, dp, tp):
+                   remat, dp, tp, exports):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
@@ -3114,6 +3481,10 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             launches_by_path={
                 "predict": path["launches"]["convlstm_cell_fwd"],
                 "stream": streams[name]["launches"]["convlstm_cell_fwd"],
+                "export_predict": exports[name]["predict"]["launches"][
+                    "convlstm_cell_fwd"],
+                "export_stream": exports[name]["stream"]["launches"][
+                    "convlstm_cell_fwd"],
                 "train_eval_batch": trains[name]["launches_eval_batch"],
                 **gan_k1[name],
                 "generator_request": gens[name]["launches_per_request"][
@@ -3156,7 +3527,11 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             launches=path["launches"]["conv_head_fwd"],
             launches_by_path={
                 "predict": path["launches"]["conv_head_fwd"],
-                "stream": streams[name]["launches"]["conv_head_fwd"]},
+                "stream": streams[name]["launches"]["conv_head_fwd"],
+                "export_predict": exports[name]["predict"]["launches"][
+                    "conv_head_fwd"],
+                "export_stream": exports[name]["stream"]["launches"][
+                    "conv_head_fwd"]},
             max_abs_err=max(r["max_abs_err"] for r in head[name]),
             ms=h["ms"], graph_ms=h["graph_ms"], plain_ms=h["plain_ms"],
             bound_ms=h["bound_ms"], bound_by=h["bound_by"],
@@ -3190,6 +3565,10 @@ def main() -> int:
                          labels)
     if sys.argv[1:2] == ["--tp-nccl"]:        # TP over NCCL on 4 GPUs
         return tp_nccl_main()
+    if sys.argv[1:2] == ["--dp-nccl"]:        # DP over NCCL on 4 GPUs
+        return dp_nccl_main()
+    if sys.argv[1:2] == ["--export-worker"]:  # the export phase's server
+        return export_worker(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
@@ -3260,6 +3639,7 @@ def main() -> int:
                 ckpt, dtype_name, requests[0], frames8)
         profile_request(lambda st: sf.forecast(st, STREAM_HORIZON), warm_b1,
                         phase="stream_profile")
+        exports = phase_export(tmp, requests, frames8, SEED)
         phase_precip_256(tmp, SEED)
         phase_fit(tmp, SEED)
         trains = {dtype_name: phase_train(dtype_name, SEED)
@@ -3277,8 +3657,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
-        gans, gan_trainer, gens, gen_trainer, taps, remat, dp, tp)}),
-        flush=True)
+        gans, gan_trainer, gens, gen_trainer, taps, remat, dp, tp,
+        exports)}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

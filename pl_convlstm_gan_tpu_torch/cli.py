@@ -13,6 +13,13 @@
         --input frames.npy --checkpoint params.npz [--output-frames N]
     python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode stream \\
         --input frames.npy --checkpoint params.npz [--horizons 10,30]
+    python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode export \\
+        --checkpoint params.npz [--input frames.npy] [--output model.pt2]
+    python -m pl_convlstm_gan_tpu_torch --config nowcast_128 \\
+        --mode export-stream --checkpoint params.npz [--horizons 10,30] \\
+        [--tpu-kernel auto|require|off] [--output stream.ptexport]
+    python -m pl_convlstm_gan_tpu_torch --config nowcast_128 --mode stream \\
+        --input frames.npy --checkpoint stream.ptexport [--horizons 10,30]
 
 Train mode, the default (as in the JAX CLI), runs ``Trainer`` (the
 Generator family) or ``SequenceTrainer`` (forecaster and GAN); ``--resume``
@@ -31,9 +38,21 @@ count) and writes [B,T,1,H',W']. Stream mode (sequence families only)
 feeds [T,C,H,W] (one stream) or [B,T,C,H,W] (B streams) one frame at a
 time through ``StreamingForecaster`` and writes an
 ``.npz`` with ``nowcasts`` [B,T,C,H,W] and one ``forecast_<h>`` [B,h,C,H,W]
-per horizon, branched from the state after the last frame. Every mode runs
-on the GPU unless ``--device cpu`` is given. Export and the other modes are
-not ported yet.
+per horizon, branched from the state after the last frame; given a
+``--checkpoint`` ending in ``.ptexport`` it serves that streaming artifact
+(``serve.load_streaming_exported``) instead of the model code, and a JAX
+``.jaxexport`` artifact is refused (re-export it with the port). Export mode
+writes the predictor as a ``torch.export`` artifact (``serve.export_model``;
+default ``<output_dir>/model.pt2``): the non-batch shapes come from
+``--input`` (frames, or for the Generator an ``.npz`` of ``rain_lr``/
+``dem``/``lu``), else from the configured dataset. Export-stream mode writes
+the streaming artifact (``serve.export_streaming``; default
+``<output_dir>/stream.ptexport``) at the frame size of ``--input`` or of the
+dataset, with a forecast program per ``--horizons``; ``--tpu-kernel`` keeps
+the JAX flag's name and values and selects the CUDA kernel entries (auto:
+when the kernels take the model on the device; require: raise unless they
+do; off: the plain programs). Every mode runs on the GPU unless ``--device
+cpu`` is given.
 
 Data parallelism: launched by ``torchrun`` (or with the JAX package's
 ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``), every rank
@@ -72,44 +91,114 @@ def _load_frames(path):
     return data["frames"] if isinstance(data, np.lib.npyio.NpzFile) else data
 
 
+def _horizons(config, args):
+    if not args.horizons:
+        return (args.output_frames or config.model.output_frames,)
+    try:
+        return tuple(int(h) for h in args.horizons.split(","))
+    except ValueError:
+        raise SystemExit(f"--horizons must be comma-separated ints, "
+                         f"got {args.horizons!r}")
+
+
 def _stream(config, args, out_path):
     import torch
 
-    from .streaming import StreamingForecaster
-
-    if args.checkpoint.endswith(".jaxexport"):
-        raise SystemExit("a .jaxexport streaming artifact needs the export "
-                         "slice, which the port has not ported yet: pass the "
-                         "checkpoint's params as .npz or .pt")
-    if args.horizons:
-        try:
-            horizons = tuple(int(h) for h in args.horizons.split(","))
-        except ValueError:
-            raise SystemExit(f"--horizons must be comma-separated ints, "
-                             f"got {args.horizons!r}")
-    else:
-        horizons = (args.output_frames or config.model.output_frames,)
+    horizons = _horizons(config, args)
     frames = np.asarray(_load_frames(args.input), np.float32)
     if frames.ndim == 4:
         frames = frames[None]
     if frames.ndim != 5:
         raise SystemExit(f"stream input must be [T,C,H,W] or [B,T,C,H,W], "
                          f"got shape {frames.shape}")
-    b, t, _, hgt, wid = frames.shape
-    sf = StreamingForecaster.from_checkpoint(config, args.checkpoint,
-                                             device=args.device)
-    state = sf.init_state(b, hgt, wid)
+    b, t, chans, hgt, wid = frames.shape
+    if args.checkpoint.endswith(".jaxexport"):
+        raise SystemExit("a .jaxexport is the JAX package's streaming "
+                         "artifact: re-export the checkpoint with the port "
+                         "(--mode export-stream) or pass its params as .npz "
+                         "or .pt")
+    if args.checkpoint.endswith(".ptexport"):
+        from .serve import load_streaming_exported
+        with open(args.checkpoint, "rb") as f:
+            server = load_streaming_exported(f.read(), device=args.device)
+        missing = [h for h in horizons if h not in server.horizons]
+        if missing:
+            raise SystemExit(f"artifact only has forecast programs for "
+                             f"horizons {list(server.horizons)}: missing "
+                             f"{missing} (re-export with --horizons)")
+        want = tuple(server.meta[k] for k in ("channels", "height", "width"))
+        if (chans, hgt, wid) != want:
+            raise SystemExit(f"input frames are C,H,W={chans, hgt, wid} but "
+                             f"the artifact was exported at {want}")
+        state = server.init_state(b)
+        observe, forecast = server.observe, server.forecast
+    else:
+        from .streaming import StreamingForecaster
+        sf = StreamingForecaster.from_checkpoint(config, args.checkpoint,
+                                                 device=args.device)
+        state = sf.init_state(b, hgt, wid)
+        observe, forecast = sf.observe, sf.forecast
     nowcasts = []
     for i in range(t):
-        state, nowcast = sf.observe(state, frames[:, i])
+        state, nowcast = observe(state, frames[:, i])
         nowcasts.append(nowcast)
     out = {"nowcasts": torch.stack(nowcasts, 1).cpu().numpy()}
     for h in horizons:
-        out[f"forecast_{h}"] = sf.forecast(state, h).cpu().numpy()
+        out[f"forecast_{h}"] = forecast(state, h).cpu().numpy()
     _make_parent(out_path)
     np.savez(out_path, **out)
     shapes = {k: v.shape for k, v in out.items()}
     print(f"Streamed {t} frames x {b} stream(s): {shapes} saved to {out_path}")
+
+
+def _sample_frames(config, args):
+    """[1, T, C, H, W] frames fixing an artifact's static shapes: the first
+    of ``--input``, else the configured dataset's first input window."""
+    if args.input:
+        return np.asarray(_load_frames(args.input), np.float32)[:1]
+    return np.asarray(_trainer(config, args).setup_data()[0][0])[None]
+
+
+def _export(config, args, out_path):
+    from .serve import export_model
+    lu_channels = 0
+    if config.model.family == "generator":
+        if not args.input:
+            raise SystemExit("generator-family export needs --input: an "
+                             ".npz with rain_lr/dem/lu sample arrays")
+        data = np.load(args.input)
+        if not isinstance(data, np.lib.npyio.NpzFile):
+            raise SystemExit("generator-family export needs an .npz with "
+                             "rain_lr/dem/lu arrays (got a plain .npy)")
+        example = (data["rain_lr"][:1], data["dem"][:1], data["lu"][:1])
+        lu_channels = data["lu"].shape[1]
+    else:
+        example = (_sample_frames(config, args),)
+    blob = export_model(config, args.checkpoint, example,
+                        lu_channels=lu_channels,
+                        output_frames=args.output_frames, device=args.device)
+    _make_parent(out_path)
+    with open(out_path, "wb") as f:
+        f.write(blob)
+    print(f"Exported serving artifact ({len(blob)} bytes, batch-polymorphic)"
+          f" to {out_path}")
+
+
+def _export_stream(config, args, out_path):
+    from .serve import export_streaming, parse_stream_header
+    hgt, wid = _sample_frames(config, args).shape[-2:]
+    horizons = _horizons(config, args)
+    blob = export_streaming(config, args.checkpoint, int(hgt), int(wid),
+                            horizons=horizons, tpu_kernel=args.tpu_kernel,
+                            device=args.device)
+    _make_parent(out_path)
+    with open(out_path, "wb") as f:
+        f.write(blob)
+    meta = parse_stream_header(blob)[0]
+    print(f"Exported streaming artifact ({len(blob)} bytes, observe + "
+          f"forecast{list(horizons)}, {meta['rollout']} path, kernel "
+          f"horizons {meta['kernel_horizons']}, batch-polymorphic) to "
+          f"{out_path}")
 
 
 def _trainer(config, args):
@@ -172,14 +261,20 @@ def main(argv=None):
                         help="configuration name (configs/<name>.yaml) or a "
                              "direct path to a .yaml file")
     parser.add_argument("--mode", choices=("train", "eval", "predict",
-                                           "stream"), default="train",
+                                           "stream", "export",
+                                           "export-stream"),
+                        default="train",
                         help="train (the default, as in the JAX CLI); eval; "
-                             "predict; stream")
+                             "predict; stream (a .ptexport --checkpoint "
+                             "serves that artifact); export (a torch.export "
+                             "artifact of the predictor); export-stream (the "
+                             "streaming artifact)")
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="weights: .npz of flattened flax params, a "
                              "torch .pt state_dict or a checkpoint directory "
                              "of the trainer (default: <output_dir>/"
-                             "best_model)")
+                             "best_model); stream mode also takes a "
+                             ".ptexport streaming artifact")
     parser.add_argument("--resume", action="store_true",
                         help="train mode: resume from <output_dir>/latest "
                              "(or best_model) if present")
@@ -190,14 +285,22 @@ def main(argv=None):
                              ".npz with rain_lr/dem/lu")
     parser.add_argument("--output", type=str, default=None,
                         help="output file (default: <output_dir>/"
-                             "predictions.npy, or stream_out.npz)")
+                             "predictions.npy, stream_out.npz, model.pt2 or "
+                             "stream.ptexport)")
     parser.add_argument("--output-frames", type=int, default=0,
                         help="serve another rollout horizon than the "
                              "config's; 0 = config value")
     parser.add_argument("--horizons", type=str, default="",
-                        help="stream mode: comma-separated forecast "
-                             "horizons (default: --output-frames, else the "
-                             "config's)")
+                        help="stream and export-stream modes: "
+                             "comma-separated forecast horizons (default: "
+                             "--output-frames, else the config's)")
+    parser.add_argument("--tpu-kernel", choices=("auto", "require", "off"),
+                        default="auto",
+                        help="export-stream mode (the JAX flag's name and "
+                             "values): selects the CUDA kernel entries; "
+                             "auto = when K1/K2 take the model on the "
+                             "device, require = raise unless they do, off = "
+                             "the plain programs")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the GPU; 'cpu' runs the "
                              "plain path)")
@@ -218,18 +321,22 @@ def main(argv=None):
     if not is_primary():
         return      # inference runs on rank 0 (load_predictor splits a
                     # batch over the GPUs itself: data_parallel)
-    if args.mode == "stream" and config.model.family == "generator":
-        raise SystemExit("stream mode needs a sequence family "
-                         "(forecaster/gan), not the Generator")
-    if not args.input:
+    if args.mode in ("stream", "export-stream") and \
+            config.model.family == "generator":
+        raise SystemExit(f"{args.mode} mode needs a sequence family "
+                         f"(forecaster/gan), not the Generator")
+    if args.mode in ("predict", "stream") and not args.input:
         raise SystemExit(f"--mode {args.mode} requires --input")
     args.checkpoint = args.checkpoint or os.path.join(
         config.output.output_dir, "best_model")
-    default_name = "predictions.npy" if args.mode == "predict" else "stream_out.npz"
+    default_name = {"predict": "predictions.npy", "stream": "stream_out.npz",
+                    "export": "model.pt2",
+                    "export-stream": "stream.ptexport"}[args.mode]
     out_path = args.output or os.path.join(config.output.output_dir,
                                            default_name)
-    if args.mode == "stream":
-        _stream(config, args, out_path)
+    if args.mode != "predict":
+        {"stream": _stream, "export": _export,
+         "export-stream": _export_stream}[args.mode](config, args, out_path)
         return
     if config.model.family == "generator":
         data = np.load(args.input)

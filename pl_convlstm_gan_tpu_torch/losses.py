@@ -8,19 +8,22 @@ Copies of the JAX package's ``losses/adversarial.py`` (``l1_loss``,
 ``losses/ssim.py``, ``losses/metrics.py`` and ``losses/sharpness.py``, with
 the same formulas, clamps and masks:
 
-- ``ssim_per_sample``: Wang et al. 2004 with an 11x11 Gaussian window
-  (sigma 1.5), separable VALID blur, variance clamped at 0 and covariance at
-  +-sqrt(var_p var_t); frames smaller than the window use the largest odd
-  size that fits;
-- ``contingency_counts`` / ``scores_from_counts``: hits, misses, false
-  alarms and correct negatives at a threshold, and POD/FAR/CSI/HSS from
-  them (integer counts; the host turns global sums into scores);
+- ``ssim`` / ``ssim_per_sample``: Wang et al. 2004 with an 11x11 Gaussian
+  window (sigma 1.5, K1 0.01, K2 0.03, data range 1 by default), separable
+  VALID blur, variance clamped at 0 and covariance at +-sqrt(var_p var_t);
+  frames smaller than the window use the largest odd size that fits;
+- ``contingency_counts`` / ``scores_from_counts`` / ``categorical_scores``
+  / ``nowcast_scores``: hits, misses, false alarms and correct negatives
+  at a threshold, and POD/FAR/CSI/HSS from them (integer counts; the host
+  turns global sums into scores);
 - ``sharpness_sums``: high-frequency spectral power fraction and mean
-  gradient magnitude, as (sum, weight) pairs for exact global ratios.
+  gradient magnitude, as (sum, weight) pairs for exact global ratios;
+- the Generator's ``combined_loss`` and its terms, with ``CombinedLoss``,
+  the reference's class surface over it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -86,21 +89,19 @@ def _blur(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
     return F.conv2d(y, win.reshape(1, 1, 1, n))
 
 
-# SSIM's constants: an 11x11 Gaussian window of sigma 1.5, data range 1,
-# K1 = 0.01 and K2 = 0.03 (the torchmetrics / skimage defaults)
-SSIM_WINDOW, SSIM_SIGMA = 11, 1.5
-SSIM_C1, SSIM_C2 = 0.01 ** 2, 0.03 ** 2
-
-
-def _ssim_map(pred, target):
-    """Flattened-leading-dims SSIM map [N, 1, H', W'] (VALID-cropped)."""
+def _ssim_map(pred, target, data_range: float, window_size: int,
+              sigma: float, k1: float, k2: float):
+    """Flattened-leading-dims SSIM map [N, 1, H', W'] (VALID-cropped) of
+    [..., H, W] tensors, or of [..., H, W, 1] (a trailing channel of 1)."""
+    if pred.shape[-1] == 1 and pred.dim() >= 3:
+        pred, target = pred[..., 0], target[..., 0]
     h, w = pred.shape[-2], pred.shape[-1]
     p = pred.reshape(-1, 1, h, w).float()
     t = target.reshape(-1, 1, h, w).float()
-    eff = min(SSIM_WINDOW, h, w)
+    eff = min(window_size, h, w)
     if eff % 2 == 0:
         eff -= 1
-    win = torch.from_numpy(_gaussian_kernel(eff, SSIM_SIGMA)).to(p.device)
+    win = torch.from_numpy(_gaussian_kernel(eff, sigma)).to(p.device)
     mu_p = _blur(p, win)
     mu_t = _blur(t, win)
     # variances clamped at 0 and the covariance at the Cauchy-Schwarz bound,
@@ -113,45 +114,84 @@ def _ssim_map(pred, target):
     cov_bound = torch.where(var_prod > 0, torch.sqrt(safe_prod),
                             torch.zeros_like(var_prod))
     mu_pt = torch.minimum(torch.maximum(mu_pt, -cov_bound), cov_bound)
-    num = (2 * mu_p * mu_t + SSIM_C1) * (2 * mu_pt + SSIM_C2)
-    den = (mu_p ** 2 + mu_t ** 2 + SSIM_C1) * (mu_pp + mu_tt + SSIM_C2)
+    c1 = (k1 * data_range) ** 2
+    c2 = (k2 * data_range) ** 2
+    num = (2 * mu_p * mu_t + c1) * (2 * mu_pt + c2)
+    den = (mu_p ** 2 + mu_t ** 2 + c1) * (mu_pp + mu_tt + c2)
     return num / den
 
 
-def ssim_per_sample(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0,
+         window_size: int = 11, sigma: float = 1.5, k1: float = 0.01,
+         k2: float = 0.03) -> torch.Tensor:
+    """Mean SSIM over all frames of [..., H, W] tensors."""
+    return _ssim_map(pred, target, data_range, window_size, sigma, k1,
+                     k2).mean()
+
+
+def ssim_per_sample(pred: torch.Tensor, target: torch.Tensor,
+                    data_range: float = 1.0, window_size: int = 11,
+                    sigma: float = 1.5, k1: float = 0.01,
+                    k2: float = 0.03) -> torch.Tensor:
     """Per-sample mean SSIM [B] of batch-leading [B, ..., H, W] tensors."""
     b = pred.shape[0]
-    return _ssim_map(pred, target).reshape(b, -1).mean(dim=1)
+    return _ssim_map(pred, target, data_range, window_size, sigma, k1,
+                     k2).reshape(b, -1).mean(dim=1)
 
 
 # ------------------------------------------------------ categorical scores
 
 def contingency_counts(pred: torch.Tensor, target: torch.Tensor,
-                       threshold: float, batch_mask: torch.Tensor):
-    """(hits, misses, false_alarms, correct_negatives) at a threshold over
-    the rows of the batch-leading tensors where ``batch_mask`` [B] is true;
-    integer sums, exact at any pixel count."""
+                       threshold: float, batch_mask: torch.Tensor = None):
+    """(hits, misses, false_alarms, correct_negatives) at a threshold, over
+    the rows of the batch-leading tensors where ``batch_mask`` [B] is true
+    (all rows when None); integer sums, exact at any pixel count."""
     p = pred >= threshold
     t = target >= threshold
+    stats = (p & t, ~p & t, p & ~t, ~p & ~t)
+    if batch_mask is None:
+        return tuple(s.sum() for s in stats)
     b = pred.shape[0]
     m = batch_mask.to(torch.int64)
-    return tuple((s.reshape(b, -1).sum(dim=1) * m).sum()
-                 for s in (p & t, ~p & t, p & ~t, ~p & ~t))
+    return tuple((s.reshape(b, -1).sum(dim=1) * m).sum() for s in stats)
 
 
 def _safe(num, den):
-    return np.where(den > 0, num / np.maximum(den, 1), 0.0)
+    """num / den where den > 0, else 0 (den >= 0), elementwise on numpy
+    values or torch tensors alike."""
+    return (den > 0) * num / (den + (den == 0))
 
 
 def scores_from_counts(a, b, c, d) -> Dict[str, float]:
-    """POD/FAR/CSI/HSS from host counts (hits a, false_alarms b, misses c,
-    correct_negatives d)."""
+    """POD/FAR/CSI/HSS from (hits a, false_alarms b, misses c,
+    correct_negatives d): host counts when eval aggregates them across
+    batches, or float tensors on their device (``categorical_scores``)."""
     pod = _safe(a, a + c)
     far = _safe(b, a + b)
     csi = _safe(a, a + b + c)
     expected = (a + c) * (c + d) + (a + b) * (b + d)
     hss = _safe(2 * (a * d - b * c), expected)
     return {"pod": pod, "far": far, "csi": csi, "hss": hss}
+
+
+def categorical_scores(pred: torch.Tensor, target: torch.Tensor,
+                       threshold: float) -> Dict[str, torch.Tensor]:
+    """POD/FAR/CSI/HSS at one threshold over all of pred and target, as
+    float32 scalars on their device."""
+    a, c, b, d = (x.float() for x in contingency_counts(pred, target,
+                                                         threshold))
+    return scores_from_counts(a, b, c, d)
+
+
+def nowcast_scores(pred: torch.Tensor, target: torch.Tensor,
+                   thresholds: Sequence[float] = (0.5, 2.0, 5.0, 10.0, 30.0)
+                   ) -> Dict[str, torch.Tensor]:
+    """``{metric}@{threshold}`` over a set of intensity thresholds."""
+    out = {}
+    for th in thresholds:
+        for k, v in categorical_scores(pred, target, th).items():
+            out[f"{k}@{th:g}"] = v
+    return out
 
 
 # ---------------------------------------------------------------- sharpness
@@ -162,12 +202,12 @@ def _hf_mask(h: int, w: int, cutoff: float) -> np.ndarray:
     return np.sqrt(fy * fy + fx * fx) > cutoff
 
 
-def hf_energy_fraction(x: torch.Tensor) -> torch.Tensor:
-    """Spectral power fraction above half the Nyquist radius, per sample of
-    [B, ..., H, W]."""
+def hf_energy_fraction(x: torch.Tensor, cutoff: float = 0.5) -> torch.Tensor:
+    """Spectral power fraction above ``cutoff`` x the Nyquist radius, per
+    sample of [B, ..., H, W]."""
     h, w = x.shape[-2], x.shape[-1]
     spec = torch.fft.rfft2(x.float()).abs() ** 2
-    mask = torch.from_numpy(_hf_mask(h, w, 0.5).astype(np.float32)).to(
+    mask = torch.from_numpy(_hf_mask(h, w, cutoff).astype(np.float32)).to(
         spec.device)
     b = x.shape[0]
     total = spec.reshape(b, -1, *spec.shape[-2:]).sum(dim=(1, 2, 3))
@@ -356,3 +396,25 @@ def station_rmse(pred, s_coords, s_values, scale_factor=1.0, batch_mask=None):
     num, count = station_sq_err_sums(pred, s_coords, s_values, scale_factor,
                                      batch_mask)
     return torch.where(count > 0, torch.sqrt(num / count.clamp(min=1)), 0.0)
+
+
+class CombinedLoss:
+    """The reference's class surface over ``combined_loss``: the weights and
+    the weighting set at construction, ``__call__(pred, lr_input, s_coords,
+    s_values, scale_factor=1.0) -> (total, parts)``. Stateless."""
+
+    def __init__(self, lambda_point=1.0, lambda_conserve=1.0,
+                 lambda_smooth=0.1, lambda_temporal=0.05,
+                 use_weighted_loss=True, weight_strategy="log"):
+        self.lambda_point = lambda_point
+        self.lambda_conserve = lambda_conserve
+        self.lambda_smooth = lambda_smooth
+        self.lambda_temporal = lambda_temporal
+        self.use_weighted_loss = use_weighted_loss
+        self.weight_strategy = weight_strategy
+
+    def __call__(self, pred, lr_input, s_coords, s_values, scale_factor=1.0):
+        return combined_loss(pred, lr_input, s_coords, s_values, scale_factor,
+                             self.lambda_point, self.lambda_conserve,
+                             self.lambda_smooth, self.lambda_temporal,
+                             self.use_weighted_loss, self.weight_strategy)

@@ -8,5 +8,8 @@
   observe that launch K1 and K2 step by step
 - ``tap_structure_kernel``: K3 and K4, the tap-structure experiment's 9-tap
   and one-K1152 contractions (csrc/tap_structure.cu)
+- ``export_ops``: the serving loops of ``rollout_kernel`` registered as
+  PyTorch ops (``plcg_torch::rollout``, ``rollout_from_state``,
+  ``observe``), so that ``torch.export`` programs hold them
 - ``build``: nvcc build of csrc/ and ctypes loading, at first use
 """

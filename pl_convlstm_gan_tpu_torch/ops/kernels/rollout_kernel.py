@@ -180,9 +180,9 @@ def pack_weights(state_dict, compute_dtype=torch.bfloat16) -> RolloutWeights:
     """A ConvLSTMForecaster state_dict (``core.cell_<i>.weight`` OIHW, ...)
     -> RolloutWeights. Weights AND biases are cast to the compute dtype, as
     the TPU kernel's ``_pack_weights`` does; weights on the card are also
-    packed for K1, once here. Raises ValueError naming the rule of
-    ``rollout_kernel_misfit`` that the model breaks (on the CPU only the
-    odd kernel size binds)."""
+    packed for K1, once here (``packed_for_card``). Raises ValueError naming
+    the rule of ``rollout_kernel_misfit`` that the model breaks (on the CPU
+    only the odd kernel size binds)."""
     n = sum(1 for k in state_dict if k.startswith("core.cell_")
             and k.endswith(".weight"))
     if n == 0:
@@ -194,9 +194,8 @@ def pack_weights(state_dict, compute_dtype=torch.bfloat16) -> RolloutWeights:
         raise ValueError(f"the CUDA kernels need square conv kernels of one "
                          f"size, got {[s[-2:] for s in shapes]}")
     hidden = [s[0] // 4 for s in shapes]
-    on_card = state_dict["core.cell_0.weight"].is_cuda
     misfit = rollout_kernel_misfit(hidden, shapes[0][1] - hidden[0],
-                                   sizes.pop(), compute_dtype, on_card)
+                                   sizes.pop(), compute_dtype, on_card=False)
     if misfit:
         raise ValueError(f"the CUDA kernels do not take this model: {misfit}")
 
@@ -205,10 +204,29 @@ def pack_weights(state_dict, compute_dtype=torch.bfloat16) -> RolloutWeights:
                     compute_dtype).contiguous(),
                 state_dict[f"{prefix}.bias"].to(compute_dtype).contiguous())
 
-    cells = tuple(conv(f"core.cell_{i}") for i in range(n))
-    packed = tuple(kernel_pack(w, compute_dtype) if on_card else None
-                   for w, _ in cells)
-    return RolloutWeights(cells, conv("core.head"), packed)
+    weights = RolloutWeights(tuple(conv(f"core.cell_{i}") for i in range(n)),
+                             conv("core.head"), (None,) * n)
+    on_card = state_dict["core.cell_0.weight"].is_cuda
+    return packed_for_card(weights) if on_card else weights
+
+
+def packed_for_card(weights: RolloutWeights) -> RolloutWeights:
+    """``weights`` with K1's packed weight for every cell, on whatever device
+    they lie (``kernel_pack`` is a layout transform; ``pack_weights`` on the
+    CPU leaves ``packed`` None). Raises ValueError naming the rule of
+    ``rollout_kernel_misfit`` on the card that the model breaks, so that
+    weights packed here are taken by K1 and K2 wherever they are served."""
+    if weights.packed[0] is not None:
+        return weights
+    dtype = weights.head[0].dtype
+    w1 = weights.cells[0][0]
+    hidden = [w.shape[-1] // 4 for w, _ in weights.cells]
+    misfit = rollout_kernel_misfit(hidden, w1.shape[2] - hidden[0],
+                                   w1.shape[0], dtype)
+    if misfit:
+        raise ValueError(f"the CUDA kernels do not take this model: {misfit}")
+    return weights._replace(packed=tuple(kernel_pack(w, dtype)
+                                         for w, _ in weights.cells))
 
 
 def _time_major(weights: RolloutWeights, frames, compute_dtype):

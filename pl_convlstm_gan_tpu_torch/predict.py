@@ -13,7 +13,9 @@ state_dict, a reference Generator ``.pth``, or a checkpoint directory that
 the port's trainer wrote
 (``<output_dir>/best_model`` or ``latest``). Entry points run on the GPU
 unless the caller passes ``device="cpu"``; with no CUDA device and no such
-request they raise.
+request they raise. ``build_model``, ``build_predict_fn`` and
+``load_predictor`` take JAX's positional order (``lu_channels`` before
+``output_frames``); the port's own arguments come after JAX's.
 """
 from __future__ import annotations
 
@@ -46,8 +48,8 @@ def compute_dtype(config: Config) -> torch.dtype:
             else torch.float32)
 
 
-def build_model(config: Config, output_frames: int = 0,
-                lu_channels: int = 0, tp_group=None):
+def build_model(config: Config, lu_channels: int = 0,
+                output_frames: int = 0, tp_group=None):
     """The (randomly initialised) module a config describes:
     ``ConvLSTMForecaster`` (families forecaster and gan; ``output_frames``
     overrides the rollout horizon, which the recurrent weights do not
@@ -142,8 +144,8 @@ def rollout_choice(config: Config, device: torch.device,
 
 
 def build_predict_fn(config: Config, checkpoint_path: str,
-                     output_frames: int = 0, rollout_impl: str = "",
-                     device=None, lu_channels: int = 0) -> Callable:
+                     lu_channels: int = 0, output_frames: int = 0,
+                     rollout_impl: str = "", device=None) -> Callable:
     """Load the weights and return fn(frames [B,T_in,C,H,W] tensor on the
     device) -> [B,T_out,C,H,W] float32; for the Generator family fn(rain_lr
     [B,T,1,H,W], dem [B,Cd,Hd,Wd], lu [B,Cl,Hl,Wl]) -> [B,T,1,H',W']
@@ -165,7 +167,7 @@ def build_predict_fn(config: Config, checkpoint_path: str,
         model.load_state_dict(state)
         return model.to(dev).eval()
     impl = rollout_choice(config, dev, rollout_impl)
-    model = build_model(config, output_frames)
+    model = build_model(config, output_frames=output_frames)
     model.load_state_dict(load_state_dict(checkpoint_path))
     model.to(dev).eval()
     t_in, t_out = model.input_frames, model.output_frames
@@ -191,8 +193,8 @@ def _as_tensor(a) -> torch.Tensor:
 
 
 def load_predictor(config: Config, checkpoint_path: str,
-                   output_frames: int = 0, device=None,
-                   lu_channels: int = 0, data_parallel: str = "auto",
+                   lu_channels: int = 0, output_frames: int = 0,
+                   data_parallel: str = "auto", device=None,
                    devices=None) -> Callable:
     """``build_predict_fn`` behind a function that takes numpy arrays or
     tensors, moves them to the device as float32, and runs without
@@ -228,8 +230,8 @@ def load_predictor(config: Config, checkpoint_path: str,
                          f"device, found {n}")
     if data_parallel == "off" or n == 1:
         devices = [dev]
-    fns = [build_predict_fn(config, checkpoint_path, output_frames, device=d,
-                            lu_channels=lu_channels) for d in devices]
+    fns = [build_predict_fn(config, checkpoint_path, lu_channels,
+                            output_frames, device=d) for d in devices]
 
     def run(fn, d, inputs):
         return fn(*(t.to(d, torch.float32) for t in inputs))

@@ -24,11 +24,18 @@ K1 and K2 (``ops/kernels``), one step per frame or per forecast frame;
 versions. Every method returns new tensors and writes none of its inputs, so
 a caller may hold several branches of one stream.
 
+The export hooks (``export_observe_fn``, ``export_forecast_fn``,
+``export_meta``; ``serve.export_streaming`` calls them) give the same
+computations as ``nn.Module``s that ``torch.export`` traces: on the kernel
+path each is one registered op (``ops/kernels/export_ops.py``), on the plain
+path the plain step loop. Their state is plain nested tuples, ``(((h, c),
+...), prev_out)``, as JAX's hooks take it.
+
 Not ported here: the JAX package's int8 forecast (the port's config rejects
-``rollout_impl: int8``, ROADMAP A13) and its ``export_*`` hooks (the export
-slice). JAX's ``pallas_forecast_fits`` becomes ``rollout_kernel_misfit``: K1
-and K2 take any frame size, batch and horizon, so the choice depends only
-on the widths, the kernel size and the compute dtype.
+``rollout_impl: int8``, ROADMAP A13). JAX's ``pallas_forecast_fits`` becomes
+``rollout_kernel_misfit``: K1 and K2 take any frame size, batch and horizon,
+so the choice depends only on the widths, the kernel size and the compute
+dtype, and is made before any export.
 """
 from __future__ import annotations
 
@@ -36,8 +43,10 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .config import Config
+from .ops.kernels.export_ops import KernelWeights
 from .ops.kernels.rollout_kernel import (observe_kernel, pack_weights,
                                          rollout_kernel_from_state)
 from .predict import (build_model, compute_dtype, load_state_dict,
@@ -95,18 +104,6 @@ class StreamingForecaster:
         return StreamState(tuple((zeros(f), zeros(f)) for f in self._hidden),
                            zeros(self._channels))
 
-    def _plain_step(self, cells, x):
-        """One step of the plain modules: x [B,H,W,C] -> (cells, head out)."""
-        if len(cells) != len(self._hidden):
-            raise ValueError(f"{len(cells)} state pairs for "
-                             f"{len(self._hidden)} cells")
-        new = []
-        for cell, (h, c) in zip(self._core.cells(), cells):
-            h, c = cell(x, h, c)
-            new.append((h, c))
-            x = h
-        return tuple(new), self._core.head(x)
-
     def observe_window(self, state: StreamState, frames
                        ) -> Tuple[StreamState, torch.Tensor]:
         """Assimilate ``frames [B, T, C, H, W]`` (numpy or tensor); returns
@@ -122,10 +119,9 @@ class StreamingForecaster:
                 cells, prev = observe_kernel(self._weights, state.cells,
                                              frames, self._cdtype)
             else:
-                cells, prev = state.cells, state.prev_out
-                for t in range(frames.shape[1]):
-                    cells, prev = self._plain_step(
-                        cells, frames[:, t].permute(0, 2, 3, 1).to(self._cdtype))
+                cells, prev = _plain_observe(self._core, state.cells,
+                                             state.prev_out, frames,
+                                             self._cdtype)
             nowcast = prev.permute(0, 3, 1, 2).to(torch.float32, copy=True)
         return StreamState(cells, prev), nowcast
 
@@ -149,8 +145,97 @@ class StreamingForecaster:
                 return rollout_kernel_from_state(
                     self._weights, state.cells, state.prev_out, horizon,
                     self._cdtype)
-            cells, prev, outs = state.cells, state.prev_out, []
-            for _ in range(horizon):
-                cells, prev = self._plain_step(cells, prev)
-                outs.append(prev)
-            return torch.stack(outs).permute(1, 0, 4, 2, 3).float()
+            return _plain_forecast(self._core, state.cells, state.prev_out,
+                                   horizon)
+
+    # -- export hooks (serve.export_streaming) ------------------------------
+    def export_observe_fn(self) -> nn.Module:
+        """A module ``(state, frame [B,C,H,W] float32) -> (state, nowcast
+        [B,C,H,W] float32)``, state = ``(((h, c), ...), prev_out)``, with
+        the weights as its buffers and parameters."""
+        return _ObserveProgram(self)
+
+    def export_forecast_fn(self, horizon: int) -> nn.Module:
+        """A module ``state -> forecast [B, horizon, C, H, W] float32`` (a
+        pure branch)."""
+        if horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {horizon}")
+        return _ForecastProgram(self, horizon)
+
+    def export_meta(self) -> dict:
+        """What a serving process needs to zero-init a stream without model
+        code, and which path the programs run (``rollout``: "kernel" or
+        "torch")."""
+        return {"hidden": list(self._hidden), "channels": self._channels,
+                "dtype": ("bfloat16" if self._cdtype == torch.bfloat16
+                          else "float32"),
+                "rollout": "kernel" if self._kernels else "torch"}
+
+
+def _plain_step(core, cells, x):
+    """One step of the plain modules: x [B,H,W,C] -> (cells, head out)."""
+    n = len(core.cells())
+    if len(cells) != n:
+        raise ValueError(f"{len(cells)} state pairs for {n} cells")
+    new = []
+    for cell, (h, c) in zip(core.cells(), cells):
+        h, c = cell(x, h, c)
+        new.append((h, c))
+        x = h
+    return tuple(new), core.head(x)
+
+
+def _plain_observe(core, cells, prev, frames, cdtype):
+    """Fold frames [B,T,C,H,W] into (cells, prev) one plain step a frame."""
+    for t in range(frames.shape[1]):
+        cells, prev = _plain_step(core, cells,
+                                  frames[:, t].permute(0, 2, 3, 1).to(cdtype))
+    return cells, prev
+
+
+def _plain_forecast(core, cells, prev, horizon):
+    """``horizon`` plain steps from (cells, prev) -> [B,horizon,C,H,W]
+    float32."""
+    outs = []
+    for _ in range(horizon):
+        cells, prev = _plain_step(core, cells, prev)
+        outs.append(prev)
+    return torch.stack(outs).permute(1, 0, 4, 2, 3).float()
+
+
+class _StreamProgram(nn.Module):
+    """A stream's weights on its path: ``KernelWeights`` (the kernel path's
+    ops) or the plain modules of ``ConvLSTMForecaster.core``."""
+
+    def __init__(self, sf: StreamingForecaster):
+        super().__init__()
+        self.cdtype = sf._cdtype
+        if sf._kernels:
+            self.kernels = KernelWeights(sf._weights)
+        else:
+            self.kernels, self.core = None, sf._core
+
+
+class _ObserveProgram(_StreamProgram):
+    def forward(self, state, frame):
+        cells, prev = state
+        frames = frame[:, None]
+        if self.kernels is not None:
+            cells, prev = self.kernels.observe(cells, frames)
+        else:
+            cells, prev = _plain_observe(self.core, cells, prev, frames,
+                                         self.cdtype)
+        return (cells, prev), prev.permute(0, 3, 1, 2).to(torch.float32,
+                                                            copy=True)
+
+
+class _ForecastProgram(_StreamProgram):
+    def __init__(self, sf: StreamingForecaster, horizon: int):
+        super().__init__(sf)
+        self.horizon = horizon
+
+    def forward(self, state):
+        cells, prev = state
+        if self.kernels is not None:
+            return self.kernels.rollout_from_state(cells, prev, self.horizon)
+        return _plain_forecast(self.core, cells, prev, self.horizon)

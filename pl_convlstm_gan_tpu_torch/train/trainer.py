@@ -50,6 +50,7 @@ from ..data import (FenheDataset, SyntheticDownscalingDataset, batch_iterator,
                     split_dataset_random, to_device)
 from ..parallel.mesh import (broadcast_module, print0, rank_and_world,
                              train_group)
+from ..losses import station_rmse
 from ..predict import build_model, resolve_device
 from .checkpoint import CheckpointWriter, restore_checkpoint
 from .early_stopping import EarlyStopping
@@ -173,6 +174,14 @@ class Trainer:
         broadcast_module(self.model, self.group)
 
     # ------------------------------------------------------------------ eval
+    def compute_station_rmse(self, fake_hr, s_coords, s_values,
+                             scale_factor=1.0):
+        """Masked RMSE at the station pixels of ``fake_hr`` [B,T,1,H,W]
+        (numpy or tensors; ``losses.station_rmse``), the reference
+        trainer's metric."""
+        return station_rmse(*(torch.as_tensor(a) for a in
+                              (fake_hr, s_coords, s_values)), scale_factor)
+
     def _run_eval(self, dataset) -> Optional[Dict[str, float]]:
         """Wrap-padded batches masked in the step, sums aggregated exactly:
         metrics do not depend on the batch size."""
