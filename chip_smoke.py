@@ -60,6 +60,25 @@ own line:
    K1/K2 launches and the bits of rollout_impl torch, rollout_impl kernel
    and pallas raise naming the rule, and nowcast_128 in both dtypes still
    takes the kernels with exact launch counts;
+7a. int8: nowcast_128 at full width with rollout_impl int8 (weights from
+   the seed through weights.py): 3 load_predictor requests of B 4, each
+   with its first step's int32 conv sums torch.equal to the same int8
+   operands convolved on the CPU, within INT8_CPU_TOL of the int8 path on
+   the CPU, and under INT8_MAX_REL_L2 relative L2 from the f32 plain path;
+   the p50 of 5 requests (utils.profiling.benchmark_fn) beside the f32 and
+   bf16 kernel paths', in turns; the stream: observe_window of the first
+   request's 5 frames on the float path (3 K1 + 1 K2 a frame) and
+   forecast(30) with no launch, then forecast(30) and one observe at B 1
+   and B 8, timed beside the f32 kernel stream's forecast; export_model
+   and export_streaming (horizon INT8_HORIZON) under int8 served from
+   their bytes, torch.equal to the eager int8 path; the int8 weights'
+   bytes beside the f32 weights';
+7b. profiling: log_compiled_cost on one nowcast_128_pallas bf16 train step
+   on the kernel path (K1's flops counter) and the plain path: the two
+   GFLOP within COST_RTOL and equal to the count from the shapes, with the
+   peak of allocated memory; profile_trace over one int8 request writes a
+   trace file whose aten::_int_mm ops (120) name the int8 GEMM kernels
+   (cuBLASLt's, "s8" in the name) they launched;
 8. cell_save_z: K1 writing z (the training form, save_z=True) against its
    plain version at the cell shapes of 2 in both dtypes (h', c' and z; the
    Generator's cells included),
@@ -162,8 +181,9 @@ own line:
    FLOPs at the bf16 peak; no rate above 1.05x the peak), with the
    steady-state TFLOP/s of that slope;
 19. one JSON line {"kernels": [...]} with each kernel's launches (per path,
-   the artifacts' (export_predict, export_stream), the Generator's,
-   remat's, dp's and tp's (0) included), error, and its
+   the artifacts' (export_predict, export_stream), the int8 stream's
+   observe (int8_stream), the Generator's, remat's, dp's and tp's (0)
+   included), error, and its
    time beside
    its bound, its
    plain version's and the library call's (K1 with z as its own entry; K1
@@ -195,6 +215,8 @@ from pl_convlstm_gan_tpu_torch.config import load_config
 from pl_convlstm_gan_tpu_torch.data import (SyntheticDownscalingDataset,
                                             SyntheticSequenceDataset,
                                             batch_iterator, to_device)
+from pl_convlstm_gan_tpu_torch.models.quantized import (
+    _int8_step, _zero_states, prepare_int8_forecaster)
 from pl_convlstm_gan_tpu_torch.ops.convlstm import convlstm_step_torch
 from pl_convlstm_gan_tpu_torch.ops.kernels import build
 from pl_convlstm_gan_tpu_torch.ops.kernels import convlstm_kernel as cell_mod
@@ -207,9 +229,11 @@ from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
 from pl_convlstm_gan_tpu_torch.ops.kernels.tap_structure_kernel import (
     big_plain, tap_k1152, tap_loop, taps_plain)
 from pl_convlstm_gan_tpu_torch.ops.nn import oihw_from_hwio
+from pl_convlstm_gan_tpu_torch.ops.quant import (conv2d_int8, dynamic_scale,
+                                                 quantize_act)
 from pl_convlstm_gan_tpu_torch.predict import (
     build_discriminator, build_model, build_predict_fn, load_predictor,
-    rollout_choice)
+    load_state_dict, rollout_choice)
 from pl_convlstm_gan_tpu_torch.serve import (
     export_model, export_streaming, load_exported, load_streaming_exported,
     parse_stream_header)
@@ -219,6 +243,8 @@ from pl_convlstm_gan_tpu_torch.train.steps import (
     forecaster_train_step, gan_d_loss, gan_g_loss, gan_train_step,
     generator_eval_step, generator_loss, generator_train_step, loss_config,
     make_optimizer)
+from pl_convlstm_gan_tpu_torch.utils.profiling import (
+    benchmark_fn, log_compiled_cost, profile_trace)
 from pl_convlstm_gan_tpu_torch.weights import flax_to_state_dict
 
 SEED = 0
@@ -343,6 +369,20 @@ GEN_MAX_OUTPUT = 0.125
 STREAM_HORIZON = 30
 STREAM_BATCHES = (1, 8)
 N_TIMED = 5
+# int8 (rollout_impl: int8) on the card against the same int8 path on the
+# CPU. The int32 sums are exact on both; the float32 gates' sigmoid/tanh
+# differ by ulps between CUDA and the CPU, which can move an int8 level of a
+# later conv input by one. One level of the head's input (|h| < 1, so a
+# level is at most 1/127) moves an output by at most 1/127 times the head's
+# largest weight (1/sqrt(9*64) at torch's default init): 3.3e-4. The bound
+# allows three such levels in one output's 3x3 window.
+INT8_CPU_TOL = 1e-3
+# against the f32 plain path: JAX's bound (tests/test_quant.py:185)
+INT8_MAX_REL_L2 = 0.08
+# the int8 stream artifact's horizon: torch.export traces every step of the
+# unrolled loop (~1.5 s a step at nowcast_128), so 10, not 30
+INT8_HORIZON = 10
+COST_RTOL = 1e-6           # kernel against plain GFLOP of one train step
 
 
 def say(**fields):
@@ -2311,6 +2351,284 @@ def write_checkpoint(path, cfg, seed):
     return path
 
 
+# ------------------------------------------------------------------- int8
+
+def int8_config(impl="int8", dtype_name="float32"):
+    cfg = load_config("nowcast_128")
+    cfg.model.rollout_impl = impl
+    cfg.precision.compute_dtype = dtype_name
+    cfg.validate()
+    return cfg
+
+
+def first_step_convs(q, frames):
+    """The five int8 convs of the first quantized step of ``frames``
+    [B,T,C,H,W] (cell 0's x side and h side, the fused cells, the head):
+    [(name, int8 input, int8 kernel, int32 sum)], as ``_int8_step`` runs
+    them."""
+    b, _, _, hgt, wid = frames.shape
+    x = frames[:, 0].permute(0, 2, 3, 1).float()
+    states = _zero_states(q, b, hgt, wid, frames.device)
+    new_states, _ = _int8_step(q, states, x)
+    inputs = [("cell_0_x", q.cell0.conv_x, x),
+              ("cell_0_h", q.cell0.conv_h, states[0][0])]
+    inputs += [(f"cell_{i + 1}", qc, torch.cat([new_states[i][0],
+                                                states[i + 1][0]], -1))
+               for i, qc in enumerate(q.cells)]
+    inputs.append(("head", q.head, new_states[-1][0]))
+    out = []
+    for name, qc, inp in inputs:
+        xq = quantize_act(inp, dynamic_scale(inp))
+        out.append((name, xq, qc.wq, conv2d_int8(xq, qc.wq)))
+    return out
+
+
+def tensor_bytes(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(v) for v in obj)
+    return 0
+
+
+def phase_int8(ckpt, requests, frames8):
+    """int8 serving of nowcast_128 at full width on the card (see the module
+    docstring, 7a). Returns its record; the int8 stream's launch counts
+    under "stream_launches"."""
+    cfg = int8_config()
+    steps = cfg.model.input_frames + cfg.model.output_frames - 1
+    n_cells = len(cfg.model.hidden_dims)
+    t_in = cfg.model.input_frames
+    b, _, cin, hgt, wid = requests[0].shape
+    state_dict = load_state_dict(ckpt)
+    q = prepare_int8_forecaster({k: v.cuda() for k, v in state_dict.items()})
+    int8 = load_predictor(cfg, ckpt)
+    int8_cpu = load_predictor(cfg, ckpt, device="cpu")
+    plain = load_predictor(int8_config("torch"), ckpt)
+    kernels = {d: load_predictor(int8_config("auto", d), ckpt)
+               for d in ("float32", "bfloat16")}
+
+    per_request = []
+    for i, req in enumerate(requests):
+        for name, xq, wq, z in first_step_convs(q, req):
+            if not torch.equal(z.cpu(), conv2d_int8(xq.cpu(), wq.cpu())):
+                raise AssertionError(f"int8 request {i}: the first step's "
+                                     f"{name} int32 sums differ from the "
+                                     f"CPU's")
+        reset_counts()
+        out = int8(req)
+        expect_counts(f"int8 request {i}", 0, 0)
+        want = (b, cfg.model.output_frames, cin, hgt, wid)
+        if tuple(out.shape) != want or out.dtype != torch.float32 or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"int8 request {i}: {tuple(out.shape)} "
+                                 f"{out.dtype}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+        cpu_err = check_close(f"int8 request {i} vs the CPU", out.cpu(),
+                              int8_cpu(req.cpu()), INT8_CPU_TOL, 0.0)
+        ref = plain(req)
+        rel_l2 = float((out - ref).norm() / ref.norm())
+        if not rel_l2 < INT8_MAX_REL_L2:
+            raise AssertionError(f"int8 request {i}: relative L2 {rel_l2:.4f}"
+                                 f" against f32 >= {INT8_MAX_REL_L2}")
+        per_request.append(dict(max_abs_err_vs_cpu=cpu_err,
+                                rel_l2_vs_f32=rel_l2,
+                                first_step_int32_equal=True))
+
+    # p50 of N_TIMED requests a path, taken in turns (utils.profiling)
+    req = requests[0]
+    paths = {"int8": lambda: int8(req),
+             "f32_kernel": lambda: kernels["float32"](req),
+             "bf16_kernel": lambda: kernels["bfloat16"](req)}
+    times = {name: [] for name in paths}
+    for fn in paths.values():
+        benchmark_fn(fn, warmup=1, iters=1)
+    for _ in range(N_TIMED):
+        for name, fn in paths.items():
+            times[name].append(benchmark_fn(fn, warmup=0, iters=1)["p50"]
+                               * 1e3)
+    request_p50 = {name: statistics.median(ts) for name, ts in times.items()}
+
+    # the stream: float observe on K1/K2, int8 forecast without a launch
+    sf = StreamingForecaster.from_checkpoint(cfg, ckpt)
+    sf_f = StreamingForecaster.from_checkpoint(int8_config("auto"), ckpt)
+    reset_counts()
+    state, nowcast = sf.observe_window(sf.init_state(b, hgt, wid), req)
+    expect_counts("int8 stream observe_window", n_cells * t_in, t_in)
+    forecast = sf.forecast(state, STREAM_HORIZON)
+    stream_launches = expect_counts("int8 stream observe_window + "
+                                    f"forecast({STREAM_HORIZON})",
+                                    n_cells * t_in, t_in)
+    f_ref = sf_f.forecast(state, STREAM_HORIZON)
+    stream_rel_l2 = float((forecast - f_ref).norm() / f_ref.norm())
+    per_batch = []
+    for nb in STREAM_BATCHES:
+        warm, _ = sf.observe_window(sf.init_state(nb, hgt, wid), frames8[:nb])
+        frame = frames8[:nb, -1]
+        reset_counts()
+        sf.observe(warm, frame)
+        expect_counts(f"int8 stream observe B {nb}", n_cells, 1)
+        reset_counts()
+        out = sf.forecast(warm, STREAM_HORIZON)
+        expect_counts(f"int8 forecast({STREAM_HORIZON}) B {nb}", 0, 0)
+        if tuple(out.shape) != (nb, STREAM_HORIZON, cin, hgt, wid) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"int8 forecast B {nb}: {tuple(out.shape)}")
+        t = p50_ms({"forecast": lambda: sf.forecast(warm, STREAM_HORIZON),
+                    "forecast_f32_kernel": lambda: sf_f.forecast(
+                        warm, STREAM_HORIZON),
+                    "observe": lambda: sf.observe(warm, frame)})
+        per_batch.append(dict(batch=nb, horizon=STREAM_HORIZON,
+                              forecast_ms=t["forecast"][0],
+                              forecast_f32_kernel_ms=t["forecast_f32_kernel"][0],
+                              observe_ms=t["observe"][0],
+                              forecast_ms_all=t["forecast"][1]))
+
+    # the artifacts, served from their bytes
+    t0 = time.perf_counter()
+    blob = export_model(cfg, ckpt, (req,))
+    export_s = time.perf_counter() - t0
+    served = load_exported(blob)(req)
+    if not torch.equal(served, int8(req)):
+        raise AssertionError("int8 artifact: differs from the eager int8 "
+                             "path")
+    t0 = time.perf_counter()
+    sblob = export_streaming(cfg, ckpt, hgt, wid, horizons=(INT8_HORIZON,))
+    export_stream_s = time.perf_counter() - t0
+    meta = parse_stream_header(sblob)[0]
+    if meta["rollout"] != "int8" or meta["kernel_horizons"]:
+        raise AssertionError(f"int8 stream artifact header: {meta}")
+    server = load_streaming_exported(sblob)
+    s_state = server.init_state(b)
+    e_state = sf.init_state(b, hgt, wid)
+    reset_counts()
+    for t in range(t_in):
+        s_state, s_now = server.observe(s_state, req[:, t])
+    expect_counts("int8 stream artifact observe", n_cells * t_in, t_in)
+    for t in range(t_in):
+        e_state, e_now = sf.observe(e_state, req[:, t])
+    s_fore = server.forecast(s_state, INT8_HORIZON)
+    if not (torch.equal(s_now, e_now) and torch.equal(
+            s_fore, sf.forecast(e_state, INT8_HORIZON))):
+        raise AssertionError("int8 stream artifact: differs from the eager "
+                             "int8 stream")
+
+    rec = dict(config="nowcast_128", batch=b, steps=steps,
+               requests=per_request, request_p50_ms=request_p50,
+               request_ms=times, stream_launches=stream_launches,
+               stream_forecast_rel_l2_vs_f32_kernel=stream_rel_l2,
+               stream=per_batch,
+               artifacts=dict(export_s=export_s, bytes=len(blob),
+                              export_stream_s=export_stream_s,
+                              stream_bytes=len(sblob), equal=True),
+               weight_bytes=dict(int8=tensor_bytes(q),
+                                 float32=tensor_bytes(state_dict)),
+               tol=dict(vs_cpu=INT8_CPU_TOL, rel_l2_vs_f32=INT8_MAX_REL_L2))
+    say(phase="int8", **rec)
+    return rec, int8
+
+
+# -------------------------------------------------------------- profiling
+
+def train_step_flops(cfg):
+    """The operations of one forecaster train step, counted from the
+    shapes: each conv's forward and weight gradient, and its input gradient
+    wherever the input needs one (not cell 0 at step 0)."""
+    mc = cfg.model
+    b, size = cfg.training.batch_size, cfg.data.synthetic_image_size
+    conv = lambda cin, cout, k: 2 * b * size * size * k * k * cin * cout
+    steps = mc.input_frames + mc.output_frames - 1
+    cells, cin = [], mc.in_channels
+    for ch in mc.hidden_dims:
+        cells.append(conv(cin + ch, 4 * ch, mc.kernel_size))
+        cin = ch
+    head = conv(cin, mc.in_channels, 3)
+    forward = steps * sum(cells) + mc.output_frames * head
+    return 2 * forward + forward - cells[0]
+
+
+def int8_trace_kernels(events):
+    """The kernels the aten::_int_mm ops of a Chrome trace launched, by
+    name, and the number of those ops."""
+    ops = [e for e in events if e.get("name") == "aten::_int_mm"]
+    ext = {e.get("args", {}).get("External id") for e in ops}
+    corr = {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and e.get("args", {}).get("External id") in ext}
+    kernels = Counter(
+        e["name"] for e in events if e.get("cat") == "kernel" and (
+            e.get("args", {}).get("External id") in ext
+            or e.get("args", {}).get("correlation") in corr))
+    return len(ops), kernels
+
+
+def phase_profiling(tmp, int8_predict, request, seed):
+    """utils.profiling on the card (see the module docstring, 7b)."""
+    costs = {}
+    for name, impl in (("kernel", "pallas"), ("plain", "xla")):
+        cfg = train_config("bfloat16", impl)
+        mc = cfg.model
+        b, size = cfg.training.batch_size, cfg.data.synthetic_image_size
+        state = train_state(cfg, flax_to_state_dict(nowcast_params(cfg, seed)))
+        ds = SyntheticSequenceDataset(b, mc.input_frames, mc.output_frames,
+                                      size, seed=seed)
+        batch = to_device(next(batch_iterator(ds, b)), torch.device(DEVICE))
+        reset_counts()
+        m, cost = log_compiled_cost(f"nowcast_128_pallas {name} train step",
+                                    forecaster_train_step, state, batch,
+                                    cfg.training.learning_rate)
+        per_step = len(mc.hidden_dims) * (mc.input_frames
+                                          + mc.output_frames - 1)
+        expect_counts(f"profiling {name} step", 0, 0,
+                      per_step if name == "kernel" else 0)
+        if cost is None or m["skipped"] or not np.isfinite(m["total"]):
+            raise AssertionError(f"profiling {name} step: {m}, {cost}")
+        costs[name] = cost
+        del state
+        torch.cuda.empty_cache()
+    analytic = train_step_flops(train_config("bfloat16"))
+    rel = abs(costs["kernel"]["flops"] - costs["plain"]["flops"]) / \
+        costs["plain"]["flops"]
+    if not rel <= COST_RTOL or costs["plain"]["flops"] != analytic:
+        raise AssertionError(f"profiling: GFLOP kernel "
+                             f"{costs['kernel']['flops'] / 1e9} plain "
+                             f"{costs['plain']['flops'] / 1e9} analytic "
+                             f"{analytic / 1e9}")
+
+    logdir = os.path.join(tmp, "int8_trace")
+    int8_predict(request)
+    torch.cuda.synchronize()
+    with profile_trace(logdir):
+        # the first launches after tracing starts can be missing from the
+        # trace: a throwaway launch takes that place
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        int8_predict(request)
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)
+             if f.endswith(".pt.trace.json")]
+    if len(files) != 1 or os.path.getsize(files[0]) == 0:
+        raise AssertionError(f"profile_trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    cfg = int8_config()
+    n_ops, kernels = int8_trace_kernels(events)
+    want = (cfg.model.input_frames + cfg.model.output_frames - 1) * (
+        len(cfg.model.hidden_dims) + 2)
+    if n_ops != want or not kernels or \
+            not all("s8" in name for name in kernels):
+        raise AssertionError(f"int8 trace: {n_ops} aten::_int_mm (expected "
+                             f"{want}), their kernels {dict(kernels)}")
+    rec = dict(gflop={k: c["flops"] / 1e9 for k, c in costs.items()},
+               gflop_analytic=analytic / 1e9, gflop_rel_diff=rel,
+               peak_bytes={k: c["peak_bytes"] for k, c in costs.items()},
+               trace_bytes=os.path.getsize(files[0]), int_mm_ops=n_ops,
+               int_mm_kernels=dict(kernels))
+    say(phase="profiling", **rec)
+    return rec
+
+
 # ------------------------------------------------------------------ remat
 # gan_256_single as written (bf16, vjp, B 2, 5 -> 30, 256^2, remat save_z on
 # the plain cell) against the same run without remat (the gan phase's cut);
@@ -3422,7 +3740,7 @@ def dp_nccl_main() -> int:
 
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                    trainer, gans, gan_trainer, gens, gen_trainer, taps,
-                   remat, dp, tp, exports):
+                   remat, dp, tp, exports, int8):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
@@ -3430,8 +3748,14 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
     Generator's two cells ((16, 16), (16, 32)) alike. The GAN paths'
     launches are per step of each configuration and of the GAN trainer's
     run; the Generator's per request, per train step and of its trainer's
-    run."""
+    run. The int8 stream (float32) launches K1/K2 in its observe only: its
+    count covers the first request's observed frames and one int8
+    forecast."""
     entries = []
+    int8_k1 = {"float32": {"int8_stream": int8["stream_launches"][
+        "convlstm_cell_fwd"]}, "bfloat16": {}}
+    int8_k2 = {"float32": {"int8_stream": int8["stream_launches"][
+        "conv_head_fwd"]}, "bfloat16": {}}
     gan_k1 = {name: {} for name in paths}
     gan_k1z = {name: {} for name in paths}
     for g in gans:
@@ -3489,7 +3813,8 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                 **gan_k1[name],
                 "generator_request": gens[name]["launches_per_request"][
                     "convlstm_cell_fwd"],
-                "generator_eval_batch": gens[name]["launches_eval_batch"]},
+                "generator_eval_batch": gens[name]["launches_eval_batch"],
+                **int8_k1[name]},
             max_abs_err=max(r["max_abs_err"] for r in cell[name]),
             ms=mix("ms"), plain_ms=mix("plain_ms"), bound_ms=mix("bound_ms"),
             bound_by=c_recs[0]["bound_by"], library_ms=mix("library_ms"),
@@ -3531,7 +3856,7 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                 "export_predict": exports[name]["predict"]["launches"][
                     "conv_head_fwd"],
                 "export_stream": exports[name]["stream"]["launches"][
-                    "conv_head_fwd"]},
+                    "conv_head_fwd"], **int8_k2[name]},
             max_abs_err=max(r["max_abs_err"] for r in head[name]),
             ms=h["ms"], graph_ms=h["graph_ms"], plain_ms=h["plain_ms"],
             bound_ms=h["bound_ms"], bound_by=h["bound_by"],
@@ -3576,8 +3901,11 @@ def main() -> int:
     # float32 references in full float32 (cuDNN convs default to TF32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    import importlib.util
     say(phase="env", python=sys.version.split()[0], torch=torch.__version__,
-        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        optional={m: importlib.util.find_spec(m) is not None
+                  for m in ("matplotlib", "grain", "pandas")})
 
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3642,6 +3970,9 @@ def main() -> int:
         exports = phase_export(tmp, requests, frames8, SEED)
         phase_precip_256(tmp, SEED)
         phase_fit(tmp, SEED)
+        int8, int8_predict = phase_int8(ckpt, requests, frames8)
+        phase_profiling(tmp, int8_predict, requests[0], SEED)
+        del int8_predict
         trains = {dtype_name: phase_train(dtype_name, SEED)
                   for dtype_name in ("bfloat16", "float32")}
         trainer = phase_trainer(tmp, requests[0])
@@ -3658,7 +3989,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
         gans, gan_trainer, gens, gen_trainer, taps, remat, dp, tp,
-        exports)}), flush=True)
+        exports, int8)}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

@@ -51,8 +51,13 @@ the streaming artifact (``serve.export_streaming``; default
 dataset, with a forecast program per ``--horizons``; ``--tpu-kernel`` keeps
 the JAX flag's name and values and selects the CUDA kernel entries (auto:
 when the kernels take the model on the device; require: raise unless they
-do; off: the plain programs). Every mode runs on the GPU unless ``--device
-cpu`` is given.
+do; off: the plain programs). A config with ``model.rollout_impl: int8``
+serves the post-training-quantized rollout in predict, stream (int8
+forecasts, float observe), export and export-stream (int8 forecast entries;
+``--tpu-kernel require`` contradicts it and is refused). Train mode reads
+``data.source: frames`` (an on-disk ``.npy`` / ``.npz``) and
+``data.loader: grain`` as the JAX trainers do. Every mode runs on the GPU
+unless ``--device cpu`` is given.
 
 Data parallelism: launched by ``torchrun`` (or with the JAX package's
 ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``), every rank

@@ -7,15 +7,16 @@ fallback (``CONFIG_NAME``), round-trip ``to_yaml`` and ``validate()``.
 
 Differences from the JAX copy: no ``apply_debug_flags`` (it drives JAX's own
 debug switches), ``model.rollout_impl`` takes the port's values
-``auto | torch | kernel`` and the JAX package's ``xla`` (= torch) and
-``pallas`` (= kernel) through one mapping (``rollout_path``; ``int8`` is
-refused by name), and ``model.convlstm_impl`` keeps the JAX values
+``auto | torch | kernel | int8`` and the JAX package's ``xla`` (= torch) and
+``pallas`` (= kernel) through one mapping (``rollout_path``), and
+``model.convlstm_impl`` keeps the JAX values
 with the port's meaning (``convlstm_cell_impl``): ``pallas`` runs the cells
 on the hand-written CUDA kernel K1 (in training: K1 writing z and the custom
 backward, ``ops.kernels.convlstm_kernel.ConvLSTMCellFn``); ``xla`` and
-``auto`` run the plain PyTorch step. ``validate(training=True)`` refuses the
-training settings the port has not ported yet (the frames source,
-grain), each naming its ROADMAP item. ``mesh.data_axis`` is the number of
+``auto`` run the plain PyTorch step. ``validate(training=True)`` also checks
+what a training run needs: ``data.loader: grain`` needs the grain package
+(an ImportError naming ``data.loader: plain`` where it is not installed; the
+loader is never switched silently). ``mesh.data_axis`` is the number of
 data-parallel ranks (0: the world size, over ``mesh.model_axis`` under
 tensor parallelism) and ``mesh.model_axis`` the ranks that shard each
 ConvLSTM cell's channels; ``parallel.mesh`` holds both against the process
@@ -23,6 +24,7 @@ group the run was launched with.
 """
 from __future__ import annotations
 
+import importlib.util
 import os
 from dataclasses import dataclass, field, asdict, fields
 from typing import Any, Dict, List, Optional
@@ -88,7 +90,9 @@ class ModelConfig:
     # forward; "kernel" (or JAX's "pallas") forces the kernel path and
     # raises on widths the kernels refuse (on CPU tensors each kernel
     # wrapper runs its plain version); "torch" (or JAX's "xla") = the plain
-    # ConvLSTMForecaster.forward. JAX's "int8" is not ported (ROADMAP A13).
+    # ConvLSTMForecaster.forward; "int8" = the post-training-quantized
+    # rollout (models/quantized.py: int8 convs on torch._int_mm, float32
+    # gates), whose streaming observe stays float on the "auto" path.
     rollout_impl: str = "auto"
     remat: bool = False            # rematerialized scan body (O(1) memory in T)
     remat_policy: str = ""         # "" (full) | "save_z" | "dots" (selective)
@@ -239,8 +243,8 @@ class Config:
 
     def validate(self, training: bool = False) -> None:
         """Path warnings + range checks (reference: src/config.py:104-119).
-        ``training=True`` (the trainer and ``--mode train/eval``) also
-        refuses the training settings the port has not ported yet."""
+        ``training=True`` (the trainers and ``--mode train/eval``) also
+        checks what a training run needs (``_check_training``)."""
         for path_name, path_value in self.data.__dict__.items():
             if path_name.endswith("_path") and path_value and not os.path.exists(path_value):
                 print(f"Warning: {path_name} does not exist: {path_value}")
@@ -302,21 +306,17 @@ class Config:
                 "without it the generator silently falls back to scale 1 "
                 "(no upsampling at all)")
         if training:
-            self._refuse_unported_training()
+            self._check_training()
 
-    def _refuse_unported_training(self) -> None:
-        """The training settings the port does not run yet, each refused with
-        the ROADMAP item that ports it."""
-        refusals = [
-            (self.data.source == "frames",
-             "data.source 'frames': the on-disk frames source is ROADMAP A6 "
-             "(left)"),
-            (self.data.loader == "grain",
-             "data.loader 'grain': grain is ROADMAP A6 (left); use 'plain'"),
-        ]
-        for refused, message in refusals:
-            if refused:
-                raise NotImplementedError(f"not ported yet: {message}")
+    def _check_training(self) -> None:
+        """What a training run needs beyond the checks above."""
+        if self.data.loader == "grain" and \
+                importlib.util.find_spec("grain") is None:
+            raise ImportError(GRAIN_MISSING)
+
+
+GRAIN_MISSING = ("data.loader 'grain' needs the grain package, which is not "
+                 "installed; use data.loader: plain")
 
 
 CONVLSTM_IMPLS = ("auto", "xla", "pallas")
@@ -333,18 +333,16 @@ def convlstm_cell_impl(convlstm_impl: str) -> str:
 
 
 # model.rollout_impl -> the port's path: its own values and the JAX
-# package's (xla: the plain scan, pallas: the TPU rollout kernel)
+# package's (xla: the plain scan, pallas: the TPU rollout kernel, int8: the
+# quantized rollout)
 ROLLOUT_IMPLS = {"auto": "auto", "torch": "torch", "kernel": "kernel",
-                 "xla": "torch", "pallas": "kernel"}
+                 "xla": "torch", "pallas": "kernel", "int8": "int8"}
 
 
 def rollout_path(rollout_impl: str) -> str:
     """The port's inference path for a ``model.rollout_impl``: 'auto',
-    'torch' or 'kernel' (JAX's 'xla' -> 'torch', 'pallas' -> 'kernel').
-    Refuses JAX's 'int8' by name and any other value."""
-    if rollout_impl == "int8":
-        raise ValueError("rollout_impl 'int8' (the post-training-quantized "
-                         "rollout) is not ported yet: ROADMAP A13")
+    'torch', 'kernel' or 'int8' (JAX's 'xla' -> 'torch', 'pallas' ->
+    'kernel'). Any other value raises."""
     if rollout_impl not in ROLLOUT_IMPLS:
         raise ValueError(f"Unknown rollout_impl: {rollout_impl!r} (valid: "
                          f"{', '.join(ROLLOUT_IMPLS)})")

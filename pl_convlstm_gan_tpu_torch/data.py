@@ -2,14 +2,18 @@
 the synthetic and the Fenhe downscaling datasets, the seeded 70/15/15 and
 by-year splits, numpy batching, and a prefetch to the device.
 
-Copies of the JAX package's ``data/synthetic.py``
+Copies of the JAX package's ``data/frames.py`` (``NpyFramesDataset``: an
+on-disk ``.npy`` / ``.npz`` stack of frame sequences, ``data.source:
+frames``), ``data/synthetic.py``
 (``SyntheticSequenceDataset``, ``SyntheticDownscalingDataset``; pure numpy:
 the same seed gives the same items bit for bit), ``data/fenhe.py``
 (``FenheDataset`` and its helpers; pandas, which reads the station tables,
 is imported only when a Fenhe dataset is built), ``data/splits.py``
 (``Subset``, ``split_dataset_random``, ``year_indices``,
-``split_dataset_by_year``) and the single-process half of
-``data/pipeline.py`` (``batch_iterator``, ``eval_batches`` with
+``split_dataset_by_year``) and ``data/pipeline.py`` (``make_grain_loader``,
+the grain pipeline of ``data.loader: grain``, with grain imported when a
+loader is made and the process index and count those of the trainer's data
+group, not JAX's process; ``batch_iterator``, ``eval_batches`` with
 wrap-padding, and ``_process_slice``: under data parallelism each rank
 takes its contiguous block of every global batch, in JAX's index order, and
 every rank yields the same number of batches, since a rank that entered an
@@ -17,8 +21,6 @@ extra step would deadlock the collectives). ``prefetch_to_device`` takes
 the place of the JAX ``prefetch_to_device``: it copies each batch from
 pinned host memory with ``non_blocking`` a batch or two ahead of the step
 that reads it.
-
-Not ported: the on-disk frames source and grain (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -143,6 +145,71 @@ class SyntheticDownscalingDataset:
 
 
 # ------------------------------------------------------------------- Fenhe
+
+class NpyFramesDataset:
+    """On-disk frame sequences for the forecaster / GAN families; item =
+    (inputs [T_in, C, H, W] float32, targets [T_out, C, H, W] float32).
+
+    A copy of the JAX package's ``data/frames.py``. Layouts (by rank):
+    ``[N, T, H, W]`` (N single-channel sequences), ``[N, T, C, H, W]``, or
+    ``[T, H, W]``, one long movie cut into windows ``stride`` frames apart
+    (default: non-overlapping). ``.npy`` is memory-mapped (``mmap``);
+    ``.npz`` is read eagerly from entry ``key``. Values are multiplied by
+    ``scale``."""
+
+    def __init__(self, path: str, input_frames: int, output_frames: int,
+                 stride: Optional[int] = None, scale: float = 1.0,
+                 key: str = "frames", mmap: bool = True):
+        self.t_in = input_frames
+        self.t_out = output_frames
+        self.scale = float(scale)
+        total = input_frames + output_frames
+        if path.endswith(".npz"):
+            with np.load(path) as zf:
+                arr = np.asarray(zf[key])
+        else:
+            arr = np.load(path, mmap_mode="r" if mmap else None)
+
+        if arr.ndim == 3:            # one long movie [T, H, W]
+            self._movie = arr
+            self._stride = stride or total
+            n_windows = (arr.shape[0] - total) // self._stride + 1
+            if n_windows <= 0:
+                raise ValueError(
+                    f"movie of {arr.shape[0]} frames too short for "
+                    f"{total}-frame windows")
+            self._n = n_windows
+        elif arr.ndim in (4, 5):     # [N, T(, C), H, W]
+            if arr.shape[1] < total:
+                raise ValueError(
+                    f"sequences have {arr.shape[1]} frames, need >= {total}")
+            self._movie = None
+            self._seqs = arr
+            self._n = arr.shape[0]
+        else:
+            raise ValueError(f"unsupported frame array rank {arr.ndim} "
+                             f"(shape {arr.shape})")
+
+    def __len__(self) -> int:
+        return self._n
+
+    def _window(self, idx: int) -> np.ndarray:
+        total = self.t_in + self.t_out
+        if self._movie is not None:
+            start = idx * self._stride
+            w = self._movie[start:start + total]          # [T, H, W]
+            return np.asarray(w)[:, None]                 # [T, 1, H, W]
+        w = np.asarray(self._seqs[idx, :total])
+        if w.ndim == 3:                                   # [T, H, W]
+            w = w[:, None]
+        return w                                          # [T, C, H, W]
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        w = self._window(int(idx)).astype(np.float32)
+        if self.scale != 1.0:
+            w = w * self.scale
+        return w[:self.t_in], w[self.t_in:]
+
 
 def read_shapefile_extent(shp_path: str) -> List[float]:
     """[min_lat, max_lat, min_lon, max_lon] from an ESRI shapefile's main
@@ -474,6 +541,64 @@ def eval_batches(dataset, batch_size: int, process_index: int = 0,
         idx = _process_slice([(start + j) % n for j in range(batch_size)],
                             process_index, process_count)
         yield _stack([dataset[int(i)] for i in idx]), n_valid
+
+
+def make_grain_loader(dataset, batch_size: int, shuffle: bool = False,
+                      seed: int = 0, num_epochs: Optional[int] = 1,
+                      drop_remainder: bool = True,
+                      shard_by_process: bool = True, worker_count: int = 0,
+                      process_index: Optional[int] = None,
+                      process_count: Optional[int] = None) -> Iterable:
+    """A ``grain.MapDataset`` pipeline: [shard] -> shuffle -> [truncate] ->
+    [repeat] -> batch (-> worker processes), yielding tuples of stacked
+    numpy arrays. A copy of the JAX package's ``make_grain_loader``.
+
+    ``batch_size`` is the global batch. With ``process_count`` > 1 each
+    process reads the interleaved shard ``dataset[process_index::
+    process_count]`` and yields its ``batch_size / process_count`` rows of
+    every global batch; every shard is truncated, after the shuffle, to one
+    length, a multiple of the local batch, so that every process takes the
+    same number of steps. The index and count default to this process's
+    rank and world (``parallel.mesh.rank_and_world``); the trainers pass
+    their data group's (``mesh_position``), which under tensor parallelism
+    gives the ranks of a model group the same rows. ``num_epochs``: 1 = one
+    pass, None = endless. grain is imported here; where it is not
+    installed this raises ImportError naming ``data.loader: plain``."""
+    try:
+        import grain
+    except ImportError as e:
+        from .config import GRAIN_MISSING
+        raise ImportError(GRAIN_MISSING) from e
+    if process_index is None or process_count is None:
+        from .parallel.mesh import rank_and_world
+        rank, world = rank_and_world()
+        process_index = rank if process_index is None else process_index
+        process_count = world if process_count is None else process_count
+
+    ds = grain.MapDataset.source(dataset)
+    local_bs = batch_size
+    common = None
+    if shard_by_process and process_count > 1:
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
+        ds = ds[process_index::process_count]
+        local_bs = batch_size // process_count
+        n = len(dataset)
+        common = ((n // process_count // local_bs) * local_bs
+                  if drop_remainder else n // process_count)
+    if shuffle:
+        ds = ds.shuffle(seed=seed)
+    if common is not None:
+        ds = ds[:common]
+    # grain's convention: repeat(None) = endless, 1 = one pass
+    if num_epochs is None or num_epochs != 1:
+        ds = ds.repeat(num_epochs)
+    ds = ds.batch(local_bs, drop_remainder=drop_remainder, batch_fn=_stack)
+    if worker_count > 0:
+        return ds.to_iter_dataset().mp_prefetch(
+            grain.MultiprocessingOptions(num_workers=worker_count))
+    return ds
 
 
 def to_device(batch, device: torch.device):

@@ -9,7 +9,9 @@ custom VJP ``convlstm_step_pallas_core`` (``_fwd`` / ``_bwd``). The kernel is
 laid out. Here are its wrapper ``convlstm_cell_fwd``, its plain PyTorch
 version ``convlstm_cell_plain``, its launch counts
 (``convlstm_cell_fwd.launches`` without ``z``, ``convlstm_cell_fwd.launches_z``
-with it), the kernels' weight layouts ``pack_cell_weight`` (bfloat16) and
+with it) and the operations of those launches (``convlstm_cell_fwd.flops``,
+2*B*H*W*K^2*Cin*4Ch a launch, which ``utils.profiling.compiled_cost`` adds to
+aten's count), the kernels' weight layouts ``pack_cell_weight`` (bfloat16) and
 ``pack_cell_weight_f32`` (float32), made once per predictor, stream or
 training forward pass, ``cell_kernel_misfit`` (the shapes K1 does not take,
 each rule stated once) and ``ConvLSTMCellFn``, the training step as a
@@ -270,10 +272,10 @@ def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
     ``h`` or ``x``) and returns (h_out, c_out). With ``z_out``
     [B,H,W,4Ch] (the training form, save_z=True) the kernel also writes the
     pre-activation z there; such launches count in ``launches_z``, the
-    others in ``launches``. The kernel reads ``packed``
-    (``kernel_pack(weight, x.dtype)``, made here when None: callers that
-    launch repeatedly pack once). ``cell_kernel_misfit`` states the shapes
-    it refuses."""
+    others in ``launches``, and each adds its operations to ``flops``. The
+    kernel reads ``packed`` (``kernel_pack(weight, x.dtype)``, made here
+    when None: callers that launch repeatedly pack once).
+    ``cell_kernel_misfit`` states the shapes it refuses."""
     if (h_out is None) != (c_out is None):
         raise ValueError("pass both h_out and c_out, or neither")
     tensors = (x, h, c, weight, bias)
@@ -303,11 +305,14 @@ def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
         convlstm_cell_fwd.launches += 1
     else:
         convlstm_cell_fwd.launches_z += 1
+    ch, k = h.shape[-1], weight.shape[0]
+    convlstm_cell_fwd.flops += 2 * b * hgt * wid * k * k * (cx + ch) * 4 * ch
     return h_out, c_out
 
 
 convlstm_cell_fwd.launches = 0
 convlstm_cell_fwd.launches_z = 0
+convlstm_cell_fwd.flops = 0
 
 
 class ConvLSTMCellFn(torch.autograd.Function):

@@ -27,6 +27,7 @@ import torch
 
 from .config import Config, convlstm_cell_impl, rollout_path
 from .models import ConvLSTMForecaster, Discriminator, Generator
+from .models.quantized import prepare_int8_forecaster, rollout_int8
 from .ops.kernels.rollout_kernel import (pack_weights, rollout_kernel,
                                          rollout_kernel_misfit)
 from .weights import flax_to_state_dict, load_reference_pth
@@ -121,15 +122,16 @@ def load_state_dict(checkpoint_path: str) -> dict:
 
 def rollout_choice(config: Config, device: torch.device,
                    rollout_impl: str = "") -> str:
-    """'kernel' or 'torch': the inference path of ``rollout_impl`` (default:
-    the config's ``model.rollout_impl``; JAX's values map as
+    """'kernel', 'torch' or 'int8': the inference path of ``rollout_impl``
+    (default: the config's ``model.rollout_impl``; JAX's values map as
     ``config.rollout_path`` says) for this config on ``device``, decided
     before any weight is loaded or kernel launched. 'auto' takes the kernels
     on a GPU when ``rollout_kernel_misfit`` finds nothing in the config's
     widths and compute dtype, else the plain path; 'kernel' on a GPU raises
-    ValueError naming the rule the model breaks."""
+    ValueError naming the rule the model breaks; 'int8' is the quantized
+    rollout on any device."""
     impl = rollout_path(rollout_impl or config.model.rollout_impl)
-    if impl == "torch":
+    if impl in ("torch", "int8"):
         return impl
     mc = config.model
     misfit = rollout_kernel_misfit(tuple(mc.hidden_dims), mc.in_channels,
@@ -158,7 +160,9 @@ def build_predict_fn(config: Config, checkpoint_path: str,
     K1 and K2 launched step by step (``rollout_kernel``; on CPU tensors each
     wrapper runs its plain version); 'torch' (JAX's 'xla') = the plain
     ``ConvLSTMForecaster.forward``; 'auto' = 'kernel' on a GPU when the
-    kernels take the model's widths, else 'torch'."""
+    kernels take the model's widths, else 'torch'; 'int8' = the
+    post-training-quantized rollout (``models/quantized.py``), its weights
+    quantized once here."""
     dev = resolve_device(device)
     if config.model.family == "generator":
         state = load_state_dict(checkpoint_path)
@@ -172,6 +176,15 @@ def build_predict_fn(config: Config, checkpoint_path: str,
     model.to(dev).eval()
     t_in, t_out = model.input_frames, model.output_frames
 
+    if impl == "int8":
+        q = prepare_int8_forecaster(model)
+
+        def fn(frames):
+            if frames.shape[1] != t_in:
+                raise ValueError(f"expected a {t_in}-frame input window "
+                                 f"(model.input_frames), got {frames.shape[1]}")
+            return rollout_int8(q, frames, t_out)
+        return fn
     if impl == "kernel":
         cdtype = compute_dtype(config)
         weights = pack_weights(model.state_dict(), cdtype)

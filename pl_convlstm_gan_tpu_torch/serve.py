@@ -34,7 +34,14 @@ so ``torch.export.load`` alone reads them back (after importing
   (``torch.export.passes.move_to_device_pass``): the GPU unless the caller
   passes ``device="cpu"``. JAX's multi-platform ``platforms`` has no
   counterpart.
-- ``rollout_impl: int8`` is refused (ROADMAP A13), as everywhere in the port.
+- ``rollout_impl: int8`` exports the quantized rollout
+  (``models/quantized.py``), as JAX's does: ``export_model`` traces
+  ``rollout_int8`` with the int8 kernels and their scales as buffers of the
+  program; ``export_streaming`` writes int8 forecast entries beside the
+  float observe entry (observe stays float, as in ``StreamingForecaster``:
+  the kernel op on a GPU that takes the model, unless ``tpu_kernel`` is
+  "off"), with ``rollout`` "int8" in the header and no kernel forecast
+  entries; ``tpu_kernel="require"`` contradicts int8 and raises.
 
 The streaming artifact (``export_streaming``) keeps JAX's wire layout with a
 magic of its own: magic, a little-endian u32 header length, a JSON header
@@ -56,7 +63,9 @@ import torch
 from torch import nn
 from torch.export.passes import move_to_device_pass
 
-from .config import Config
+from .config import Config, rollout_path
+from .models.quantized import (Int8Weights, prepare_int8_forecaster,
+                               rollout_int8)
 from .ops.kernels.export_ops import KernelWeights
 from .ops.kernels.rollout_kernel import pack_weights
 from .predict import (_as_tensor, build_predict_fn, compute_dtype,
@@ -67,6 +76,22 @@ STREAM_MAGIC = b"PLCGPTS1"
 JAX_STREAM_MAGIC = b"PLCGSTR1"     # the JAX package's streaming artifacts
 STREAM_FORMAT = 1
 TPU_KERNEL = ("auto", "require", "off")
+
+
+class _Int8Rollout(nn.Module):
+    """The batch predictor's int8 path: frames [B,T_in,C,H,W] ->
+    [B,T_out,C,H,W] float32, the int8 weights as buffers."""
+
+    def __init__(self, q, t_in: int, t_out: int):
+        super().__init__()
+        self.weights = Int8Weights(q)
+        self.t_in, self.t_out = t_in, t_out
+
+    def forward(self, frames):
+        if frames.shape[1] != self.t_in:
+            raise ValueError(f"expected a {self.t_in}-frame input window "
+                             f"(model.input_frames), got {frames.shape[1]}")
+        return rollout_int8(self.weights.forecaster(), frames, self.t_out)
 
 
 class _KernelRollout(nn.Module):
@@ -122,7 +147,8 @@ def export_model(config: Config, checkpoint_path: str, example_args: Sequence,
     the batch is symbolic unless ``batch_polymorphic`` is False, which pins
     it to the example's. ``device`` (default: the GPU) is where the
     weights are loaded and the path decided (``rollout_choice``); the
-    forecaster's kernel path becomes the ``plcg_torch::rollout`` op."""
+    forecaster's kernel path becomes the ``plcg_torch::rollout`` op, its
+    int8 path the traced ``rollout_int8`` on weights quantized here."""
     dev = resolve_device(device)
     plain = _plain_cells(config)
     if config.model.family == "generator":
@@ -133,9 +159,15 @@ def export_model(config: Config, checkpoint_path: str, example_args: Sequence,
         model = build_predict_fn(plain, checkpoint_path, lu_channels,
                                  output_frames, rollout_impl="torch",
                                  device=dev)
-        program = model if impl == "torch" else _KernelRollout(
-            pack_weights(model.state_dict(), compute_dtype(config)),
-            model.input_frames, model.output_frames)
+        if impl == "torch":
+            program = model
+        elif impl == "int8":
+            program = _Int8Rollout(prepare_int8_forecaster(model),
+                                   model.input_frames, model.output_frames)
+        else:
+            program = _KernelRollout(
+                pack_weights(model.state_dict(), compute_dtype(config)),
+                model.input_frames, model.output_frames)
     args = [_as_tensor(a).to(dev, torch.float32) for a in example_args]
     dynamic = None
     if batch_polymorphic:
@@ -180,7 +212,9 @@ def export_streaming(config: Config, checkpoint_path: str, height: int,
     ``rollout_choice`` takes the kernels on the export device ``device``
     (default: the GPU), else the plain programs; "require" raises unless it
     does; "off" exports the plain programs. K1 and K2 take any batch, so
-    kernel entries are batch-polymorphic too."""
+    kernel entries are batch-polymorphic too. Under ``rollout_impl: int8``
+    the forecast entries are the quantized decode and the observe entry the
+    float one of "auto" (or "off"); "require" raises, as JAX's does."""
     horizons = [int(h) for h in horizons]
     if not horizons or any(h < 1 for h in horizons):
         raise ValueError(f"horizons must be >= 1, got {horizons}")
@@ -191,10 +225,22 @@ def export_streaming(config: Config, checkpoint_path: str, height: int,
                          f"{tpu_kernel!r}")
     dev = resolve_device(device)
     config = _plain_cells(config)
+    int8 = rollout_path(config.model.rollout_impl) == "int8"
+    if int8 and tpu_kernel == "require":
+        raise ValueError(
+            "tpu_kernel='require' contradicts rollout_impl 'int8': kernel "
+            "forecast entries are float programs and would serve "
+            "non-quantized forecasts from an artifact exported as int8 - "
+            "export with tpu_kernel='auto' or 'off' (or a non-int8 config)")
+    # the float programs' path: observe's, and the forecasts' unless int8
     if tpu_kernel == "off":
         config.model.rollout_impl = "torch"
+    elif int8:
+        config.model.rollout_impl = "auto"
     sf = StreamingForecaster.from_checkpoint(config, checkpoint_path, dev)
     meta = sf.export_meta()
+    forecast_fn = sf.export_forecast_int8_fn if int8 else \
+        sf.export_forecast_fn
     if tpu_kernel == "require" and meta["rollout"] != "kernel":
         raise ValueError(
             f"tpu_kernel='require' but the kernel path does not serve this "
@@ -216,8 +262,10 @@ def export_streaming(config: Config, checkpoint_path: str, height: int,
     entries = [("observe", _save(sf.export_observe_fn(), (state, frame),
                                  observe_dims))]
     for h in horizons:
-        entries.append((f"forecast_{h}", _save(sf.export_forecast_fn(h),
-                                               (state,), forecast_dims)))
+        entries.append((f"forecast_{h}", _save(forecast_fn(h), (state,),
+                                               forecast_dims)))
+    if int8:
+        meta["rollout"] = "int8"
     header = json.dumps({
         "format": STREAM_FORMAT, "height": height, "width": width,
         "horizons": horizons,

@@ -31,8 +31,13 @@ path each is one registered op (``ops/kernels/export_ops.py``), on the plain
 path the plain step loop. Their state is plain nested tuples, ``(((h, c),
 ...), prev_out)``, as JAX's hooks take it.
 
-Not ported here: the JAX package's int8 forecast (the port's config rejects
-``rollout_impl: int8``, ROADMAP A13). JAX's ``pallas_forecast_fits`` becomes
+``rollout_impl: int8`` makes ``forecast`` the quantized decode
+(``models/quantized.py``: ``rollout_int8_from_state``, weights quantized
+once, at the first forecast), as JAX's does. ``observe`` stays float, as
+JAX's: it is one step a frame and sets the state every branch starts from;
+it takes the path that ``rollout_impl: auto`` takes on the device, so K1 and
+K2 on a GPU whose kernels take the model. The export hook of that forecast
+is ``export_forecast_int8_fn``. JAX's ``pallas_forecast_fits`` becomes
 ``rollout_kernel_misfit``: K1 and K2 take any frame size, batch and horizon,
 so the choice depends only on the widths, the kernel size and the compute
 dtype, and is made before any export.
@@ -46,6 +51,8 @@ import torch
 from torch import nn
 
 from .config import Config
+from .models.quantized import (Int8Weights, prepare_int8_forecaster,
+                               rollout_int8_from_state)
 from .ops.kernels.export_ops import KernelWeights
 from .ops.kernels.rollout_kernel import (observe_kernel, pack_weights,
                                          rollout_kernel_from_state)
@@ -77,13 +84,18 @@ class StreamingForecaster:
                 f"streaming inference needs a sequence family "
                 f"(forecaster/gan), got {mc.family!r}")
         self.device = resolve_device(device)
-        self._kernels = rollout_choice(config, self.device) == "kernel"
+        self._int8 = rollout_choice(config, self.device) == "int8"
+        # the float path: observe's, and forecast's unless under int8
+        self._kernels = rollout_choice(
+            config, self.device, "auto" if self._int8 else "") == "kernel"
+        self._q = None         # the int8 weights, made at the first forecast
         self._hidden = tuple(mc.hidden_dims)
         self._channels = mc.in_channels
         self._cdtype = compute_dtype(config)
         model = build_model(config)
         model.load_state_dict(state_dict)
         model.to(self.device).eval()
+        self._model = model
         self._core = model.core
         self._weights = (pack_weights(model.state_dict(), self._cdtype)
                          if self._kernels else None)
@@ -137,16 +149,30 @@ class StreamingForecaster:
         """Free-running rollout of ``horizon`` frames ``[B, horizon, C, H, W]``
         float32 beyond the state's nowcast, without touching ``state`` (a pure
         branch). On the kernel path: horizon x n_cells K1 launches and
-        horizon K2 launches."""
+        horizon K2 launches; under int8 none (int8 convs on
+        ``torch._int_mm``)."""
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
         with torch.inference_mode():
+            if self._int8:
+                return rollout_int8_from_state(
+                    self._int8_weights(), state.prev_out, state.cells,
+                    horizon)[0]
             if self._kernels:
                 return rollout_kernel_from_state(
                     self._weights, state.cells, state.prev_out, horizon,
                     self._cdtype)
             return _plain_forecast(self._core, state.cells, state.prev_out,
                                    horizon)
+
+    def _int8_weights(self):
+        """The int8 weights, quantized once, at the first call (as ordinary
+        tensors, also when that call runs under inference mode, so that an
+        export may hold them)."""
+        if self._q is None:
+            with torch.inference_mode(False), torch.no_grad():
+                self._q = prepare_int8_forecaster(self._model)
+        return self._q
 
     # -- export hooks (serve.export_streaming) ------------------------------
     def export_observe_fn(self) -> nn.Module:
@@ -162,14 +188,23 @@ class StreamingForecaster:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
         return _ForecastProgram(self, horizon)
 
+    def export_forecast_int8_fn(self, horizon: int) -> nn.Module:
+        """The quantized variant of ``export_forecast_fn`` (``rollout_impl:
+        int8``): a module ``state -> forecast [B, horizon, C, H, W]
+        float32`` with the int8 weights and their scales as buffers."""
+        if horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {horizon}")
+        return _Int8ForecastProgram(self._int8_weights(), horizon)
+
     def export_meta(self) -> dict:
         """What a serving process needs to zero-init a stream without model
-        code, and which path the programs run (``rollout``: "kernel" or
-        "torch")."""
+        code, and which path the forecast programs run (``rollout``:
+        "kernel", "torch" or "int8")."""
         return {"hidden": list(self._hidden), "channels": self._channels,
                 "dtype": ("bfloat16" if self._cdtype == torch.bfloat16
                           else "float32"),
-                "rollout": "kernel" if self._kernels else "torch"}
+                "rollout": ("int8" if self._int8 else
+                            "kernel" if self._kernels else "torch")}
 
 
 def _plain_step(core, cells, x):
@@ -239,3 +274,15 @@ class _ForecastProgram(_StreamProgram):
         if self.kernels is not None:
             return self.kernels.rollout_from_state(cells, prev, self.horizon)
         return _plain_forecast(self.core, cells, prev, self.horizon)
+
+
+class _Int8ForecastProgram(nn.Module):
+    def __init__(self, q, horizon: int):
+        super().__init__()
+        self.weights = Int8Weights(q)
+        self.horizon = horizon
+
+    def forward(self, state):
+        cells, prev = state
+        return rollout_int8_from_state(self.weights.forecaster(), prev,
+                                       cells, self.horizon)[0]

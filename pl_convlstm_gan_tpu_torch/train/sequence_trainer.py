@@ -1,11 +1,15 @@
 """SequenceTrainer: training of the forecaster and GAN families, on one
 device or data-parallel over the ranks of a process group.
 
-Counterpart of the JAX package's ``train/sequence_trainer.py``; it refuses
-the unported settings (the frames source, grain: ``Config.validate(training=
-True)``). What it keeps:
-- synthetic moving-blob data, the seeded 70/15/15 split, shuffled batches
-  per epoch (``data.py``), prefetched to the device;
+Counterpart of the JAX package's ``train/sequence_trainer.py``. What it
+keeps:
+- synthetic moving-blob data (``data.source: synthetic``) or an on-disk
+  ``.npy`` / ``.npz`` stack of frames (``frames``: ``NpyFramesDataset``;
+  the frame geometry is the data's, the model needs no sample to be built),
+  the seeded 70/15/15 split, shuffled batches per epoch (``data.py``; under
+  ``data.loader: grain`` the grain pipeline ``make_grain_loader``, seeded
+  ``training.seed + epoch``, sharded over the data group), prefetched to the
+  device;
 - the model of ``predict.build_model`` (``convlstm_impl: pallas`` runs the
   cells on K1 writing z, with the custom backward), float32 params and the
   config's compute dtype, initialised from ``training.seed``;
@@ -42,8 +46,14 @@ True)``). What it keeps:
 - the best checkpoint (``best_model``), ``latest`` every
   ``save_model_interval`` epochs, resume (``training.resume_from``);
 - ``validate`` / ``evaluate_test`` (L1, SSIM, POD/FAR/CSI/HSS, sharpness);
-- ``metrics.jsonl`` (one line per epoch) and ``history.json``.
-No plots: the JAX trainer's matplotlib curves are not ported (ROADMAP A6).
+- ``metrics.jsonl`` (one line per epoch) and ``history.json``;
+- ``debug.log_compiled_cost``: the first step of the run prints its
+  operations and peak memory (``utils.profiling.log_compiled_cost``);
+- the plots, on rank 0: ``final_training_curves.png`` and
+  ``final_sequence_comparison.png`` (``utils/visualization.py``, at JAX's
+  dpi); a failing sequence plot prints "Sequence plot skipped" and never
+  fails a finished run; without matplotlib one line says that no plots are
+  written.
 
 Usage:
     SequenceTrainer(config=load_config("nowcast_128_pallas")).train()  # GPU
@@ -64,12 +74,16 @@ import torch
 import torch.distributed as dist
 
 from ..config import Config, load_config
-from ..data import (SyntheticSequenceDataset, batch_iterator, eval_batches,
+from ..data import (NpyFramesDataset, SyntheticSequenceDataset,
+                    batch_iterator, eval_batches, make_grain_loader,
                     prefetch_to_device, split_dataset_random, to_device)
-from ..parallel.mesh import (broadcast_module, mesh_position, print0,
-                             train_group)
+from ..parallel.mesh import (broadcast_module, is_primary, mesh_position,
+                             print0, train_group)
 from ..parallel.tensor_parallel import canonical_state_dict, shard_state_dict
 from ..predict import build_discriminator, build_model, resolve_device
+from ..utils.profiling import log_compiled_cost
+from ..utils.visualization import (have_matplotlib, plot_sequence_comparison,
+                                   plot_training_curves)
 from .checkpoint import CheckpointWriter, restore_checkpoint
 from .early_stopping import EarlyStopping
 from .metrics_log import append_metrics_line, dump_history
@@ -121,10 +135,18 @@ class SequenceTrainer:
     # ------------------------------------------------------------------ data
     def setup_data(self):
         dc, mc = self.config.data, self.config.model
-        full = SyntheticSequenceDataset(
-            num_sequences=dc.synthetic_num_sequences,
-            input_frames=mc.input_frames, output_frames=mc.output_frames,
-            image_size=dc.synthetic_image_size, seed=dc.seed)
+        if dc.source == "frames":
+            full = NpyFramesDataset(
+                dc.frames_path, input_frames=mc.input_frames,
+                output_frames=mc.output_frames,
+                stride=dc.frames_stride or None, scale=dc.frames_scale)
+            print0(f"Frames dataset: {len(full)} sequences from "
+                   f"{dc.frames_path}")
+        else:
+            full = SyntheticSequenceDataset(
+                num_sequences=dc.synthetic_num_sequences,
+                input_frames=mc.input_frames, output_frames=mc.output_frames,
+                image_size=dc.synthetic_image_size, seed=dc.seed)
         if self.config.training.use_split:
             self.train_dataset, self.val_dataset, self.test_dataset = \
                 split_dataset_random(full, seed=dc.split_seed)
@@ -134,10 +156,17 @@ class SequenceTrainer:
         return full
 
     def _loader(self, dataset, epoch: int):
-        it = batch_iterator(dataset, self.config.training.batch_size,
-                            shuffle=True, seed=self.config.training.seed,
-                            epoch=epoch, process_index=self.data_index,
-                            process_count=self.n_data)
+        tc = self.config.training
+        if self.config.data.loader == "grain":
+            it = make_grain_loader(
+                dataset, tc.batch_size, shuffle=True, seed=tc.seed + epoch,
+                worker_count=self.config.data.worker_count,
+                process_index=self.data_index, process_count=self.n_data)
+        else:
+            it = batch_iterator(dataset, tc.batch_size, shuffle=True,
+                                seed=tc.seed, epoch=epoch,
+                                process_index=self.data_index,
+                                process_count=self.n_data)
         return prefetch_to_device(it, self.device)
 
     # ----------------------------------------------------------------- model
@@ -236,8 +265,14 @@ class SequenceTrainer:
                 draws = (draws < tf_prob)[:, self.data_index * local:
                                           (self.data_index + 1) * local]
             lrs = (lr, self.disc_lr) if self.is_gan else (lr,)
-            m = self.train_step(self.state, batch, *lrs, draws,
-                                grad_clip_norm=tc.grad_clip_norm)
+            args = (self.state, batch, *lrs, draws)
+            if i == 0 and epoch == self.start_epoch and \
+                    self.config.debug.log_compiled_cost:
+                fam = "gan" if self.is_gan else "forecaster"
+                m, _ = log_compiled_cost(f"{fam} train step", self.train_step,
+                                         *args, grad_clip_norm=tc.grad_clip_norm)
+            else:
+                m = self.train_step(*args, grad_clip_norm=tc.grad_clip_norm)
             metrics_acc.append(m)
             if i % self.config.output.log_interval == 0:
                 if self.is_gan:
@@ -311,10 +346,53 @@ class SequenceTrainer:
                 break
 
         self._ckpt_writer.wait()
+        self._final_plots()
         dump_history(self.output_dir, self.history)
         print0(f"\nTraining completed. Best epoch {self.best_epoch + 1}, "
                f"metric {self.best_metric:.4f}")
         return self.history
+
+    def _final_plots(self):
+        """The training curves and a frame-grid comparison of one val (or
+        train) sample, drawn by rank 0. The sample's prediction runs on
+        every rank: under tensor parallelism the forward is a collective."""
+        if not have_matplotlib():
+            print0("matplotlib is not installed: no plots written")
+            return
+        pred = sample = None
+        try:
+            ds = self.val_dataset or self.train_dataset
+            sample = ds[0]
+            self.model.eval()
+            with torch.no_grad():
+                pred = self.model(torch.from_numpy(sample[0][None]).to(
+                    self.device)).float().cpu().numpy()
+            self.model.train()
+        except Exception as e:  # plotting must never fail a finished run
+            print0(f"Sequence plot skipped: {e}")
+        if not is_primary():
+            return
+        val = self.history.get("val_l1", [])
+        rmse_series = val if len(val) == len(self.history["epoch"]) \
+            else self.history["total_loss"]
+        plot_training_curves(
+            {"epoch": self.history["epoch"],
+             "total_loss": self.history["total_loss"],
+             "rmse": rmse_series,
+             "learning_rate": self.history["learning_rate"]},
+            save_path=os.path.join(self.output_dir,
+                                   "final_training_curves.png"),
+            dpi=self.config.output.plot_dpi)
+        if pred is None:
+            return
+        try:
+            plot_sequence_comparison(
+                sample[0], sample[1], pred[0],
+                save_path=os.path.join(self.output_dir,
+                                       "final_sequence_comparison.png"),
+                dpi=self.config.output.plot_dpi // 2 or 100)
+        except Exception as e:  # plotting must never fail a finished run
+            print(f"Sequence plot skipped: {e}")
 
     def _log_epoch_metrics(self, epoch, epoch_s, train_avg, val_metrics):
         rec = {"epoch": epoch, "epoch_seconds": round(epoch_s, 3),

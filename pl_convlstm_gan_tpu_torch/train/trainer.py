@@ -1,14 +1,14 @@
 """Trainer: training of the downscaling Generator, on one device or
 data-parallel over the ranks of a process group.
 
-Counterpart of the JAX package's ``train/trainer.py`` without its plots
-(matplotlib's training curves and station scatter, ROADMAP A6). What it
-keeps, with the JAX trainer's public surface:
+Counterpart of the JAX package's ``train/trainer.py``. What it keeps, with
+the JAX trainer's public surface:
 - ``setup_data``: ``SyntheticDownscalingDataset`` (``data.source:
   synthetic``) or ``FenheDataset`` (``fenhe``), split by year (Fenhe with
   ``split_method: year``) or by the seeded 70/15/15 permutation
   (``data.split_seed``); shuffled batches per epoch, prefetched to the
-  device;
+  device (under ``data.loader: grain`` the grain pipeline
+  ``make_grain_loader``, seeded ``training.seed + epoch``);
 - ``setup_model(dataset)``: the Generator of ``predict.build_model`` with
   the dataset's LUCC class count unless ``model.lu_channels`` is set,
   float32 params and the config's compute dtype, initialised from
@@ -28,7 +28,14 @@ keeps, with the JAX trainer's public surface:
   ``SequenceTrainer`` runs it: each rank trains on its block of every
   global batch with the Generator step bound to the group (the point term
   and the RMSE over the global station counts), from rank 0's initial state;
-  eval sums each metric over the ranks; rank 0 alone prints and writes.
+  eval sums each metric over the ranks; rank 0 alone prints and writes;
+- ``debug.log_compiled_cost``: the first step of the run prints its
+  operations and peak memory (``utils.profiling.log_compiled_cost``);
+- the plots, on rank 0 (``utils/visualization.py``, at JAX's dpi):
+  ``training_curves.png`` every 10 epochs, ``final_training_curves.png``
+  and ``final_station_comparison.png`` at the end; a failing station plot
+  prints "Station plot skipped" and never fails a finished run; without
+  matplotlib one line says that no plots are written.
 
 Usage:
     Trainer(config=load_config("default")).train()        # on the GPU
@@ -41,17 +48,21 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..config import Config, load_config
 from ..data import (FenheDataset, SyntheticDownscalingDataset, batch_iterator,
-                    eval_batches, prefetch_to_device, split_dataset_by_year,
-                    split_dataset_random, to_device)
-from ..parallel.mesh import (broadcast_module, print0, rank_and_world,
-                             train_group)
-from ..losses import station_rmse
+                    eval_batches, make_grain_loader, prefetch_to_device,
+                    split_dataset_by_year, split_dataset_random, to_device)
+from ..parallel.mesh import (broadcast_module, is_primary, print0,
+                             rank_and_world, train_group)
+from ..losses import _station_pixel_indices, station_rmse
 from ..predict import build_model, resolve_device
+from ..utils.profiling import log_compiled_cost
+from ..utils.visualization import (have_matplotlib, plot_stations_vs_pred,
+                                   plot_training_curves)
 from .checkpoint import CheckpointWriter, restore_checkpoint
 from .early_stopping import EarlyStopping
 from .metrics_log import append_metrics_line, dump_history
@@ -80,6 +91,7 @@ class Trainer:
                    f"({dist.get_backend()})")
         self.output_dir = self.config.output.output_dir
         os.makedirs(self.output_dir, exist_ok=True)
+        self._plots = have_matplotlib()
         self.history = {
             "epoch": [], "total_loss": [], "point_loss": [], "conserve_loss": [],
             "smooth_loss": [], "temporal_loss": [], "rmse": [],
@@ -140,10 +152,17 @@ class Trainer:
         return full
 
     def _loader(self, dataset, epoch: int):
-        it = batch_iterator(dataset, self.config.training.batch_size,
-                            shuffle=True, seed=self.config.training.seed,
-                            epoch=epoch, process_index=self.rank,
-                            process_count=self.world)
+        tc = self.config.training
+        if self.config.data.loader == "grain":
+            it = make_grain_loader(
+                dataset, tc.batch_size, shuffle=True, seed=tc.seed + epoch,
+                worker_count=self.config.data.worker_count,
+                process_index=self.rank, process_count=self.world)
+        else:
+            it = batch_iterator(dataset, tc.batch_size, shuffle=True,
+                                seed=tc.seed, epoch=epoch,
+                                process_index=self.rank,
+                                process_count=self.world)
         return prefetch_to_device(it, self.device)
 
     # ----------------------------------------------------------------- model
@@ -212,8 +231,14 @@ class Trainer:
         lr = self.scheduler.lr
         metrics_acc = []
         for i, batch in enumerate(self._loader(self.train_dataset, epoch)):
-            m = self.train_step(self.state, batch, lr,
-                                grad_clip_norm=tc.grad_clip_norm)
+            if i == 0 and epoch == self.start_epoch and \
+                    self.config.debug.log_compiled_cost:
+                m, _ = log_compiled_cost(
+                    "generator train step", self.train_step, self.state,
+                    batch, lr, grad_clip_norm=tc.grad_clip_norm)
+            else:
+                m = self.train_step(self.state, batch, lr,
+                                    grad_clip_norm=tc.grad_clip_norm)
             metrics_acc.append(m)
             if i % self.config.output.log_interval == 0:
                 print0(f"Epoch {epoch} | Loss: {m['total']:.4f} | "
@@ -257,6 +282,11 @@ class Trainer:
             # epoch trained at
             self._log_epoch_metrics(epoch, epoch_s, avg, val)
             self.scheduler.step(current)
+            if (epoch + 1) % 10 == 0 and self._plots and is_primary():
+                plot_training_curves(
+                    self.history, save_path=os.path.join(
+                        self.output_dir, "training_curves.png"),
+                    dpi=self.config.output.plot_dpi)
 
             if self.early_stopping is not None:
                 should_save = self.early_stopping(current, epoch)
@@ -278,12 +308,47 @@ class Trainer:
                 break
 
         self._ckpt_writer.wait()
+        if not self._plots:
+            print0("matplotlib is not installed: no plots written")
+        elif is_primary():
+            plot_training_curves(
+                self.history, save_path=os.path.join(
+                    self.output_dir, "final_training_curves.png"),
+                dpi=self.config.output.plot_dpi)
+            self._final_station_plot()
         dump_history(self.output_dir, self.history)
         print0("\nTraining completed!")
         print0(f"Best model: Epoch {self.best_epoch + 1}, "
                f"RMSE: {self.best_rmse:.4f}")
         print0(f"Results saved to {self.output_dir}/")
         return self.history
+
+    def _final_station_plot(self):
+        """Observed against predicted rain at the stations of the first
+        val (or train) batch, averaged over time (the reference trainer's
+        final scatter)."""
+        try:
+            ds = self.val_dataset or self.train_dataset
+            batch = next(batch_iterator(ds, self.config.training.batch_size))
+            rain_lr, dem, lu, s_coords, s_values = to_device(batch,
+                                                             self.device)
+            self.model.eval()
+            with torch.no_grad():
+                pred = self.model(rain_lr, dem, lu).float()
+            self.model.train()
+            scale = pred.shape[-2] / rain_lr.shape[-2]
+            coords = s_coords[0]
+            h, w = pred.shape[-2:]
+            rows, cols, valid = _station_pixel_indices(coords, scale, h, w)
+            pv = pred[0, :, 0][:, rows[valid], cols[valid]].cpu().numpy()
+            tv = s_values[0][:, valid].cpu().numpy()
+            plot_stations_vs_pred(
+                coords[valid].cpu().numpy(), np.nan_to_num(tv).mean(0),
+                pv.mean(0), save_path=os.path.join(
+                    self.output_dir, "final_station_comparison.png"),
+                dpi=self.config.output.plot_dpi)
+        except Exception as e:  # plotting must never fail a finished run
+            print(f"Station plot skipped: {e}")
 
     def _log_epoch_metrics(self, epoch, epoch_s, train_avg, val_metrics):
         rec = {"epoch": epoch, "epoch_seconds": round(epoch_s, 3),

@@ -41,10 +41,13 @@ copy of the JAX package's ``tools/import_torch_checkpoint.py`` map:
     post_process.0 / .2              post_conv1 / post_conv2
 
 ``load_reference_pth`` reads such a file straight into the port's
-``state_dict``.
+``state_dict``; ``reference_state_dict`` is the inverse, the counterpart of
+the JAX tool's ``export_state_dict``: the port's Generator ``state_dict``
+under the reference's names, which the reference PyTorch Generator loads.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -140,6 +143,39 @@ def load_reference_pth(path: str) -> Dict[str, torch.Tensor]:
     sd = obj.get("model_state_dict", obj)
     return flax_to_state_dict(reference_to_flax(
         {k: v.numpy() for k, v in sd.items()}))
+
+
+# the port's Generator module path -> the reference's, the inverse of
+# reference_to_flax's renames (the port names modules by their flax paths)
+_REFERENCE_MODULES = (
+    (re.compile(r"init_conv"), "init_conv"),
+    (re.compile(r"recurrence\.(cell\d+)"), r"\1.conv"),
+    (re.compile(r"(dem_attn|lu_attn)\.conv_reduce"), r"\1.conv.0"),
+    (re.compile(r"(dem_attn|lu_attn)\.conv_gate"), r"\1.conv.2"),
+    (re.compile(r"upsample_(\d+)\.conv"), r"upsample_blocks.\1.conv"),
+    (re.compile(r"post_conv1"), "post_process.0"),
+    (re.compile(r"post_conv2"), "post_process.2"),
+)
+
+
+def reference_state_dict(state_dict: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's Generator ``state_dict`` under the reference PyTorch
+    Generator's names (OIHW weights and biases as they are, on the CPU):
+    the inverse of ``load_reference_pth``, the counterpart of the JAX
+    tool's ``export_state_dict``. Raises ValueError on a name that is not
+    the Generator's."""
+    out = {}
+    for name, tensor in state_dict.items():
+        module, leaf = name.rsplit(".", 1)
+        for pattern, ref in _REFERENCE_MODULES:
+            if pattern.fullmatch(module):
+                out[f"{pattern.sub(ref, module)}.{leaf}"] = \
+                    tensor.detach().cpu().clone()
+                break
+        else:
+            raise ValueError(f"{name}: not a parameter of the Generator")
+    return out
 
 
 def stream_state_from_numpy(cells, prev_out, device, dtype):

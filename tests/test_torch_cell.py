@@ -129,16 +129,14 @@ def test_config_reads_repo_yaml_and_validates_port_impls():
     assert (cfg.model.input_frames, cfg.model.output_frames) == (5, 20)
     assert cfg.training.batch_size == 4
     # the port's values and the JAX package's (xla -> torch, pallas ->
-    # kernel) validate; int8 is refused by name; anything else is unknown
+    # kernel, int8: the quantized rollout, ported) validate; anything else
+    # is unknown
     for impl, path in (("auto", "auto"), ("torch", "torch"),
                        ("kernel", "kernel"), ("xla", "torch"),
-                       ("pallas", "kernel")):
+                       ("pallas", "kernel"), ("int8", "int8")):
         cfg.model.rollout_impl = impl
         cfg.validate()
         assert rollout_path(impl) == path
-    cfg.model.rollout_impl = "int8"
-    with pytest.raises(ValueError, match="'int8'.*A13"):
-        cfg.validate()
     cfg.model.rollout_impl = "mosaic"
     with pytest.raises(ValueError, match="Unknown rollout_impl"):
         cfg.validate()

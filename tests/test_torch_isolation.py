@@ -1,9 +1,13 @@
 """The port imports nothing of JAX, flax, optax, orbax, the JAX package or
-the repository's ``experiments/`` scripts.
+the repository's ``experiments/`` scripts, and its optional packages
+(grain, matplotlib, pandas, the geo stack) only inside the functions that
+need them.
 
-A subprocess blocks those imports (``sys.modules[name] = None`` makes any
+A subprocess blocks the first group (``sys.modules[name] = None`` makes any
 ``import name`` raise), then imports every module of the port and the
-module-level code of chip_smoke.py, and reports what got loaded."""
+module-level code of chip_smoke.py, and reports what got loaded of either
+group. grain and matplotlib are not blocked: importing a module of the port
+must simply not load them (grain imports JAX where it can)."""
 import json
 import pkgutil
 import subprocess
@@ -15,6 +19,8 @@ import pl_convlstm_gan_tpu_torch
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pl_convlstm_gan_tpu",
            "experiments")
+LAZY = ("grain", "matplotlib", "pandas", "xarray", "rioxarray", "regionmask",
+        "geopandas", "rasterio")
 
 _PROBE = """
 import importlib, json, runpy, sys
@@ -24,7 +30,7 @@ for mod in {modules!r}:
     importlib.import_module(mod)
 runpy.run_path({chip_smoke!r}, run_name="chip_smoke_module_level")
 loaded = sorted(m for m in sys.modules if sys.modules[m] is not None and
-                m.split(".")[0] in {blocked!r})
+                m.split(".")[0] in {blocked!r} + {lazy!r})
 print(json.dumps(loaded))
 """
 
@@ -49,9 +55,13 @@ def test_port_and_chip_smoke_import_no_jax():
                 "models.generator", "train.trainer", "ops.resize",
                 "ops.coords", "ops.pixel_shuffle", "parallel.mesh",
                 "parallel.train_parallel", "parallel.tensor_parallel",
-                "parallel.tp_collectives"):
+                "parallel.tp_collectives", "utils.profiling",
+                "utils.visualization", "ops.quant", "models.quantized",
+                "tools.cmorph", "tools.compare_station",
+                "tools.dem_lucc_to_npy", "tools.merge_multiyear",
+                "tools.station", "tools.import_torch_checkpoint"):
         assert f"pl_convlstm_gan_tpu_torch.{mod}" in modules
-    code = _PROBE.format(blocked=BLOCKED, modules=modules,
+    code = _PROBE.format(blocked=BLOCKED, lazy=LAZY, modules=modules,
                          chip_smoke=str(REPO / "chip_smoke.py"))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=240)

@@ -13,7 +13,10 @@ from flax.traverse_util import flatten_dict
 
 from pl_convlstm_gan_tpu_torch import cli, predict as port_predict
 from pl_convlstm_gan_tpu_torch.config import Config
-from pl_convlstm_gan_tpu_torch.predict import build_predict_fn, load_predictor
+from pl_convlstm_gan_tpu_torch.models.quantized import (
+    prepare_int8_forecaster, rollout_int8)
+from pl_convlstm_gan_tpu_torch.predict import (build_predict_fn, load_predictor,
+                                               load_state_dict)
 from pl_convlstm_gan_tpu_torch.weights import flax_to_state_dict
 from test_torch_models import B, T_IN, T_OUT, flax_params, frames_np, jax_apply
 
@@ -67,7 +70,8 @@ def test_predict_rejects_wrong_window_and_unknown_impl(tmp_path, checkpoint):
         with pytest.raises(ValueError, match="input window"):
             predict(frames[:, :T_IN - 1])
     # JAX's 'pallas' serves through the kernel path (its plain versions on
-    # CPU tensors), 'int8' is refused by name, an unknown value raises
+    # CPU tensors), 'int8' through the quantized rollout (window checked as
+    # JAX's), an unknown value raises
     pallas = build_predict_fn(_config(tmp_path), path, rollout_impl="pallas",
                               device="cpu")
     kernel = build_predict_fn(_config(tmp_path), path, rollout_impl="kernel",
@@ -75,9 +79,13 @@ def test_predict_rejects_wrong_window_and_unknown_impl(tmp_path, checkpoint):
     assert not isinstance(pallas, torch.nn.Module)
     x = torch.from_numpy(frames)
     assert torch.equal(pallas(x), kernel(x))
-    with pytest.raises(ValueError, match="A13"):
-        build_predict_fn(_config(tmp_path), path, rollout_impl="int8",
-                         device="cpu")
+    int8 = build_predict_fn(_config(tmp_path), path, rollout_impl="int8",
+                            device="cpu")
+    assert not isinstance(int8, torch.nn.Module)
+    q = prepare_int8_forecaster(load_state_dict(path))
+    assert torch.equal(int8(x), rollout_int8(q, x, T_OUT))
+    with pytest.raises(ValueError, match="input window"):
+        int8(x[:, :T_IN - 1])
     with pytest.raises(ValueError, match="rollout_impl"):
         build_predict_fn(_config(tmp_path), path, rollout_impl="mosaic",
                          device="cpu")

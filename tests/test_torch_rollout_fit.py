@@ -184,12 +184,20 @@ def test_jax_yaml_rollout_impl_validates_and_maps(tmp_path, impl, path):
 
 
 def test_int8_is_refused_by_name(tmp_path):
+    """JAX's 'int8' was refused by name until the quantized rollout was
+    ported (ROADMAP A13). It validates now and is its own path on any
+    device, decided before any launch: the stream's forecast is the int8
+    decode, its observe the float path of 'auto' there (on a GPU that the
+    kernels fit, K1/K2)."""
     cfg = _config(tmp_path, rollout_impl="int8")
-    with pytest.raises(ValueError, match="int8.*ROADMAP A13"):
-        cfg.validate()
+    cfg.validate()
+    assert rollout_choice(cfg, torch.device("cpu")) == "int8"
+    assert rollout_choice(cfg, CUDA) == "int8"
+    assert rollout_choice(_config(tmp_path), CUDA, "int8") == "int8"
     path, _ = _checkpoint(tmp_path, (8, 8))
-    with pytest.raises(ValueError, match="A13"):
-        StreamingForecaster.from_checkpoint(cfg, path, device="cpu")
+    sf = StreamingForecaster.from_checkpoint(cfg, path, device="cpu")
+    assert sf.export_meta()["rollout"] == "int8"
+    assert not sf._kernels          # 'auto' on the CPU: the plain observe
 
 
 def test_cli_mode_defaults_to_train(tmp_path, monkeypatch):

@@ -183,11 +183,17 @@ def test_static_batch_refuses_another_batch(tmp_path, checkpoints):
 
 
 def test_export_refuses_int8_and_a_wrong_window(tmp_path, checkpoints):
+    """int8 was refused until the quantized rollout was ported (ROADMAP
+    A13): its artifact now serves the eager int8 predictor's bits (the
+    int8 artifacts against JAX's: tests/test_torch_quant.py). A wrong
+    window is refused by the artifact, as before."""
     npz, _, _ = checkpoints
     frames = frames_np(36)
-    with pytest.raises(ValueError, match="A13"):
-        export_model(port_config(tmp_path, "int8"), npz, (frames,),
-                     device="cpu")
+    cfg = port_config(tmp_path, "int8")
+    int8 = load_exported(export_model(cfg, npz, (frames,), device="cpu"),
+                         device="cpu")
+    assert torch.equal(int8(frames),
+                       load_predictor(cfg, npz, device="cpu")(frames))
     serve = load_exported(export_model(port_config(tmp_path, "kernel"), npz,
                                        (frames,), device="cpu"), device="cpu")
     with pytest.raises(Exception):

@@ -163,40 +163,58 @@ def test_plateau_and_early_stopping_match_jax(metrics):
     ("data.loader", "grain", "A6"),
 ])
 def test_unported_training_settings_are_refused(tmp_path, setting, value,
-                                                item):
-    """validate(training=True), the trainer and --mode train refuse each
-    setting the port does not train yet, naming its ROADMAP item; plain
-    validate() (serving) does not. A9 (data parallelism), A10 (tensor
-    parallelism) and A3 (remat) are ported: validate(training=True) takes
-    them; data_axis 4 and model_axis 2 are then refused by the trainer and
-    the CLI of a single process, which has no 4 (or 2) ranks to run them
-    (ValueError naming torchrun), and remat trains
-    (tests/test_torch_remat.py, tests/test_torch_dp.py,
-    tests/test_torch_tp.py)."""
+                                                item, monkeypatch):
+    """Every training setting of the JAX trainer is ported now, each under
+    its ROADMAP item: validate(training=True) takes them all. A9 (data
+    parallelism) and A10 (tensor parallelism): data_axis 4 and model_axis 2
+    are then refused by the trainer and the CLI of a single process, which
+    has no 4 (or 2) ranks to run them (ValueError naming torchrun); A3:
+    remat trains (tests/test_torch_remat.py, tests/test_torch_dp.py,
+    tests/test_torch_tp.py). A6: the frames source reads a .npy stack of
+    sequences, and data.loader grain, where grain is not installed, raises
+    an ImportError naming data.loader: plain from validate, the trainer and
+    the CLI, never switching loaders (the epochs on both:
+    tests/test_torch_frames_grain_plots.py)."""
     cfg = _config(tmp_path / "out")
     section, key = setting.split(".")
     setattr(getattr(cfg, section), key, value)
     cfg.validate()
-    if item in ("A9", "A10", "A3"):
-        cfg.validate(training=True)
-        if item == "A3":
-            assert SequenceTrainer(config=cfg, device="cpu").config.model.remat
-            return
-        ranks = {"A9": 4, "A10": 2}[item]
-        match = f"{ranks} ranks: launch with torchrun"
-        with pytest.raises(ValueError, match=match):
+    cfg.validate(training=True)
+    if item == "A3":
+        assert SequenceTrainer(config=cfg, device="cpu").config.model.remat
+        return
+    if item == "A6" and key == "source":
+        mc = cfg.model
+        frames = np.random.default_rng(5).random(
+            (12, mc.input_frames + mc.output_frames, 16, 16), np.float32)
+        np.save(tmp_path / "frames.npy", frames)
+        cfg.data.frames_path = str(tmp_path / "frames.npy")
+        full = SequenceTrainer(config=cfg, device="cpu").setup_data()
+        assert len(full) == 12
+        inputs, targets = full[3]
+        np.testing.assert_array_equal(inputs[:, 0], frames[3, :mc.input_frames])
+        np.testing.assert_array_equal(targets[:, 0], frames[3, mc.input_frames:])
+        return
+    if item == "A6":
+        import importlib.util
+        find_spec = importlib.util.find_spec
+        monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: (
+            None if name == "grain" else find_spec(name, *a)))
+        with pytest.raises(ImportError, match="data.loader: plain"):
+            cfg.validate(training=True)
+        with pytest.raises(ImportError, match="data.loader: plain"):
             SequenceTrainer(config=cfg, device="cpu")
-        with pytest.raises(ValueError, match=match):
-            cli.main(["--config", _yaml(tmp_path, cfg, "bad"), "--mode",
+        with pytest.raises(ImportError, match="data.loader: plain"):
+            cli.main(["--config", _yaml(tmp_path, cfg, "grain"), "--mode",
                       "train", "--device", "cpu"])
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cfg.validate(training=True)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    ranks = {"A9": 4, "A10": 2}[item]
+    match = f"{ranks} ranks: launch with torchrun"
+    with pytest.raises(ValueError, match=match):
         SequenceTrainer(config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["--config", _yaml(tmp_path, cfg, "bad"), "--mode", "train",
-                  "--device", "cpu"])
+    with pytest.raises(ValueError, match=match):
+        cli.main(["--config", _yaml(tmp_path, cfg, "bad"), "--mode",
+                  "train", "--device", "cpu"])
 
 
 def test_convlstm_impl_meaning_and_cuda_requirement(tmp_path, monkeypatch):
