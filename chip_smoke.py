@@ -19,17 +19,35 @@ own line:
    16x16, (Cx, Ch) = (16, 16) and (16, 32));
 3. head kernel (K2) the same way in both dtypes at the head's shape (Ch 64
    -> 1 channel) at B 4 and B 1, and at a ragged shape with Cout 5;
+3a. rollout_persistent: K5, the whole bf16 rollout in one cooperative
+   launch, at nowcast_128's full width (3x64, 128^2, weights from the seed):
+   a cold request at B 4 (5 -> 20), forecast(30) at B 1 and B 8 from states
+   K5 observed, observe of 5 frames at B 1 and B 8, and a precip_256 stream
+   (2x64, 256^2, B 1: observe 5 frames, forecast(30)). Each call is one K5
+   launch and no K1/K2 (counts set to 0 before and read after), torch.equal
+   to the K1/K2 host loop (the same _steps walked through convlstm_cell_fwd
+   and conv_head_fwd) and within PATH_TOL of the plain path (observe's
+   state within 4 bf16 ulps of its binade); timed in turns (host loop, K5,
+   K5, host loop) beside the plain path, the per-step F.conv2d sum and
+   K5's bound; the slope of forecast(h) over h = 10 and 30 at B 1 and B 8
+   against the per-step bound, with block 0's clock of every phase (the
+   stamps of rollout_persistent_fwd: each cell's and the head's phase time
+   and the barrier's); torch.profiler over one B 1 forecast(30) (idle
+   share); ptxas' registers and spills and the launch's grid and blocks an
+   SM; and a bf16 model K5 refuses (8-channel frames) served on the K1/K2
+   host loop with 72 K1 + 20 K2;
 4. main path: load_predictor on configs/nowcast_128.yaml at full width, with
    weights made from a seed and carried through weights.py, in float32 and
    bfloat16; each serves 3 requests of [4, 5, 1, 128, 128] through the
    kernels, checked against rollout_impl="torch" on the card, with the
-   launch counts set to 0 before and read after (72 K1 + 20 K2 a request);
-   then torch.profiler over one more bf16 request: device time by kernel
-   and the device's idle share;
+   launch counts set to 0 before and read after (float32 72 K1 + 20 K2 a
+   request, bfloat16 one K5); then torch.profiler over one more bf16
+   request: device time by kernel and the device's idle share;
 5. stream: StreamingForecaster on the same checkpoint, in float32 and
    bfloat16. observe_window of the first request's 5 frames + forecast(19)
    against the kernel predictor's output for that request (launch counts
-   exactly 3 K1 + 1 K2 per observed frame and 3h K1 + h K2 per forecast(h));
+   exactly 3 K1 + 1 K2 per observed frame and 3h K1 + h K2 per forecast(h)
+   in float32, one K5 a call in bfloat16);
    frame-by-frame observe against the window and two forecasts from one
    state (torch.equal, state unchanged); forecast(30) at B 1 and B 8 against
    rollout_impl="torch" from the same carried state; p50 times of one
@@ -41,15 +59,15 @@ own line:
    node); a child process of this script (``--export-worker``) with the
    checkpoint deleted serves the 3 requests from the artifact alone:
    torch.equal to the eager kernel predictor, within PATH_TOL of the plain
-   path, 72 K1 + 20 K2 a request; a plain artifact exported on the CPU
-   serves on the card within PATH_TOL, and a kernel artifact exported on
-   the CPU (K1's weights packed there) torch.equal to the eager kernel
-   path with 72 K1 + 20 K2 a request; export_streaming (horizons 10, 30,
+   path, 72 K1 + 20 K2 a request (bf16: one K5); a plain artifact exported
+   on the CPU serves on the card within PATH_TOL, and a kernel artifact
+   exported on the CPU (K1's weights packed there) torch.equal to the
+   eager kernel path with the same launches; export_streaming (horizons 10, 30,
    kernel entries) served by load_streaming_exported: the first request's
    frames observed one at a time and forecast(10), forecast(30), then
    forecast(30) at B 1 and B 8, each torch.equal to StreamingForecaster's
    kernel path with 3 K1 + 1 K2 an observed frame and 3h K1 + h K2 a
-   forecast(h); configs/default.yaml's Generator (B 8, 16^2 -> 128^2)
+   forecast(h) (bf16: one K5 a call); configs/default.yaml's Generator (B 8, 16^2 -> 128^2)
    exported on its plain cells, within PATH_TOL of its eager plain path;
    p50 of an artifact request (exported on the card and on the CPU),
    observe and forecast(30) beside the eager path's, in turns;
@@ -59,7 +77,7 @@ own line:
    of 6 channels) serves a request and a stream on the plain path with zero
    K1/K2 launches and the bits of rollout_impl torch, rollout_impl kernel
    and pallas raise naming the rule, and nowcast_128 in both dtypes still
-   takes the kernels with exact launch counts;
+   takes the kernels with exact launch counts (bf16: one K5);
 7a. int8: nowcast_128 at full width with rollout_impl int8 (weights from
    the seed through weights.py): 3 load_predictor requests of B 4, each
    with its first step's int32 conv sums torch.equal to the same int8
@@ -98,7 +116,7 @@ own line:
 10. trainer: the CLI's train path on nowcast_128_pallas with 24 sequences
    and 2 epochs, --resume to 3 epochs (starts at epoch 2), --mode eval,
    and load_predictor on the trainer's best_model serving one request on
-   K1/K2, each with exact launch counts;
+   K5 (bf16), each with exact launch counts;
 11. gan: GAN training at full width (generator 2x64, discriminator
    64/128/256), from one seeded state on the kernel path (convlstm_impl
    pallas: K1 with z and ConvLSTMCellFn in G) and on the plain path (auto):
@@ -170,7 +188,7 @@ own line:
    step ms on the shared card; then the TP trainer trains one epoch of
    tp_nowcast_128 cut to 8 sequences, and one process serves its canonical
    best_model (load_predictor) against the TP model's prediction of the
-   same request (plain path), and on K1/K2 (72 + 20 launches). No NCCL
+   same request (plain path), and on K5 (one launch). No NCCL
    (it refuses two ranks on one GPU), no scaling numbers;
 18. tap_structure: the tap-structure experiment (P5 on Hopper) at its full
    shape through experiments.tap_structure.run() with its launch counts,
@@ -181,6 +199,8 @@ own line:
    FLOPs at the bf16 peak; no rate above 1.05x the peak), with the
    steady-state TFLOP/s of that slope;
 19. one JSON line {"kernels": [...]} with each kernel's launches (per path,
+   K5's among them; K1's and K2's bf16 launches those of the host loop a
+   model K5 refuses keeps,
    the artifacts' (export_predict, export_stream), the int8 stream's
    observe (int8_stream), the Generator's, remat's, dp's and tp's (0)
    included), error, and its
@@ -225,7 +245,8 @@ from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
     ConvLSTMCellFn, convlstm_cell_fwd, convlstm_cell_plain, kernel_pack)
 from pl_convlstm_gan_tpu_torch.ops.kernels import tap_structure_kernel as tap_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
-    conv_head_fwd, conv_head_plain)
+    conv_head_fwd, conv_head_plain, persistent_misfit, rollout_persistent_fwd,
+    rollout_schedule)
 from pl_convlstm_gan_tpu_torch.ops.kernels.tap_structure_kernel import (
     big_plain, tap_k1152, tap_loop, taps_plain)
 from pl_convlstm_gan_tpu_torch.ops.nn import oihw_from_hwio
@@ -278,6 +299,13 @@ K1_STANDS_FOR = [
     f"P4 cells {_ROLLOUT}:505 via rollout_pallas_from_state :706"]
 K2_STANDS_FOR = [f"P3 head_pass {_ROLLOUT}:407 via rollout_pallas :672",
                  f"P4 head_pass {_ROLLOUT}:407 via rollout_pallas_from_state :706"]
+# K5: the whole bf16 rollout in one cooperative launch
+K5_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/rollout_persistent.cu"
+K5_REPLACES = f"{_ROLLOUT}:505"
+K5_STANDS_FOR = [f"P3 {_ROLLOUT}:505 (_launch_rollout) via rollout_pallas :672",
+                 f"P4 {_ROLLOUT}:505 (_launch_rollout) via "
+                 f"rollout_pallas_from_state :706"]
+K5_SLOPE_HORIZONS = (10, 30)   # forecast(h) whose difference is the slope
 # K1 writing z (the training form) stands for P1/P2 with save_z=True
 K1Z_STANDS_FOR = [
     "P1 pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:121 (save_z=True, "
@@ -462,16 +490,21 @@ def bound(flops, nbytes, dtype_name):
 
 
 def phase_build():
+    """Build every kernel; returns {source: ptxas' register, spill and
+    warning lines}."""
     t0 = time.perf_counter()
     report = build.build_all()
     seconds = time.perf_counter() - t0
     say(phase="build", seconds=round(seconds, 3),
         per_source={k: round(v["seconds"], 3) for k, v in report.items()})
+    lines = {}
     for name, rep in report.items():
         for line in rep["log"].splitlines():
             if any(word in line for word in ("registers", "spill", "wgmma",
                                              "warning")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+                lines.setdefault(name, []).append(line.strip())
+    return lines
 
 
 def cell_inputs(gen, b, hgt, wid, cx, ch, k, dtype):
@@ -603,6 +636,315 @@ def phase_head(gen, shapes, dtypes):
     return out
 
 
+def rollout_bound_ms(b, hgt, wid, cin, hidden, steps, heads, frames_in,
+                     k=3, dtype_name="bfloat16"):
+    """A rollout's bound as one function: operations (every cell phase's
+    conv and every head phase's) at the dtype's peak against bytes (the
+    frames in, the seeds, every weight, the outputs and the final state,
+    each once) at the memory rate; ``steps`` cell steps, ``heads`` head
+    steps, ``frames_in`` frames read."""
+    px = b * hgt * wid
+    flops, wbytes, cx = 0, 0, cin
+    for ch in hidden:
+        flops += 2 * px * k * k * (cx + ch) * 4 * ch
+        wbytes += k * k * (cx + ch) * 4 * ch + 4 * ch
+        cx = ch
+    flops = steps * flops + heads * 2 * px * 9 * cx * cin
+    state = 2 * px * sum(hidden)                  # (h, c) of every cell
+    elem = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elem * (frames_in * px * cin + state + wbytes + 9 * cx * cin
+                     + cin + heads * px * cin + state)
+    return bound(flops, nbytes, dtype_name)
+
+
+def conv_parts(b, hgt, wid, cin, hidden, dtype, k=3):
+    """(one step's cell convs, the head's conv) as library calls: F.conv2d
+    over concat(x, h) per cell and over the top h, channels-last, without
+    the gates; a rollout of s steps and e heads costs s x the first and e x
+    the second."""
+    convs, cx = [], cin
+    for ch in hidden:
+        xh = torch.randn(b, hgt, wid, cx + ch, device=DEVICE, dtype=dtype)
+        convs.append((xh.permute(0, 3, 1, 2),
+                      torch.randn(4 * ch, cx + ch, k, k, device=DEVICE,
+                                  dtype=dtype),
+                      torch.randn(4 * ch, device=DEVICE, dtype=dtype), k // 2))
+        cx = ch
+    h = torch.randn(b, hgt, wid, cx, device=DEVICE, dtype=dtype).permute(
+        0, 3, 1, 2)
+    w = torch.randn(cin, cx, 3, 3, device=DEVICE, dtype=dtype)
+    bias = torch.randn(cin, device=DEVICE, dtype=dtype)
+    return (lambda: [F.conv2d(x, wt, bt, padding=p) for x, wt, bt, p in convs],
+            lambda: F.conv2d(h, w, bias, padding=1))
+
+
+def p50_turns(a, b, n=N_TIMED):
+    """{"a": (p50 ms, [ms...]), "b": ...} of two calls timed in turns a, b,
+    b, a, n times, after one warm-up call each (CUDA events around each
+    call, as p50_ms)."""
+    a(), b()
+    torch.cuda.synchronize()
+    times = {"a": [], "b": []}
+    for _ in range(n):
+        for name, fn in (("a", a), ("b", b), ("b", b), ("a", a)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: (statistics.median(ts), ts) for name, ts in times.items()}
+
+
+def state_close(what, got, want):
+    """A state against the plain path's: PATH_TOL's bf16 bound of 4 ulps,
+    at the binade of the state's largest magnitude (|c| reaches ~1 where
+    outputs stay below 0.0625)."""
+    top = max(float(t.float().abs().max()) for pair in want for t in pair)
+    atol = 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+    return max(check_close(f"{what} state", g, w, atol, 0.0)
+               for pg, pw in zip(got, want) for g, w in zip(pg, pw))
+
+
+def stamp_summary(stamps, table):
+    """K5's per-phase clock of block 0 (rollout_persistent_fwd's stamps):
+    the mean µs of each cell's phases and of the head's (block 0's tiles),
+    and of a barrier (from block 0's last tile to the barrier's exit)."""
+    s = stamps.cpu().tolist()
+    rows = table.tolist()
+    work, bar = {}, []
+    for ph, row in enumerate(rows):
+        key = "head" if row[0] == 1 else f"cell_{row[1]}"
+        work.setdefault(key, []).append((s[1 + 2 * ph] - s[2 * ph]) / 1e3)
+        if ph + 1 < len(rows):
+            bar.append((s[2 + 2 * ph] - s[1 + 2 * ph]) / 1e3)
+    return dict(total_us=(s[2 * len(rows)] - s[0]) / 1e3,
+                phase_us={k: statistics.mean(v) for k, v in work.items()},
+                barrier_us=statistics.mean(bar) if bar else 0.0,
+                barriers=len(bar))
+
+
+def k5_weights(cfg, seed):
+    """The config's forecaster, weights made from the seed, on the card in
+    bf16, packed for K1/K5."""
+    sd = flax_to_state_dict(nowcast_params(cfg, seed))
+    return head_mod.pack_weights({k: v.to(DEVICE) for k, v in sd.items()},
+                                 torch.bfloat16)
+
+
+def k5_call(name, weights, hidden, frames, cells, horizon, t_out):
+    """One K5 call of the phase: a cold request (``cells`` None, ``t_out``
+    frames out), a forecast(horizon) from (``cells``, the frame
+    ``frames``) or an observe of ``frames`` into ``cells`` (``horizon``
+    None, ``t_out`` None). Returns (a function of the two executors' fns
+    -> the result, steps, heads, frames read)."""
+    bf = torch.bfloat16
+    b, hgt, wid = frames.shape[0], frames.shape[-2], frames.shape[-1]
+    if cells is None:
+        t_in = frames.shape[1]
+        run = lambda fns: head_mod._rollout(weights, frames, t_out, bf, *fns)
+        return run, t_in + t_out - 1, t_out, t_in
+    if horizon is not None:
+        prev = frames[:, -1].permute(0, 2, 3, 1).to(bf).contiguous()
+        run = lambda fns: head_mod._rollout_from_state(
+            weights, cells, prev, horizon, bf, *fns)
+        return run, horizon, horizon, 1
+    t = frames.shape[1]
+
+    def run(fns):
+        fr = head_mod._time_major(weights, frames, bf)
+        seeds = head_mod._seeds(weights, cells, b, hgt, wid, bf, fr.device)
+        out, state = head_mod._steps(weights, fr, t, 0, seeds, *fns)
+        return state, out[-1]
+    return run, t, t, t
+
+
+def phase_rollout_persistent(tmp, requests, frames8, seed, ptxas):
+    """K5 (see the module docstring, 3a). Returns its record."""
+    bf = torch.bfloat16
+    atol, rtol = PATH_TOL["bfloat16"]
+    K5 = (None, None)                     # _steps' kernel path: K5 in bf16
+    HOST = (convlstm_cell_fwd, conv_head_fwd)
+    PLAIN = (convlstm_cell_plain, conv_head_plain)
+    cfg = load_config("nowcast_128")
+    mc = cfg.model
+    hidden, cin = tuple(mc.hidden_dims), mc.in_channels
+    why = persistent_misfit(hidden, cin, mc.kernel_size, bf)
+    if why is not None:
+        raise AssertionError(f"K5 refuses nowcast_128: {why}")
+    weights = k5_weights(cfg, seed)
+    size = frames8.shape[-1]
+    zero = lambda nb, hid, size: tuple(
+        (torch.zeros(nb, size, size, ch, device=DEVICE, dtype=bf),) * 2
+        for ch in hid)
+    warm = {}
+    for nb in STREAM_BATCHES:
+        warm[nb], _ = head_mod.observe_kernel(weights, zero(nb, hidden, size),
+                                              frames8[:nb], bf)
+    calls = [("request_b4", weights, hidden, requests[0], None, None,
+              mc.output_frames)]
+    for nb in STREAM_BATCHES:
+        calls.append((f"forecast{STREAM_HORIZON}_b{nb}", weights, hidden,
+                      frames8[:nb], warm[nb], STREAM_HORIZON, None))
+    for nb in STREAM_BATCHES:
+        calls.append((f"observe{mc.input_frames}_b{nb}", weights, hidden,
+                      frames8[:nb], warm[nb], None, None))
+    pcfg = load_config("precip_256")
+    p_hidden, p_size = tuple(pcfg.model.hidden_dims), \
+        pcfg.data.synthetic_image_size
+    p_weights = k5_weights(pcfg, seed)
+    p_frames = torch.from_numpy(np.random.default_rng(seed).random(
+        (1, pcfg.model.input_frames, pcfg.model.in_channels, p_size, p_size),
+        dtype=np.float32)).to(DEVICE)
+    p_warm, _ = head_mod.observe_kernel(p_weights, zero(1, p_hidden, p_size),
+                                        p_frames, bf)
+    calls += [("precip_256_observe5_b1", p_weights, p_hidden, p_frames,
+               zero(1, p_hidden, p_size), None, None),
+              (f"precip_256_forecast{STREAM_HORIZON}_b1", p_weights, p_hidden,
+               p_frames, p_warm, STREAM_HORIZON, None)]
+
+    recs = {}
+    for name, w, hid, frames, cells, horizon, t_out in calls:
+        run, steps, heads, frames_in = k5_call(name, w, hid, frames, cells,
+                                               horizon, t_out)
+        b, hgt = frames.shape[0], frames.shape[-1]
+        reset_counts()
+        got = run(K5)
+        torch.cuda.synchronize()
+        launches = expect_counts(f"K5 {name}", 0, 0, k5=1)
+        grid = dict(rollout_persistent_fwd.last_launch)
+        host = run(HOST)
+        plain = run(PLAIN)
+        torch.cuda.synchronize()
+        if horizon is None and t_out is None:          # observe
+            (state, prev), (h_state, h_prev), (p_state, p_prev) = \
+                got, host, plain
+            if not (torch.equal(prev, h_prev) and states_equal(
+                    StreamState(state, prev), StreamState(h_state, h_prev))):
+                raise AssertionError(f"K5 {name}: differs from the K1/K2 "
+                                     f"host loop")
+            err = check_close(f"K5 {name} prev_out vs plain", prev, p_prev,
+                              atol, rtol)
+            err_state = state_close(f"K5 {name}", state, p_state)
+            max_out = float(p_prev.float().abs().max())
+        else:
+            if not torch.equal(got, host):
+                raise AssertionError(f"K5 {name}: differs from the K1/K2 "
+                                     f"host loop")
+            err, err_state = check_close(f"K5 {name} vs plain", got, plain,
+                                         atol, rtol), None
+            max_out = float(plain.abs().max())
+        if max_out >= MAX_OUTPUT:
+            raise AssertionError(f"K5 {name}: outputs reach {max_out}, "
+                                 f"beyond the range PATH_TOL was set for")
+        times = p50_turns(lambda: run(HOST), lambda: run(K5))
+        plain_ms = p50_ms({"plain": lambda: run(PLAIN)})["plain"][0]
+        cells_fn, head_fn = conv_parts(b, hgt, hgt, 1, hid, bf)
+        lib = p50_ms({"cells": cells_fn, "head": head_fn})
+        bound_ms, bound_by = rollout_bound_ms(b, hgt, hgt, 1, hid, steps,
+                                              heads, frames_in)
+        recs[name] = dict(
+            batch=b, size=hgt, hidden=list(hid), steps=steps, heads=heads,
+            launches=launches, grid=grid, equal_to_host_loop=True,
+            max_abs_err=err, max_abs_err_state=err_state,
+            max_abs_output=max_out, ms=times["b"][0],
+            host_loop_ms=times["a"][0], plain_ms=plain_ms,
+            library_ms=steps * lib["cells"][0] + heads * lib["head"][0],
+            bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_ms / times["b"][0],
+            ms_all=times["b"][1], host_loop_ms_all=times["a"][1])
+        say(phase="rollout_persistent", call=name, tol=[atol, rtol],
+            **recs[name])
+
+    # the per-step slope of forecast(h) over K5_SLOPE_HORIZONS, K5 and the
+    # host loop in turns, against the per-step bound; block 0's clock of
+    # each phase
+    slopes = {}
+    for nb in STREAM_BATCHES:
+        t = {}
+        for h in K5_SLOPE_HORIZONS:
+            run = k5_call("slope", weights, hidden, frames8[:nb], warm[nb],
+                          h, None)[0]
+            times = p50_turns(lambda: run(HOST), lambda: run(K5))
+            t[h] = (times["b"][0], times["a"][0])
+        lo, hi = K5_SLOPE_HORIZONS
+        fr = head_mod._time_major(weights, frames8[:nb, -1:], bf)
+        seeds = head_mod._seeds(weights, warm[nb], nb, size, size, bf,
+                                fr.device)
+        table = rollout_schedule(len(hidden), STREAM_HORIZON, 0, 1)
+        stamps = torch.zeros(1 + 2 * table.shape[0], dtype=torch.int64,
+                             device=DEVICE)
+        for _ in range(2):                     # the second is the one kept
+            rollout_persistent_fwd(weights, fr, STREAM_HORIZON, 0, seeds,
+                                   stamps=stamps)
+        torch.cuda.synchronize()
+        slopes[f"b{nb}"] = dict(
+            p50_ms={str(h): {"k5": t[h][0], "host_loop": t[h][1]}
+                    for h in K5_SLOPE_HORIZONS},
+            k5_ms_per_step=(t[hi][0] - t[lo][0]) / (hi - lo),
+            host_loop_ms_per_step=(t[hi][1] - t[lo][1]) / (hi - lo),
+            bound_ms_per_step=rollout_bound_ms(nb, size, size, cin, hidden,
+                                               1, 1, 0)[0],
+            stamps=stamp_summary(stamps, table))
+    req = requests[0]
+    fr = head_mod._time_major(weights, req, bf)
+    table = rollout_schedule(len(hidden), mc.input_frames + mc.output_frames
+                             - 1, mc.input_frames - 1, mc.input_frames)
+    stamps = torch.zeros(1 + 2 * table.shape[0], dtype=torch.int64,
+                         device=DEVICE)
+    for _ in range(2):
+        rollout_persistent_fwd(
+            weights, fr, mc.input_frames + mc.output_frames - 1,
+            mc.input_frames - 1, zero(req.shape[0], hidden, size),
+            stamps=stamps)
+    torch.cuda.synchronize()
+    slopes["request_b4_stamps"] = stamp_summary(stamps, table)
+    say(phase="rollout_persistent_slope", **slopes)
+    run = k5_call("profile", weights, hidden, frames8[:1], warm[1],
+                  STREAM_HORIZON, None)[0]
+    profile = profile_request(lambda _: run(K5), None,
+                              phase="rollout_persistent_profile")
+
+    # a bf16 model K5 refuses (frames of 8 channels are not folded) keeps
+    # the K1/K2 host loop: the static choice, with K1/K2's exact counts
+    c8 = load_config("nowcast_128")
+    c8.precision.compute_dtype = "bfloat16"
+    c8.model.in_channels = 8
+    c8.validate()
+    why8 = persistent_misfit(tuple(c8.model.hidden_dims), 8,
+                             c8.model.kernel_size, bf)
+    if why8 is None or "folded" not in why8:
+        raise AssertionError(f"K5 took 8-channel frames: {why8}")
+    ckpt8 = write_checkpoint(os.path.join(tmp, "k5_refused_8ch.npz"), c8, seed)
+    frames_8ch = torch.from_numpy(np.random.default_rng(seed).random(
+        (req.shape[0], c8.model.input_frames, 8, size, size),
+        dtype=np.float32)).to(DEVICE)
+    steps8 = c8.model.input_frames + c8.model.output_frames - 1
+    predict8 = load_predictor(c8, ckpt8)
+    reset_counts()
+    out8 = predict8(frames_8ch)
+    host_loop_launches = expect_counts(
+        "bf16 8-channel request (K5 refuses)", steps8 * len(hidden),
+        c8.model.output_frames)
+    c8.model.rollout_impl = "torch"
+    ref8 = load_predictor(c8, ckpt8)(frames_8ch)
+    # PATH_TOL's 4 ulps at the binade of this model's largest output
+    top8 = float(ref8.abs().max())
+    atol8 = max(atol, 4 * 2.0 ** (np.floor(np.log2(top8)) - 7))
+    err8 = check_close("bf16 8-channel request vs plain", out8, ref8, atol8,
+                       rtol)
+    rec = dict(calls=recs, slopes=slopes, profile_b1_forecast=profile,
+               ptxas=ptxas.get("rollout_persistent", []),
+               host_loop_8ch=dict(refusal=why8, launches=host_loop_launches,
+                                  max_abs_err=err8, max_abs_output=top8,
+                                  tol=[atol8, rtol]))
+    say(phase="rollout_persistent_summary", ptxas=rec["ptxas"],
+        host_loop_8ch=rec["host_loop_8ch"],
+        profile_idle_share=profile["idle_share"])
+    return rec
+
+
 def phase_cell_save_z(gen, shapes, grad_shape):
     """K1 writing z against its plain version (h', c' and z), timed beside
     K1 without z on the same operands (``shapes`` as phase_cell's); then
@@ -728,8 +1070,6 @@ def phase_main_path(ckpt, dtype_name, requests):
     cfg.validate()
     steps = cfg.model.input_frames + cfg.model.output_frames - 1
     n_cells = len(cfg.model.hidden_dims)
-    expect_k1 = N_REQUESTS * steps * n_cells
-    expect_k2 = N_REQUESTS * cfg.model.output_frames
     kernel_predict = load_predictor(cfg, ckpt)           # rollout_impl: auto
     cfg_torch = load_config("nowcast_128")
     cfg_torch.precision.compute_dtype = dtype_name
@@ -738,8 +1078,14 @@ def phase_main_path(ckpt, dtype_name, requests):
 
     reset_counts()
     outs, k_ms = zip(*(request_ms(kernel_predict, f) for f in requests))
-    launches = expect_counts(f"main path {dtype_name}", expect_k1, expect_k2)
+    launches = expect_rollout(f"main path {dtype_name}", dtype_name, n_cells,
+                              steps, cfg.model.output_frames, N_REQUESTS)
     refs, t_ms = zip(*(request_ms(torch_predict, f) for f in requests))
+    b, t_in, cin, hgt, wid = requests[0].shape
+    cells_fn, head_fn = conv_parts(b, hgt, wid, cin, cfg.model.hidden_dims,
+                                   getattr(torch, dtype_name))
+    lib = p50_ms({"cells": cells_fn, "head": head_fn})
+    heads = cfg.model.output_frames
     atol, rtol = PATH_TOL[dtype_name]
     want = (requests[0].shape[0], cfg.model.output_frames,
             cfg.model.in_channels) + tuple(requests[0].shape[-2:])
@@ -755,9 +1101,14 @@ def phase_main_path(ckpt, dtype_name, requests):
                                  f"PATH_TOL was set for")
         errs.append(check_close(f"main path {dtype_name} request {i}", o, r,
                                 atol, rtol))
+    bound_ms, bound_by = rollout_bound_ms(b, hgt, wid, cin,
+                                          cfg.model.hidden_dims, steps, heads,
+                                          t_in, dtype_name=dtype_name)
     rec = dict(dtype=dtype_name, requests=N_REQUESTS, launches=launches,
                kernel_p50_ms=statistics.median(k_ms), kernel_ms=list(k_ms),
                torch_p50_ms=statistics.median(t_ms), torch_ms=list(t_ms),
+               bound_ms=bound_ms, bound_by=bound_by,
+               conv2d_sum_ms=steps * lib["cells"][0] + heads * lib["head"][0],
                max_abs_err=max(errs), tol=[atol, rtol],
                max_abs_output=max(float(r.abs().max()) for r in refs))
     say(phase="main_path", **rec)
@@ -793,32 +1144,54 @@ def profile_request(predict, frames, phase="profile"):
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     traced = {name: sum(n for k, n, _ in rows if name in k)
-              for name in ("convlstm_cell", "conv_head")}
-    say(phase=phase, wall_ms=wall * 1e3, device_busy_ms=busy,
-        idle_share=max(0.0, 1 - busy / (wall * 1e3)), traced_launches=traced,
-        top=[[k[:100], n, round(ms, 4)] for k, n, ms in rows[:8]])
+              for name in ("convlstm_cell", "conv_head", "rollout_persistent")}
+    rec = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+               idle_share=max(0.0, 1 - busy / (wall * 1e3)),
+               traced_launches=traced,
+               top=[[k[:100], n, round(ms, 4)] for k, n, ms in rows[:8]])
+    say(phase=phase, **rec)
+    return rec
 
 
 def reset_counts():
     convlstm_cell_fwd.launches = 0
     convlstm_cell_fwd.launches_z = 0
     conv_head_fwd.launches = 0
+    rollout_persistent_fwd.launches = 0
     tap_loop.launches = 0
     tap_k1152.launches = 0
 
 
-def expect_counts(what, k1, k2, k1z=0):
-    """Raise unless K1 (without z), K2 and K1 with z launched exactly k1, k2
-    and k1z times since the last reset_counts(); returns the counts of K1
-    and K2."""
+def expect_counts(what, k1, k2, k1z=0, k5=0):
+    """Raise unless K1 (without z), K2, K1 with z and K5 launched exactly
+    k1, k2, k1z and k5 times since the last reset_counts(); returns the
+    counts of K1, K2 and K5."""
     got = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
-           "conv_head_fwd": conv_head_fwd.launches}
-    if got != {"convlstm_cell_fwd": k1, "conv_head_fwd": k2} or \
+           "conv_head_fwd": conv_head_fwd.launches,
+           "rollout_persistent_fwd": rollout_persistent_fwd.launches}
+    if got != {"convlstm_cell_fwd": k1, "conv_head_fwd": k2,
+               "rollout_persistent_fwd": k5} or \
             convlstm_cell_fwd.launches_z != k1z:
         raise AssertionError(f"{what}: launches {got}, with z "
                              f"{convlstm_cell_fwd.launches_z}; expected {k1} "
-                             f"K1, {k2} K2 and {k1z} K1 with z")
+                             f"K1, {k2} K2, {k1z} K1 with z and {k5} K5")
     return got
+
+
+def rollout_launches(dtype_name, n_cells, steps, heads, calls=1):
+    """(K1, K2, K5) launches of ``calls`` rollouts (or observes) of
+    ``steps`` steps with ``heads`` head steps each on the kernel path of
+    nowcast_128-like models: bfloat16 one K5 launch a call; float32 K1 for
+    every cell and step and K2 for every head step."""
+    if dtype_name == "bfloat16":
+        return 0, 0, calls
+    return n_cells * steps * calls, heads * calls, 0
+
+
+def expect_rollout(what, dtype_name, n_cells, steps, heads, calls=1):
+    """expect_counts of ``rollout_launches``."""
+    k1, k2, k5 = rollout_launches(dtype_name, n_cells, steps, heads, calls)
+    return expect_counts(what, k1, k2, k5=k5)
 
 
 def p50_ms(fns, n=N_TIMED):
@@ -861,22 +1234,12 @@ def steps_bound_ms(b, hgt, wid, cin, hidden, dtype_name, steps, k=3):
 
 
 def conv_step_fn(b, hgt, wid, cin, hidden, dtype, k=3):
-    """One step's convs as library calls (one F.conv2d per cell over
-    concat(x, h) and one for the head, channels-last, without the gates):
-    the yardstick beside a rollout, which no one PyTorch call computes."""
-    convs, cx = [], cin
-    for ch in hidden:
-        xh = torch.randn(b, hgt, wid, cx + ch, device="cuda", dtype=dtype)
-        convs.append((xh.permute(0, 3, 1, 2),
-                      torch.randn(4 * ch, cx + ch, k, k, device="cuda",
-                                  dtype=dtype),
-                      torch.randn(4 * ch, device="cuda", dtype=dtype), k // 2))
-        cx = ch
-    h = torch.randn(b, hgt, wid, cx, device="cuda", dtype=dtype)
-    convs.append((h.permute(0, 3, 1, 2),
-                  torch.randn(cin, cx, 3, 3, device="cuda", dtype=dtype),
-                  torch.randn(cin, device="cuda", dtype=dtype), 1))
-    return lambda: [F.conv2d(x, w, bias, padding=p) for x, w, bias, p in convs]
+    """One step's convs as library calls (``conv_parts``: one F.conv2d per
+    cell over concat(x, h) and one for the head, channels-last, without the
+    gates): the yardstick beside a rollout, which no one PyTorch call
+    computes."""
+    cells, head = conv_parts(b, hgt, wid, cin, hidden, dtype, k)
+    return lambda: (cells(), head())
 
 
 def states_equal(a, b):
@@ -910,7 +1273,8 @@ def check_forecast_vs_plain(what, sf, sf_plain, state, horizon, dtype_name):
     n_cells = len(state.cells)
     reset_counts()
     out = sf.forecast(state, horizon)
-    expect_counts(f"{what} forecast({horizon})", n_cells * horizon, horizon)
+    expect_rollout(f"{what} forecast({horizon})", dtype_name, n_cells,
+                   horizon, horizon)
     ref = sf_plain.forecast(state, horizon)
     b, hgt, wid, chans = state.prev_out.shape
     want = (b, horizon, chans, hgt, wid)
@@ -938,10 +1302,12 @@ def phase_stream(ckpt, dtype_name, request, frames8):
 
     reset_counts()
     state, nowcast = sf.observe_window(sf.init_state(b, hgt, wid), request)
-    expect_counts("observe_window", n_cells * t_in, t_in)
+    expect_rollout("observe_window", dtype_name, n_cells, t_in, t_in)
     rest = sf.forecast(state, t_out - 1)
-    launches = expect_counts("observe_window + forecast",
-                             n_cells * (t_in + t_out - 1), t_in + t_out - 1)
+    k1, k2, k5 = rollout_launches(dtype_name, n_cells, t_in + t_out - 1,
+                                  t_in + t_out - 1)
+    launches = expect_counts("observe_window + forecast", k1, k2,
+                             k5=2 * k5)
     rollout = torch.cat([nowcast[:, None], rest], 1)
     err_batch = check_close(f"stream {dtype_name} vs batch", rollout, batch,
                             atol, rtol)
@@ -950,7 +1316,7 @@ def phase_stream(ckpt, dtype_name, request, frames8):
     for t in range(t_in):
         reset_counts()
         frame_state, frame_now = sf.observe(frame_state, request[:, t])
-        expect_counts(f"observe frame {t}", n_cells, 1)
+        expect_rollout(f"observe frame {t}", dtype_name, n_cells, 1, 1)
     if not (torch.equal(frame_now, nowcast)
             and states_equal(frame_state, state)):
         raise AssertionError(f"stream {dtype_name}: frame-by-frame observe "
@@ -959,7 +1325,8 @@ def phase_stream(ckpt, dtype_name, request, frames8):
     before = clone_state(state)
     reset_counts()
     again = sf.forecast(state, t_out - 1)
-    expect_counts(f"forecast({t_out - 1})", n_cells * (t_out - 1), t_out - 1)
+    expect_rollout(f"forecast({t_out - 1})", dtype_name, n_cells, t_out - 1,
+                   t_out - 1)
     if not torch.equal(again, rest):
         raise AssertionError(f"stream {dtype_name}: two forecasts from one "
                              f"state differ")
@@ -987,7 +1354,8 @@ def phase_stream(ckpt, dtype_name, request, frames8):
             forecast_bound_ms=steps_bound_ms(nb, hgt, wid, cin,
                                              cfg.model.hidden_dims,
                                              dtype_name, horizon),
-            forecast_launches=[n_cells * horizon, horizon],
+            forecast_launches=list(rollout_launches(
+                dtype_name, n_cells, horizon, horizon)),
             forecast_library_ms=horizon * times["conv_step"][0],
             observe_ms=times["observe"][0],
             observe_plain_ms=times["observe_plain"][0],
@@ -1010,7 +1378,8 @@ def phase_stream(ckpt, dtype_name, request, frames8):
 # ------------------------------------------------------------------ export
 # The serving artifacts (serve.py) at nowcast_128's full width, weights from
 # the seed through weights.py: the kernel path's programs hold the
-# plcg_torch ops, which launch K1/K2 as the eager kernel path does.
+# plcg_torch ops, which launch K1/K2 (float32) or K5 (bfloat16) as the
+# eager kernel path does.
 EXPORT_HORIZONS = (10, 30)
 EXPORT_TIMEOUT = 600    # seconds the serving child may take
 
@@ -1027,7 +1396,7 @@ def export_worker(work, dtype_name):
     """``chip_smoke.py --export-worker <work> <dtype>``: a process that has
     only the artifact <work>/model_<dtype>.pt2 (the checkpoint is deleted)
     serves the requests of <work>/requests.npy through serve.load_exported
-    and saves the outputs and the K1 / K2 / K1-with-z counts of the
+    and saves the outputs and the K1 / K2 / K1-with-z / K5 counts of the
     requests to <work>/served_<dtype>.pt."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1040,7 +1409,8 @@ def export_worker(work, dtype_name):
     torch.cuda.synchronize()
     torch.save({"outs": [o.cpu() for o in outs],
                 "counts": (convlstm_cell_fwd.launches, conv_head_fwd.launches,
-                           convlstm_cell_fwd.launches_z)},
+                           convlstm_cell_fwd.launches_z,
+                           rollout_persistent_fwd.launches)},
                os.path.join(work, f"served_{dtype_name}.pt"))
     return 0
 
@@ -1050,10 +1420,11 @@ def export_batch(tmp, dtype_name, requests, seed):
     node), then a child process with the checkpoint deleted serves the
     requests from the artifact alone: equal to the eager kernel predictor
     (torch.equal), within PATH_TOL of the plain path, 72 K1 + 20 K2 a
-    request. A plain artifact exported on the CPU serves on the card within
-    PATH_TOL; a kernel artifact exported on the CPU (K1's weights packed
-    there) serves on the card equal to the eager kernel path, 72 K1 + 20
-    K2 a request. Artifacts and eager requests timed in turns."""
+    request in float32 and one K5 in bfloat16. A plain artifact exported on
+    the CPU serves on the card within PATH_TOL; a kernel artifact exported
+    on the CPU (K1's weights packed there) serves on the card equal to the
+    eager kernel path with the same launches. Artifacts and eager requests
+    timed in turns."""
     cfg = load_config("nowcast_128")
     cfg.precision.compute_dtype = dtype_name
     cfg.validate()
@@ -1061,7 +1432,8 @@ def export_batch(tmp, dtype_name, requests, seed):
     cfg_torch.precision.compute_dtype = dtype_name
     cfg_torch.model.rollout_impl = "torch"
     steps = cfg.model.input_frames + cfg.model.output_frames - 1
-    k1, k2 = steps * len(cfg.model.hidden_dims), cfg.model.output_frames
+    k1, k2, k5 = rollout_launches(dtype_name, len(cfg.model.hidden_dims),
+                                  steps, cfg.model.output_frames)
     work = tempfile.mkdtemp(dir=tmp)
     ckpt = write_checkpoint(os.path.join(work, "weights.npz"), cfg, seed)
     t0 = time.perf_counter()
@@ -1101,10 +1473,10 @@ def export_batch(tmp, dtype_name, requests, seed):
     served = torch.load(os.path.join(work, f"served_{dtype_name}.pt"),
                         weights_only=False)
     n = len(requests)
-    if served["counts"] != (n * k1, n * k2, 0):
+    if served["counts"] != (n * k1, n * k2, 0, n * k5):
         raise AssertionError(f"export {dtype_name}: the child launched "
-                             f"(K1, K2, K1 with z) {served['counts']}, "
-                             f"expected {(n * k1, n * k2, 0)}")
+                             f"(K1, K2, K1 with z, K5) {served['counts']}, "
+                             f"expected {(n * k1, n * k2, 0, n * k5)}")
     atol, rtol = PATH_TOL[dtype_name]
     errs = []
     for i, (got, want, ref) in enumerate(zip(served["outs"], outs, refs)):
@@ -1126,7 +1498,7 @@ def export_batch(tmp, dtype_name, requests, seed):
         reset_counts()
         got = serve_cpu(r)
         expect_counts(f"export {dtype_name} CPU-exported kernel artifact "
-                      f"request {i}", k1, k2)
+                      f"request {i}", k1, k2, k5=k5)
         if not torch.equal(got, want):
             raise AssertionError(f"export {dtype_name} request {i}: the "
                                  f"kernel artifact exported on the CPU "
@@ -1134,7 +1506,7 @@ def export_batch(tmp, dtype_name, requests, seed):
     serve = load_exported(blob)
     reset_counts()
     out = serve(requests[0])
-    launches = expect_counts(f"export {dtype_name} request", k1, k2)
+    launches = expect_counts(f"export {dtype_name} request", k1, k2, k5=k5)
     if not torch.equal(out, outs[0]):
         raise AssertionError(f"export {dtype_name}: the artifact in this "
                              f"process differs from the eager kernel path")
@@ -1164,8 +1536,9 @@ def export_stream(tmp, dtype_name, request, frames8, seed):
     frames observed one at a time, then forecast(h) for each exported h;
     then forecast(30) at B 1 and B 8 from states observed the same way.
     Each equal to StreamingForecaster's kernel path, 3 K1 + 1 K2 an
-    observed frame, 3h K1 + h K2 a forecast(h); observe and forecast(30)
-    timed in turns with the eager path."""
+    observed frame, 3h K1 + h K2 a forecast(h) in float32, one K5 a call in
+    bfloat16; observe and forecast(30) timed in turns with the eager
+    path."""
     cfg = load_config("nowcast_128")
     cfg.precision.compute_dtype = dtype_name
     ckpt = write_checkpoint(os.path.join(tempfile.mkdtemp(dir=tmp),
@@ -1184,16 +1557,17 @@ def export_stream(tmp, dtype_name, request, frames8, seed):
     server = load_streaming_exported(blob)
 
     def observe_both(frames):
-        """-> (artifact state, eager state, the artifact's K1/K2 counts
-        summed over the observed frames)"""
+        """-> (artifact state, eager state, the artifact's K1/K2/K5
+        counts summed over the observed frames)"""
         state = server.init_state(frames.shape[0])
         eager = sf.init_state(frames.shape[0], hgt, wid)
         seen = Counter()
         for t in range(t_in):
             reset_counts()
             state, now = server.observe(state, frames[:, t])
-            seen.update(expect_counts(f"export stream {dtype_name} observe",
-                                      n_cells, 1))
+            seen.update(expect_rollout(
+                f"export stream {dtype_name} observe", dtype_name, n_cells,
+                1, 1))
             eager, eager_now = sf.observe(eager, frames[:, t])
             if not (torch.equal(now, eager_now) and states_equal(
                     StreamState(*state), eager)):
@@ -1202,11 +1576,11 @@ def export_stream(tmp, dtype_name, request, frames8, seed):
         return state, eager, seen
 
     def forecast_both(state, eager, h, what):
-        """-> the artifact's K1/K2 counts of forecast(h)"""
+        """-> the artifact's K1/K2/K5 counts of forecast(h)"""
         reset_counts()
         out = server.forecast(state, h)
-        seen = expect_counts(f"export stream {dtype_name} {what} "
-                             f"forecast({h})", n_cells * h, h)
+        seen = expect_rollout(f"export stream {dtype_name} {what} "
+                              f"forecast({h})", dtype_name, n_cells, h, h)
         if not torch.equal(out, sf.forecast(eager, h)):
             raise AssertionError(f"export stream {dtype_name} {what}: "
                                  f"forecast({h}) differs from the eager "
@@ -1312,7 +1686,8 @@ def phase_precip_256(tmp, seed):
         dtype=np.float32)).cuda()
     reset_counts()
     warm, _ = sf.observe_window(sf.init_state(1, size, size), frames)
-    expect_counts("precip_256 observe_window", n_cells * t_in, t_in)
+    launches = expect_rollout("precip_256 observe_window", dtype_name,
+                              n_cells, t_in, t_in)
     err = check_forecast_vs_plain("precip_256 B 1", sf, sf_plain, warm,
                                   STREAM_HORIZON, dtype_name)
     times = p50_ms({"forecast": lambda: sf.forecast(warm, STREAM_HORIZON),
@@ -1327,7 +1702,8 @@ def phase_precip_256(tmp, seed):
                                          cfg.model.hidden_dims, dtype_name,
                                          STREAM_HORIZON),
         forecast_ms_all=times["forecast"][1],
-        forecast_plain_ms_all=times["forecast_plain"][1])
+        forecast_plain_ms_all=times["forecast_plain"][1], launches=launches)
+    return dict(launches=launches)
 
 
 def train_config(dtype_name, impl="pallas"):
@@ -1497,7 +1873,7 @@ def phase_trainer(tmp, request):
     """The CLI's train path on nowcast_128_pallas in process (24 sequences,
     2 epochs; latest saved every epoch so that --resume starts at epoch 2),
     --resume to 3 epochs, --mode eval, then load_predictor on the trainer's
-    best_model serving one request on K1/K2."""
+    best_model serving one request on K5 (bf16)."""
     cfg = load_config("nowcast_128_pallas")
     mc = cfg.model
     cfg.data.synthetic_num_sequences = TRAINER_SEQUENCES
@@ -1535,12 +1911,16 @@ def phase_trainer(tmp, request):
                                                "best_model"))
     reset_counts()
     out = predict(request)
-    expect_counts("trainer best_model predict", per_step, mc.output_frames)
+    served = expect_rollout("trainer best_model predict",
+                            cfg.precision.compute_dtype,
+                   len(mc.hidden_dims), mc.input_frames + mc.output_frames - 1,
+                   mc.output_frames)
     want = (request.shape[0], mc.output_frames) + tuple(request.shape[2:])
     if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"trainer predict: {tuple(out.shape)}")
     rec = dict(sequences=TRAINER_SEQUENCES, epochs=TRAINER_EPOCHS + 1,
                seconds=time.perf_counter() - t0, train_launches_z=train_launches,
+               served_launches=served,
                val_l1=h3["val_l1"], total_loss=h3["total_loss"],
                test_metrics=metrics)
     say(phase="trainer", **rec)
@@ -2329,11 +2709,11 @@ def phase_fit(tmp, seed):
         predict = load_predictor(cfg, ckpt)
         reset_counts()
         predict(request)
-        fits[dtype_name] = expect_counts(f"fit nowcast_128 {dtype_name}",
-                                         steps * n_cells,
-                                         cfg.model.output_frames)
+        fits[dtype_name] = expect_rollout(f"fit nowcast_128 {dtype_name}",
+                                          dtype_name, n_cells, steps,
+                                          cfg.model.output_frames)
     say(phase="fit", refused=recs, nowcast_128_launches=fits)
-    return recs
+    return dict(refused=recs, nowcast_128_launches=fits)
 
 
 def write_checkpoint(path, cfg, seed):
@@ -3531,8 +3911,8 @@ def tp_compare(label, entry, ranks, ref):
 
 def tp_serve_checkpoint(work):
     """One process serves the TP trainer's canonical best_model (in
-    ``work``): (the request, the plain path's prediction, K1/K2's and
-    their exact launch counts)."""
+    ``work``): (the request, the plain path's prediction, the kernel
+    path's (K5 in bf16) and its exact launch counts)."""
     ckpt = os.path.join(work, "tp_trainer", "best_model")
     cfg = load_config("tp_nowcast_128")
     cfg.model.rollout_impl = "torch"
@@ -3543,16 +3923,17 @@ def tp_serve_checkpoint(work):
     reset_counts()
     served = kernel(frames)
     steps = cfg.model.input_frames + cfg.model.output_frames - 1
-    launches = expect_counts("tp trainer: served on K1/K2",
-                             steps * len(cfg.model.hidden_dims),
-                             cfg.model.output_frames)
+    launches = expect_rollout("tp trainer: served on the kernels",
+                              cfg.precision.compute_dtype,
+                              len(cfg.model.hidden_dims), steps,
+                              cfg.model.output_frames)
     return want, served, launches
 
 
 def tp_trainer_record(ranks, want, served, launches):
     """The trainer round trip's checks: the ranks' predictions bit-equal,
     the TP model's against one process serving its checkpoint (plain), and
-    K1/K2 against plain."""
+    the kernel path (K5) against plain."""
     # PATH_TOL's bfloat16 atol is 4 ulps of outputs below MAX_OUTPUT; the
     # trained model's outputs may reach a higher binade, where 4 ulps are
     # 4 * 2^(e - 7) for outputs in [2^e, 2^(e+1))
@@ -3573,8 +3954,8 @@ def tp_trainer_record(ranks, want, served, launches):
             "tp trainer: TP model against one process (plain)",
             tr["pred"], want.cpu(), atol, rtol),
         kernel_vs_plain=check_close(
-            "tp trainer: one process on K1/K2 against plain", served, want,
-            atol, rtol),
+            "tp trainer: one process on the kernels against plain", served,
+            want, atol, rtol),
         served_launches=launches, max_abs_output=top, tol=[atol, rtol])
 
 
@@ -3587,8 +3968,8 @@ def phase_tp(seed, backend="gloo", runs=TP_RUNS, layouts=None):
     scaling numbers. Over NCCL (``--tp-nccl``) each rank has a GPU. The
     trainer round trip: the TP trainer's canonical best_model served by
     one process (load_predictor) on the plain path against the TP model's
-    own prediction of the same request, and on K1/K2 against the plain
-    path, with exact launch counts."""
+    own prediction of the same request, and on the kernels (K5) against
+    the plain path, with exact launch counts."""
     layouts = layouts or {TP_WORLD: (*[r[0] for r in runs], "trainer")}
     refs = {}
     for label, entry in tp_setup(seed, runs).items():   # one process
@@ -3738,9 +4119,49 @@ def dp_nccl_main() -> int:
     return 0
 
 
+def k5_entry(k5, paths, streams, exports, precip, fit, trainer, tp):
+    """K5's record of the kernels line: launches per path, its error
+    against the plain path (it equals the K1/K2 host loop bit for bit),
+    and its times at the main path's call (a nowcast_128 request, B 4),
+    with every call of the K5 phase beside them."""
+    calls = k5["calls"]
+    r = calls["request_b4"]
+    count = lambda d: d["rollout_persistent_fwd"]
+    by_path = {
+        "predict": count(paths["bfloat16"]["launches"]),
+        "stream": count(streams["bfloat16"]["launches"]),
+        "export_predict": count(exports["bfloat16"]["predict"]["launches"]),
+        "export_stream": count(exports["bfloat16"]["stream"]["launches"]),
+        "precip_256_observe_window": count(precip["launches"]),
+        "fit_nowcast_128_request": count(
+            fit["nowcast_128_launches"]["bfloat16"]),
+        "trainer_best_model_request": count(trainer["served_launches"]),
+        "tp_trainer_best_model_request": count(
+            tp["layouts"][TP_WORLD]["trainer"]["served_launches"]),
+        **{f"k5_{name}": count(c["launches"]) for name, c in calls.items()}}
+    keep = ("batch", "size", "steps", "heads", "ms", "host_loop_ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share",
+            "max_abs_err", "grid")
+    return dict(
+        name="rollout_persistent_fwd", dtype="bfloat16", route="cuda",
+        source=K5_SOURCE, replaces=K5_REPLACES, stands_for=K5_STANDS_FOR,
+        launches=by_path["predict"], launches_by_path=by_path,
+        max_abs_err=max(c["max_abs_err"] for c in calls.values()),
+        equal_to_host_loop=all(c["equal_to_host_loop"]
+                               for c in calls.values()),
+        measured_at="request_b4: nowcast_128, B 4, 5 -> 20, bf16",
+        ms=r["ms"], host_loop_ms=r["host_loop_ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+        conv2d_sum_ms=r["library_ms"],
+        per_call={name: {k: c[k] for k in keep}
+                  for name, c in calls.items()},
+        slopes=k5["slopes"], profile_b1_forecast=k5["profile_b1_forecast"],
+        ptxas=k5["ptxas"])
+
+
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                    trainer, gans, gan_trainer, gens, gen_trainer, taps,
-                   remat, dp, tp, exports, int8):
+                   remat, dp, tp, exports, int8, k5, precip, fit):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
@@ -3750,7 +4171,9 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
     run; the Generator's per request, per train step and of its trainer's
     run. The int8 stream (float32) launches K1/K2 in its observe only: its
     count covers the first request's observed frames and one int8
-    forecast."""
+    forecast. In bfloat16 the rollouts run on K5 (its own entry): K1's and
+    K2's bf16 ``launches`` are those of the host loop that a bf16 model K5
+    refuses keeps (``host_loop_8ch_request``)."""
     entries = []
     int8_k1 = {"float32": {"int8_stream": int8["stream_launches"][
         "convlstm_cell_fwd"]}, "bfloat16": {}}
@@ -3795,13 +4218,16 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
         g = [r for r in recs if r["generator"]]
         return {key: statistics.mean(r[key] for r in g) for key in
                 ("ms", "plain_ms", "bound_ms", "library_ms")}
+    host8 = k5["host_loop_8ch"]["launches"]
     for name, path in paths.items():
         c_recs = [r for r in cell[name] if r["mix"]]
         mix = lambda key: sum(w * r[key] for w, r in zip(weights, c_recs)) / sum(weights)
+        bf16 = name == "bfloat16"
         entries.append(dict(
             name="convlstm_cell_fwd", dtype=name, route="cuda", source=K1_SOURCE,
             replaces=K1_REPLACES, stands_for=K1_STANDS_FOR,
-            launches=path["launches"]["convlstm_cell_fwd"],
+            launches=(host8 if bf16 else path["launches"])[
+                "convlstm_cell_fwd"],
             launches_by_path={
                 "predict": path["launches"]["convlstm_cell_fwd"],
                 "stream": streams[name]["launches"]["convlstm_cell_fwd"],
@@ -3814,7 +4240,9 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                 "generator_request": gens[name]["launches_per_request"][
                     "convlstm_cell_fwd"],
                 "generator_eval_batch": gens[name]["launches_eval_batch"],
-                **int8_k1[name]},
+                **int8_k1[name],
+                **({"host_loop_8ch_request": host8["convlstm_cell_fwd"]}
+                   if bf16 else {})},
             max_abs_err=max(r["max_abs_err"] for r in cell[name]),
             ms=mix("ms"), plain_ms=mix("plain_ms"), bound_ms=mix("bound_ms"),
             bound_by=c_recs[0]["bound_by"], library_ms=mix("library_ms"),
@@ -3849,20 +4277,24 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
         entries.append(dict(
             name="conv_head_fwd", dtype=name, route="cuda", source=K2_SOURCE,
             replaces=K2_REPLACES, stands_for=K2_STANDS_FOR,
-            launches=path["launches"]["conv_head_fwd"],
+            launches=(host8 if bf16 else path["launches"])["conv_head_fwd"],
             launches_by_path={
                 "predict": path["launches"]["conv_head_fwd"],
                 "stream": streams[name]["launches"]["conv_head_fwd"],
                 "export_predict": exports[name]["predict"]["launches"][
                     "conv_head_fwd"],
                 "export_stream": exports[name]["stream"]["launches"][
-                    "conv_head_fwd"], **int8_k2[name]},
+                    "conv_head_fwd"], **int8_k2[name],
+                **({"host_loop_8ch_request": host8["conv_head_fwd"]}
+                   if bf16 else {})},
             max_abs_err=max(r["max_abs_err"] for r in head[name]),
             ms=h["ms"], graph_ms=h["graph_ms"], plain_ms=h["plain_ms"],
             bound_ms=h["bound_ms"], bound_by=h["bound_by"],
             library_ms=h["library_ms"],
             library_graph_ms=h["library_graph_ms"],
             per_shape=[r for r in head[name] if "ms" in r]))
+    entries.append(k5_entry(k5, paths, streams, exports, precip, fit, trainer,
+                            tp))
     for name, source, replaces, stands_for in (
             ("tap_loop", K3_SOURCE, K3_REPLACES, K3_STANDS_FOR),
             ("tap_k1152", K4_SOURCE, K4_REPLACES, K4_STANDS_FOR)):
@@ -3907,7 +4339,7 @@ def main() -> int:
         optional={m: importlib.util.find_spec(m) is not None
                   for m in ("matplotlib", "grain", "pandas")})
 
-    phase_build()
+    ptxas = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dtypes = (torch.float32, torch.bfloat16)
     cfg = load_config("nowcast_128")
@@ -3956,6 +4388,7 @@ def main() -> int:
          size, size), dtype=np.float32)).cuda()
     paths, streams = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
+        k5 = phase_rollout_persistent(tmp, requests, frames8, SEED, ptxas)
         ckpt = write_checkpoint(os.path.join(tmp, "nowcast_128_seed.npz"),
                                 cfg, SEED)
         for dtype_name in ("float32", "bfloat16"):
@@ -3968,8 +4401,8 @@ def main() -> int:
         profile_request(lambda st: sf.forecast(st, STREAM_HORIZON), warm_b1,
                         phase="stream_profile")
         exports = phase_export(tmp, requests, frames8, SEED)
-        phase_precip_256(tmp, SEED)
-        phase_fit(tmp, SEED)
+        precip = phase_precip_256(tmp, SEED)
+        fit = phase_fit(tmp, SEED)
         int8, int8_predict = phase_int8(ckpt, requests, frames8)
         phase_profiling(tmp, int8_predict, requests[0], SEED)
         del int8_predict
@@ -3989,7 +4422,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
         gans, gan_trainer, gens, gen_trainer, taps, remat, dp, tp,
-        exports, int8)}), flush=True)
+        exports, int8, k5, precip, fit)}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

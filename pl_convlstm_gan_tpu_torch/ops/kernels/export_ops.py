@@ -1,7 +1,7 @@
 """The kernel path of serving as registered PyTorch ops, for ``torch.export``.
 
-K1 and K2 are ctypes launches (``build.load_function``), which
-``torch.export`` cannot trace. Each host loop of ``rollout_kernel.py`` that
+K1, K2 and K5 are ctypes launches (``build.load_function``), which
+``torch.export`` cannot trace. Each rollout of ``rollout_kernel.py`` that
 serving runs is therefore registered whole as one functional op
 (``torch.library.custom_op``, namespace ``plcg_torch``) with a fake
 implementation that gives only the output's shape and type:
@@ -16,13 +16,14 @@ implementation that gives only the output's shape and type:
 
 An exported program that holds one of these ops is one node per call, as a
 JAX program embeds one Pallas custom call, and keeps everything the eager
-kernel path has: the ping-pong buffers of ``_steps``, the launch counts
-(72 K1 + 20 K2 a nowcast_128 request, 3h K1 + h K2 a ``forecast(h)``), and
-the choice of K1/K2 or their plain versions, made in the wrappers by the
-tensors' device before any launch (CUDA: the kernels, which raise on what
-they refuse; CPU: the plain versions). No op catches an error of a build or
-a launch. A program holding these ops is deserialized only after this
-module is imported (``serve.load_exported`` imports it).
+kernel path has: the phase table and buffers of ``_steps``, the launch
+counts (in bfloat16 one K5 a call; in float32 72 K1 + 20 K2 a nowcast_128
+request, 3h K1 + h K2 a ``forecast(h)``), and the choice of K5, K1/K2 or
+their plain versions, made before any launch by the model's widths and
+dtype (``persistent_misfit``) and the tensors' device (CUDA: the kernels,
+which raise on what they refuse; CPU: the plain versions). No op catches an
+error of a build or a launch. A program holding these ops is deserialized
+only after this module is imported (``serve.load_exported`` imports it).
 
 Each op takes the weights as lists: the cells' HWIO weights, their biases,
 K1's packed weights (``kernel_pack``, one per cell, on every device: the

@@ -1,31 +1,48 @@
 """Free-running forecaster rollout on the hand-written CUDA kernels.
 
 Counterpart of the JAX package's ``ops/pallas/rollout_kernel.py``. The TPU
-kernel there runs the whole rollout in one launch per batch item, with about
-9 MB of recurrent state resident in VMEM. A Hopper SM has 227 KB of shared
-memory, so that design does not carry over. Here the rollout is a host loop
-that launches, per step, K1 (``csrc/convlstm_cell.cu``) once per cell and,
-once predictions start, K2 (``csrc/conv_head.cu``) for the head; the state
-stays in device memory (and mostly in the 50 MB L2) between launches.
+kernel there (``_launch_rollout``) runs the whole rollout in one launch per
+batch item, with about 9 MB of recurrent state resident in VMEM. A Hopper SM
+has 227 KB of shared memory, so the state lives in device memory (and mostly
+in the 50 MB L2) here.
 
-At nowcast_128 (3 cells, 5 frames in, 20 out) a request is 72 K1 and 20 K2
-launches. Capturing the loop in a CUDA graph, or one persistent kernel,
-would remove the per-launch host cost; that is left to a later change.
+Every rollout is one **schedule** (``rollout_schedule``): an int32 table of
+phases, one row a phase, cell k at step t or the head at step t, naming
+where x comes from (a frame, an output slot of the head, the h of cell
+k - 1), which h and c buffers are read and written (the seed, two
+ping-pong h buffers a cell, one c buffer a cell) and the output slot. Step t
+feeds frame t while t < T_in, else the head's output of the step before;
+the head runs from step ``emit_from`` on. Three executors walk the table:
+- CPU tensors: the plain versions, ``convlstm_cell_plain`` and
+  ``conv_head_plain``, phase by phase (``walk_schedule``);
+- float32 on the card: K1 (``csrc/convlstm_cell.cu``) for each cell phase
+  and K2 (``csrc/conv_head.cu``) for each head phase, launched from this
+  host loop: a nowcast_128 request (3 cells, 5 frames in, 20 out) is 72 K1
+  and 20 K2 launches, a ``forecast(h)`` 3h K1 and h K2;
+- bfloat16 on the card: **K5** (``csrc/rollout_persistent.cu``), one
+  cooperative launch per call that walks the same table on the device, its
+  cell phases on K1's bf16 tile body and its head phases on K2's tile, with
+  a grid-wide barrier between phases (``rollout_persistent_fwd``; its plain
+  version, for CPU tensors, is the walk through the plain versions).
+  ``persistent_misfit`` states the models K5 does not take, which keep the
+  K1/K2 host loop: a static choice, made before any launch.
+The three give the same bits where they share a dtype and device: K5 runs
+K1's and K2's arithmetic in their order.
 
 The warm-start launch of the TPU kernel (``rollout_pallas_from_state``, run
-by ``StreamingForecaster.forecast``) is the same loop seeded from a carried
-``(h, c)`` state instead of zeros, with t_in = 1: step 0 feeds the stream's
-last emitted frame and the head emits at every step, so a horizon-h forecast
-is h x n_cells K1 and h K2 launches. Streaming's ``observe`` runs the loop
-too, one step per frame. Three parts of the TPU kernel have no counterpart:
+by ``StreamingForecaster.forecast``) is the same schedule seeded from a
+carried ``(h, c)`` state instead of zeros, with t_in = 1: step 0 feeds the
+stream's last emitted frame and the head emits at every step. Streaming's
+``observe`` walks it too, one step per frame. Three parts of the TPU kernel
+have no counterpart:
 - the 128-lane padding of the packed seeds, a Mosaic tile artifact: each
   cell's state is its own [B,H,W,Ch] tensor here;
 - the resident/streamed ``io_mode`` choice, a VMEM budget, and with it the
   streamed-I/O variant (double-buffered frame and output DMAs);
 - ``cell_pass_looped``, a traced row-tile loop that bounds Mosaic code size.
-The state, frames and outputs already live in device memory between
-launches and nvcc's code size does not grow with the frame, so one code
-path serves 128 px and 256 px frames alike.
+The state, frames and outputs already live in device memory and nvcc's code
+size does not grow with the frame, so one code path serves 128 px and
+256 px frames alike.
 
 This module holds:
 - K2's wrapper ``conv_head_fwd``, its plain version ``conv_head_plain``, its
@@ -34,18 +51,23 @@ This module holds:
 - ``rollout_kernel_misfit``: why K1 and K2 do not take a model at a
   compute dtype (None when they do), a pure function of the config's
   widths, by which ``rollout_impl: auto`` picks the kernels or the plain path
-  before any launch;
+  before any launch; ``persistent_misfit``: why K5 does not take it;
+- ``rollout_schedule`` and ``walk_schedule``: the phase table and its walk;
+- K5's wrapper ``rollout_persistent_fwd`` (``.launches``, ``.flops``, the
+  operations it ran, and ``.last_launch``, its grid) and its plain version
+  ``rollout_persistent_plain``;
 - ``pack_weights``: the model's state_dict -> the kernels' HWIO layout, and
-  on the card each cell's weight packed once for K1 (``kernel_pack``);
+  on the card each cell's weight packed once for K1 and K5 (``kernel_pack``);
 - ``rollout_kernel`` (the counterpart of ``rollout_pallas``) and
-  ``rollout_plain``: the same loop through the wrappers or the plain versions;
+  ``rollout_plain``: the schedule on the kernels or the plain versions;
 - ``rollout_kernel_from_state`` (the counterpart of
   ``rollout_pallas_from_state``) and ``rollout_plain_from_state``;
-- ``observe_kernel``: streaming's assimilation of new frames on K1 and K2.
+- ``observe_kernel``: streaming's assimilation of new frames.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -53,7 +75,8 @@ import torch
 from ..nn import conv2d_nhwc_f32, hwio_from_oihw, oihw_from_hwio
 from . import build
 from .convlstm_kernel import (cell_kernel_misfit, convlstm_cell_fwd,
-                             convlstm_cell_plain, kernel_pack)
+                             convlstm_cell_plain, k_blocks, kernel_pack,
+                             packed_shape)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -259,37 +282,329 @@ def _seeds(weights: RolloutWeights, cells, b, hgt, wid, compute_dtype,
     return seeds
 
 
-def _steps(weights: RolloutWeights, fr, steps: int, emit_from: int, seeds,
-           cell_fn, head_fn):
-    """The per-step loop shared by the cold and warm rollouts and ``observe``.
+# The phase table's columns (csrc/rollout_persistent.cu reads them so)
+(KIND, CELL, STEP, X_FROM, X_INDEX, H_READ, H_WRITE, C_READ, C_WRITE,
+ OUT_SLOT) = range(10)
+CELL_PHASE, HEAD_PHASE = 0, 1          # KIND
+FROM_FRAME, FROM_OUT, FROM_H = 0, 1, 2  # X_FROM
+SEED, PING0, PING1 = 0, 1, 2           # h buffers (H_READ, H_WRITE, X_INDEX)
+C_BUF = 1                              # c: SEED or the cell's buffer
 
-    fr [T_in,B,H,W,C] holds the frames, time-major NHWC in the compute dtype.
-    Step t feeds x = fr[t] while t < T_in, else the head's output of the step
-    before. The head runs from step ``emit_from`` (<= T_in - 1) on and writes
-    out[t - emit_from]. ``seeds`` ((h, c) per cell) is the state before step
-    0 and is only read: each cell writes its h into the other buffer of a
-    ping-pong pair of its own (neighbouring blocks read the halo of the h
-    they read) and its c into a buffer of its own, in place from step 1 on.
-    Returns (out [steps - emit_from,B,H,W,C], the state after the last step:
-    ((h, c), ...), none of it aliasing a seed)."""
+
+def rollout_schedule(n_cells: int, steps: int, emit_from: int, t_in: int):
+    """The phases of a rollout of ``steps`` steps through ``n_cells`` cells:
+    an int32 tensor [n_phases, 10], one row a phase, in order.
+
+    Step t runs cells 0 .. n_cells - 1, then, from step ``emit_from`` on
+    (``emit_from`` <= ``t_in`` - 1), the head, which writes output slot
+    t - emit_from. Cell 0 reads frame t while t < ``t_in``, else the output
+    slot of the step before; cell k > 0 reads the h that cell k - 1 wrote
+    at the same step. A cell row (KIND = CELL_PHASE) names its cell and step,
+    x (X_FROM: FROM_FRAME with the frame in X_INDEX, FROM_OUT with the slot,
+    or FROM_H with the buffer of cell k - 1's h), the h it reads and writes
+    (SEED, PING0, PING1), the c it reads and writes (SEED or C_BUF) and
+    OUT_SLOT -1. A head row (KIND = HEAD_PHASE) has CELL = n_cells, reads
+    FROM_H buffer X_INDEX of the top cell and writes OUT_SLOT; its h and c
+    columns are -1. The rules of the loop it replaces hold: a seed is never
+    written; h is written into the ping-pong buffer that the cell does not
+    read (neighbouring tiles read the halo of the h they read); c is written
+    into the cell's buffer, in place from step 1 on; the state after the
+    last step (each cell's last h and c written) aliases no seed."""
+    if not (steps >= 1 and 0 <= emit_from < min(t_in, steps)):
+        raise ValueError(f"need steps >= 1 and 0 <= emit_from < min(t_in, "
+                         f"steps); got steps {steps}, emit_from {emit_from}, "
+                         f"t_in {t_in}")
+    if n_cells < 1:
+        raise ValueError(f"need at least one cell, got {n_cells}")
+    rows = []
+    for t in range(steps):
+        h_write = PING0 + t % 2
+        h_read = SEED if t == 0 else PING0 + (t - 1) % 2
+        c_read = SEED if t == 0 else C_BUF
+        for k in range(n_cells):
+            if k > 0:
+                x_from, x_index = FROM_H, h_write
+            elif t < t_in:
+                x_from, x_index = FROM_FRAME, t
+            else:
+                x_from, x_index = FROM_OUT, t - 1 - emit_from
+            rows.append((CELL_PHASE, k, t, x_from, x_index, h_read, h_write,
+                         c_read, C_BUF, -1))
+        if t >= emit_from:
+            rows.append((HEAD_PHASE, n_cells, t, FROM_H, h_write, -1, -1, -1,
+                         -1, t - emit_from))
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def final_buffers(table) -> list:
+    """The h buffer (PING0 or PING1) each cell wrote last in ``table``: with
+    each cell's c buffer, the state after the rollout."""
+    last = {}
+    for row in table.tolist():
+        if row[KIND] == CELL_PHASE:
+            last[row[CELL]] = row[H_WRITE]
+    return [last[k] for k in range(len(last))]
+
+
+def _buffers(fr, seeds, steps: int, emit_from: int):
+    """The walk's outputs and state buffers: out [steps - emit_from, B, H,
+    W, C], per cell min(steps, 2) ping-pong h buffers and one c buffer."""
     t_in, b, hgt, wid, c = fr.shape
     out = torch.empty((steps - emit_from, b, hgt, wid, c), dtype=fr.dtype,
                       device=fr.device)
-    state = list(seeds)
     h_bufs = [[torch.empty_like(h) for _ in range(min(steps, 2))]
               for h, _ in seeds]
     c_bufs = [torch.empty_like(c_seed) for _, c_seed in seeds]
-    for t in range(steps):
-        x = fr[t] if t < t_in else out[t - 1 - emit_from]
-        for k, ((w, bias), packed) in enumerate(zip(weights.cells,
-                                                    weights.packed)):
-            h_new = h_bufs[k][t % 2]
-            cell_fn(x, *state[k], w, bias, h_new, c_bufs[k], packed=packed)
-            state[k] = (h_new, c_bufs[k])
-            x = h_new
-        if t >= emit_from:
-            head_fn(x, weights.head[0], weights.head[1], out[t - emit_from])
-    return out, tuple(state)
+    return out, h_bufs, c_bufs
+
+
+def walk_schedule(table, weights: RolloutWeights, fr, seeds, out, h_bufs,
+                  c_bufs, cell_fn, head_fn):
+    """Run ``table``'s phases in order through ``cell_fn`` (K1's arguments)
+    and ``head_fn`` (K2's), on the frames ``fr`` [T_in,B,H,W,C] and the
+    ``seeds`` ((h, c) per cell, only read), into ``out``, ``h_bufs`` and
+    ``c_bufs`` (``_buffers``). Returns the state after the last step."""
+    h = [[h_seed, *bufs] for (h_seed, _), bufs in zip(seeds, h_bufs)]
+    c = [[c_seed, buf] for (_, c_seed), buf in zip(seeds, c_bufs)]
+    for row in table.tolist():
+        k = row[CELL]
+        if row[KIND] == HEAD_PHASE:
+            head_fn(h[k - 1][row[X_INDEX]], weights.head[0], weights.head[1],
+                    out[row[OUT_SLOT]])
+            continue
+        x_from, xi = row[X_FROM], row[X_INDEX]
+        x = (fr[xi] if x_from == FROM_FRAME else
+             out[xi] if x_from == FROM_OUT else h[k - 1][xi])
+        (w, bias), packed = weights.cells[k], weights.packed[k]
+        cell_fn(x, h[k][row[H_READ]], c[k][row[C_READ]], w, bias,
+                h[k][row[H_WRITE]], c[k][row[C_WRITE]], packed=packed)
+    return tuple((h[k][i], c[k][C_BUF])
+                 for k, i in enumerate(final_buffers(table)))
+
+
+def _widths(weights: RolloutWeights):
+    """(hidden widths, frame channels, kernel size) of the weights."""
+    w1 = weights.cells[0][0]
+    hidden = tuple(w.shape[-1] // 4 for w, _ in weights.cells)
+    return hidden, w1.shape[2] - hidden[0], w1.shape[0]
+
+
+def _steps(weights: RolloutWeights, fr, steps: int, emit_from: int, seeds,
+           cell_fn=None, head_fn=None):
+    """The rollout shared by the cold and warm rollouts and ``observe``.
+
+    fr [T_in,B,H,W,C] holds the frames, time-major NHWC in the compute dtype;
+    ``seeds`` ((h, c) per cell) is the state before step 0 and is only read.
+    The phases are ``rollout_schedule(n_cells, steps, emit_from, T_in)``.
+    With ``cell_fn`` / ``head_fn`` they are walked through those (K1/K2 or
+    the plain versions); without, on the kernel path: K5 where
+    ``persistent_misfit`` admits the model at fr's dtype (one launch on the
+    card; its plain version on CPU tensors), else K1/K2 step by step (on CPU
+    tensors their plain versions). Returns (out [steps - emit_from,B,H,W,C],
+    the state after the last step: ((h, c), ...), none of it aliasing a
+    seed)."""
+    if cell_fn is None:
+        if persistent_misfit(*_widths(weights), fr.dtype) is None:
+            return rollout_persistent_fwd(weights, fr, steps, emit_from, seeds)
+        cell_fn, head_fn = convlstm_cell_fwd, conv_head_fwd
+    table = rollout_schedule(len(weights.cells), steps, emit_from, fr.shape[0])
+    out, h_bufs, c_bufs = _buffers(fr, seeds, steps, emit_from)
+    state = walk_schedule(table, weights, fr, seeds, out, h_bufs, c_bufs,
+                          cell_fn, head_fn)
+    return out, state
+
+
+# K5: its rules and its wrapper
+K5_MAX_CELLS = 4        # 4 TMA maps a cell in one 4 KB kernel parameter
+_A_BYTES = 128 * 64 * 2                  # one k-block of A (folded x)
+_STAGE_BYTES = _A_BYTES + 256 * 64 * 2   # A + B of one ring stage
+_K5_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+                ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+    ctypes.c_void_p]
+
+
+def _k5_smem(hidden_dims, in_channels: int, kernel_size: int) -> int:
+    """K5's shared memory with a ring of 2 stages (its least), as
+    ``csrc/rollout_persistent.cu`` lays it out: the ring (which also holds
+    each cell tile's epilogue, and the head's tiles where two fit a stage),
+    the folded x of cell 0, a scratch region for one tile of a wider head,
+    the mbarriers and the alignment slack."""
+    n_fold = k_blocks(in_channels, hidden_dims[0], kernel_size)[0]
+    top = hidden_dims[-1]
+    tile = -(-(-(-10 * 10 * top * 2 // 16) * 16 + 4 * 9 * top * in_channels)
+             // 16) * 16                    # a head tile: h and the weights
+    rest = 1024 + n_fold * _A_BYTES + 16 * 4 + 2 * _STAGE_BYTES
+    return rest if 2 * tile <= _STAGE_BYTES else rest + tile
+
+
+@functools.lru_cache(maxsize=256)
+def _persistent_misfit(hidden_dims: tuple, in_channels: int,
+                       kernel_size: int, compute_dtype):
+    if compute_dtype != torch.bfloat16:
+        return (f"K5 runs bfloat16; {str(compute_dtype).split('.')[-1]} "
+                f"takes K1/K2 step by step")
+    why = rollout_kernel_misfit(hidden_dims, in_channels, kernel_size,
+                                compute_dtype)
+    if why:
+        return why
+    if len(hidden_dims) > K5_MAX_CELLS:
+        return (f"K5 passes 4 TMA maps a cell in one kernel parameter, for at "
+                f"most {K5_MAX_CELLS} cells; got {len(hidden_dims)}")
+    if in_channels % 8 == 0:
+        return (f"K5 gathers cell 0's x (the frames and its own predictions) "
+                f"folded, which needs frames of a channel count not a "
+                f"multiple of 8 (a multiple would need a TMA map a frame and "
+                f"output slot); got {in_channels}")
+    smem = _k5_smem(hidden_dims, in_channels, kernel_size)
+    if smem > _SMEM_LIMIT:
+        return (f"K5's ring of 2 stages, folded x and a head tile take "
+                f"{smem} bytes of shared memory, beyond {_SMEM_LIMIT}")
+    return None
+
+
+def persistent_misfit(hidden_dims, in_channels: int, kernel_size: int,
+                      compute_dtype):
+    """Why K5 does not take a forecaster of these widths (cells
+    ``hidden_dims`` over ``in_channels``-channel frames, KxK cells, the 3x3
+    head) at ``compute_dtype``, or None when it does: the rules of K1 and K2
+    on the card (``rollout_kernel_misfit``), then K5's own. A pure function
+    of the widths, decided before any launch; a model it refuses keeps the
+    K1/K2 host loop."""
+    return _persistent_misfit(tuple(hidden_dims), in_channels, kernel_size,
+                              compute_dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(n_cells: int, steps: int, emit_from: int, t_in: int,
+                  device: torch.device):
+    """``rollout_schedule``'s table on ``device``, copied there once, and
+    ``final_buffers`` of it."""
+    table = rollout_schedule(n_cells, steps, emit_from, t_in)
+    return table.to(device), final_buffers(table)
+
+
+def rollout_persistent_plain(weights: RolloutWeights, fr, steps: int,
+                             emit_from: int, seeds):
+    """K5's plain version: the same schedule walked through
+    ``convlstm_cell_plain`` and ``conv_head_plain``; arguments and result
+    as ``rollout_persistent_fwd``."""
+    table = rollout_schedule(len(weights.cells), steps, emit_from, fr.shape[0])
+    out, h_bufs, c_bufs = _buffers(fr, seeds, steps, emit_from)
+    state = walk_schedule(table, weights, fr, seeds, out, h_bufs, c_bufs,
+                          convlstm_cell_plain, conv_head_plain)
+    return out, state
+
+
+def _check_persistent(weights: RolloutWeights, fr, seeds, widths):
+    """Raise ValueError on what K5 does not take: the rules of
+    ``persistent_misfit``, then the operands (one CUDA device, bfloat16,
+    contiguous, K1's packed weights, 16-byte aligned where K5 reads by TMA
+    or 16-byte loads)."""
+    misfit = persistent_misfit(*widths, fr.dtype)
+    if misfit:
+        raise ValueError(f"K5 does not take this model: {misfit}")
+    hidden, cin, k = widths
+    tensors = [fr, *weights.head, *(t for pair in seeds for t in pair)]
+    for (w, bias), packed, (cx, ch) in zip(
+            weights.cells, weights.packed, zip((cin,) + hidden, hidden)):
+        if tuple(w.shape) != (k, k, cx + ch, 4 * ch) or tuple(bias.shape) != (
+                4 * ch,):
+            raise ValueError(f"cell weights must be [{k}, {k}, {cx + ch}, "
+                             f"{4 * ch}] and [{4 * ch}], got "
+                             f"{tuple(w.shape)} and {tuple(bias.shape)}")
+        if packed is None or tuple(packed.shape) != packed_shape(cx, ch, k):
+            raise ValueError(f"K5 reads K1's packed weights: each cell needs "
+                             f"packed={packed_shape(cx, ch, k)} (kernel_pack)")
+        tensors += [bias, packed]
+    if tuple(weights.head[0].shape) != (3, 3, hidden[-1], cin) or tuple(
+            weights.head[1].shape) != (cin,):
+        raise ValueError(f"the head must be [3, 3, {hidden[-1]}, {cin}] and "
+                         f"[{cin}], got {tuple(weights.head[0].shape)} and "
+                         f"{tuple(weights.head[1].shape)}")
+    if any(t.device != fr.device or t.device.type != "cuda" for t in tensors):
+        raise ValueError("K5's operands must all lie on one CUDA device")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError("K5's operands must all be bfloat16")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("K5's operands must be contiguous")
+    aligned = [p for p in weights.packed] + [t for pair in seeds for t in pair]
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError("K5 reads the packed weights and the seeds by TMA "
+                         "or 16-byte loads: they must be 16-byte aligned")
+
+
+def rollout_persistent_fwd(weights: RolloutWeights, fr, steps: int,
+                           emit_from: int, seeds, stamps=None):
+    """K5: the whole rollout of ``_steps`` (same arguments and result) in one
+    cooperative launch of ``csrc/rollout_persistent.cu`` on CUDA tensors,
+    which must be bfloat16 with K1's packed weights; on CPU tensors its plain
+    version ``rollout_persistent_plain``. Each launch adds one to
+    ``rollout_persistent_fwd.launches`` and its operations (every cell's
+    and head's conv, as ``convlstm_cell_fwd.flops`` counts K1's) to
+    ``.flops``; ``.last_launch`` holds the last launch's grid, blocks an SM,
+    shared memory, ring stages, SMs and phases. ``persistent_misfit`` states
+    the models it refuses. ``stamps``, a CUDA int64 tensor of at least
+    1 + 2 x phases elements, makes the launch record block 0's clock
+    (%globaltimer, ns) at its start and, for each phase, when its tiles are
+    done and when the barrier after them is passed."""
+    if all(t.device.type == "cpu" for t in (fr, weights.head[0], *(
+            t for pair in seeds for t in pair))):
+        return rollout_persistent_plain(weights, fr, steps, emit_from, seeds)
+    widths = _widths(weights)
+    _check_persistent(weights, fr, seeds, widths)
+    hidden, cin, k = widths
+    n = len(hidden)
+    t_in, b, hgt, wid, _ = fr.shape
+    table, final = _device_table(n, steps, emit_from, t_in, fr.device)
+    out, h_bufs, c_bufs = _buffers(fr, seeds, steps, emit_from)
+    ptrs, dims = [], []
+    for ((w, bias), packed, (h_seed, c_seed), hb, cb, cx, ch) in zip(
+            weights.cells, weights.packed, seeds, h_bufs, c_bufs,
+            (cin,) + hidden, hidden):
+        ping1 = hb[1] if len(hb) > 1 else hb[0]   # one step: never written
+        ptrs += [t.data_ptr() for t in (packed, bias, h_seed, hb[0], ping1,
+                                        c_seed, cb)]
+        dims += [cx, ch]
+    if stamps is not None and (
+            stamps.device != fr.device or stamps.dtype != torch.int64 or
+            not stamps.is_contiguous() or
+            stamps.numel() < 1 + 2 * table.shape[0]):
+        raise ValueError(f"stamps must be a contiguous int64 tensor of at "
+                         f"least {1 + 2 * table.shape[0]} elements on "
+                         f"{fr.device}")
+    counter = torch.empty(1, dtype=torch.int32, device=fr.device)
+    info = (ctypes.c_int * 5)()
+    fn = build.load_function("rollout_persistent", "rollout_persistent_bf16",
+                             _K5_ARGTYPES)
+    with torch.cuda.device(fr.device):
+        stream = torch.cuda.current_stream(fr.device).cuda_stream
+        err = fn(table.data_ptr(), table.shape[0], n, fr.data_ptr(),
+                 out.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs),
+                 (ctypes.c_int * len(dims))(*dims),
+                 weights.head[0].data_ptr(), weights.head[1].data_ptr(), b,
+                 hgt, wid, cin, k, counter.data_ptr(), info,
+                 None if stamps is None else stamps.data_ptr(), stream)
+    build.check(err, "rollout_persistent", "rollout_persistent_fwd launch")
+    rollout_persistent_fwd.launches += 1
+    px = b * hgt * wid
+    cell_ops = sum(2 * px * k * k * (cx + ch) * 4 * ch
+                   for cx, ch in zip((cin,) + hidden, hidden))
+    n_heads = steps - emit_from
+    rollout_persistent_fwd.flops += (steps * cell_ops
+                                     + n_heads * 2 * px * 9 * hidden[-1] * cin)
+    rollout_persistent_fwd.last_launch = dict(
+        zip(("grid", "blocks_per_sm", "smem_bytes", "stages", "sms"), info),
+        phases=table.shape[0])
+    return out, tuple((hb[i - 1], cb) for hb, cb, i in zip(h_bufs, c_bufs,
+                                                           final))
+
+
+rollout_persistent_fwd.launches = 0
+rollout_persistent_fwd.flops = 0
+rollout_persistent_fwd.last_launch = None
 
 
 def _rollout(weights: RolloutWeights, frames, t_out: int, compute_dtype,
@@ -324,11 +639,13 @@ def _rollout_from_state(weights: RolloutWeights, cells, prev_out, horizon: int,
 
 def rollout_kernel(weights: RolloutWeights, frames, t_out: int,
                    compute_dtype=torch.bfloat16):
-    """Free-running rollout through K1 and K2: frames [B,T_in,C,H,W] ->
+    """Free-running rollout on the kernels: frames [B,T_in,C,H,W] ->
     [B,t_out,C,H,W] float32, the contract of the JAX ``rollout_pallas``.
-    ``weights`` come from ``pack_weights`` in the same ``compute_dtype``."""
-    return _rollout(weights, frames, t_out, compute_dtype, convlstm_cell_fwd,
-                    conv_head_fwd)
+    ``weights`` come from ``pack_weights`` in the same ``compute_dtype``. On
+    the card one K5 launch in bfloat16 (where ``persistent_misfit`` admits
+    the model), else (T_in + t_out - 1) x n_cells K1 and t_out K2 launches;
+    on CPU tensors the plain versions."""
+    return _rollout(weights, frames, t_out, compute_dtype, None, None)
 
 
 def rollout_plain(weights: RolloutWeights, frames, t_out: int,
@@ -340,13 +657,14 @@ def rollout_plain(weights: RolloutWeights, frames, t_out: int,
 
 def rollout_kernel_from_state(weights: RolloutWeights, cells, prev_out,
                               horizon: int, compute_dtype=torch.bfloat16):
-    """Free-running rollout branched from a warm state through K1 and K2,
+    """Free-running rollout branched from a warm state on the kernels,
     the contract of the JAX ``rollout_pallas_from_state``: ``cells`` =
     ((h, c), ...) NHWC [B,H,W,Ch] per cell, ``prev_out`` [B,H,W,C] the last
-    emitted frame; returns [B,horizon,C,H,W] float32. horizon x n_cells K1
-    launches and horizon K2 launches; the state is not written."""
+    emitted frame; returns [B,horizon,C,H,W] float32. One K5 launch in
+    bfloat16 (as ``rollout_kernel``), else horizon x n_cells K1 launches and
+    horizon K2 launches; the state is not written."""
     return _rollout_from_state(weights, cells, prev_out, horizon,
-                               compute_dtype, convlstm_cell_fwd, conv_head_fwd)
+                               compute_dtype, None, None)
 
 
 def rollout_plain_from_state(weights: RolloutWeights, cells, prev_out,
@@ -360,8 +678,9 @@ def rollout_plain_from_state(weights: RolloutWeights, cells, prev_out,
 
 def observe_kernel(weights: RolloutWeights, cells, frames,
                    compute_dtype=torch.bfloat16):
-    """Fold frames [B,T,C,H,W] into the carried ``cells`` through K1 and K2:
-    one step per frame (n_cells K1 launches, then K2 for the head). Returns
+    """Fold frames [B,T,C,H,W] into the carried ``cells`` on the kernels: one
+    step per frame, the head at every step; one K5 launch in bfloat16 (as
+    ``rollout_kernel``), else n_cells K1 and one K2 launch a frame. Returns
     (the new cells, prev_out [B,H,W,C] in the compute dtype: the head's
     output at the last frame). The given state is not written."""
     b, t, _, hgt, wid = frames.shape
@@ -369,6 +688,5 @@ def observe_kernel(weights: RolloutWeights, cells, frames,
         raise ValueError("observe needs at least one frame")
     fr = _time_major(weights, frames, compute_dtype)
     seeds = _seeds(weights, cells, b, hgt, wid, compute_dtype, fr.device)
-    out, state = _steps(weights, fr, t, 0, seeds, convlstm_cell_fwd,
-                        conv_head_fwd)
+    out, state = _steps(weights, fr, t, 0, seeds)
     return state, out[-1]

@@ -129,7 +129,9 @@ def rollout_choice(config: Config, device: torch.device,
     on a GPU when ``rollout_kernel_misfit`` finds nothing in the config's
     widths and compute dtype, else the plain path; 'kernel' on a GPU raises
     ValueError naming the rule the model breaks; 'int8' is the quantized
-    rollout on any device."""
+    rollout on any device. On the kernel path bfloat16 takes K5, one
+    launch a call, where ``persistent_misfit`` admits the model, else K1
+    and K2 step by step; float32 takes K1 and K2 step by step."""
     impl = rollout_path(rollout_impl or config.model.rollout_impl)
     if impl in ("torch", "int8"):
         return impl
@@ -157,8 +159,9 @@ def build_predict_fn(config: Config, checkpoint_path: str,
 
     ``rollout_impl`` (default: the config's) picks the forecaster's path
     through ``rollout_choice``: 'kernel' (JAX's 'pallas') = the CUDA kernels
-    K1 and K2 launched step by step (``rollout_kernel``; on CPU tensors each
-    wrapper runs its plain version); 'torch' (JAX's 'xla') = the plain
+    (``rollout_kernel``: in bfloat16 one K5 launch a request where
+    ``persistent_misfit`` admits the model, else K1 and K2 launched step by
+    step; on CPU tensors their plain versions); 'torch' (JAX's 'xla') = the plain
     ``ConvLSTMForecaster.forward``; 'auto' = 'kernel' on a GPU when the
     kernels take the model's widths, else 'torch'; 'int8' = the
     post-training-quantized rollout (``models/quantized.py``), its weights
@@ -223,7 +226,7 @@ def load_predictor(config: Config, checkpoint_path: str,
     process, as the JAX ``load_predictor`` shards it over its chips: one
     replica of the model per device of ``devices`` (default: every visible
     GPU when ``device`` is the GPU, else ``device`` alone), each chunk of
-    the batch on its own device (K1 and K2 launch on the stream of their
+    the batch on its own device (the kernels launch on the stream of their
     tensors' device), the outputs concatenated on the first. "auto" splits
     when there is more than one device and the batch divides their count,
     else runs the first replica; "off" never splits; "require" raises on

@@ -18,8 +18,9 @@ so ``torch.export.load`` alone reads them back (after importing
 - **The path is decided before export** by ``predict.rollout_choice`` on the
   export device: the kernel path becomes one registered op per call
   (``plcg_torch::rollout``, ``rollout_from_state``, ``observe``:
-  ``ops/kernels/export_ops.py``), which launches K1 and K2 exactly as the
-  eager kernel path does, the counterpart of JAX's Pallas-embedded
+  ``ops/kernels/export_ops.py``), which launches the kernels exactly as the
+  eager kernel path does (one K5 a call in bfloat16, K1 and K2 step by
+  step in float32), the counterpart of JAX's Pallas-embedded
   programs; the plain path is the traced ``ConvLSTMForecaster``.
 - **The Generator family exports on its plain cells.** Its K1 is a
   ``torch.autograd.Function`` around a ctypes launch, not a registered op,
@@ -211,8 +212,8 @@ def export_streaming(config: Config, checkpoint_path: str, height: int,
     kernel entries: "auto" exports the kernel path's ops when
     ``rollout_choice`` takes the kernels on the export device ``device``
     (default: the GPU), else the plain programs; "require" raises unless it
-    does; "off" exports the plain programs. K1 and K2 take any batch, so
-    kernel entries are batch-polymorphic too. Under ``rollout_impl: int8``
+    does; "off" exports the plain programs. K1, K2 and K5 take any batch,
+    so kernel entries are batch-polymorphic too. Under ``rollout_impl: int8``
     the forecast entries are the quantized decode and the observe entry the
     float one of "auto" (or "off"); "require" raises, as JAX's does."""
     horizons = [int(h) for h in horizons]

@@ -18,7 +18,10 @@ frames gives its rollout: ``cat([nowcast[:, None], forecast(state, T_out -
 ``model.rollout_impl`` picks the path of both ``observe`` and ``forecast``
 once, at construction (``predict.rollout_choice``): 'kernel' (JAX's
 'pallas'), or 'auto' on a GPU when K1 and K2 take the model's widths, runs
-K1 and K2 (``ops/kernels``), one step per frame or per forecast frame;
+the kernels (``ops/kernels``): in bfloat16 one K5 launch a call (an
+observe of any number of frames, a forecast of any horizon) where
+``persistent_misfit`` admits the model, else K1 and K2 one step per frame
+or per forecast frame;
 'torch' (JAX's 'xla'), or 'auto' otherwise, runs the plain modules of
 ``ConvLSTMForecaster``. On CPU tensors the kernel wrappers run their plain
 versions. Every method returns new tensors and writes none of its inputs, so
@@ -35,8 +38,8 @@ path the plain step loop. Their state is plain nested tuples, ``(((h, c),
 (``models/quantized.py``: ``rollout_int8_from_state``, weights quantized
 once, at the first forecast), as JAX's does. ``observe`` stays float, as
 JAX's: it is one step a frame and sets the state every branch starts from;
-it takes the path that ``rollout_impl: auto`` takes on the device, so K1 and
-K2 on a GPU whose kernels take the model. The export hook of that forecast
+it takes the path that ``rollout_impl: auto`` takes on the device, so the
+kernels on a GPU whose kernels take the model. The export hook of that forecast
 is ``export_forecast_int8_fn``. JAX's ``pallas_forecast_fits`` becomes
 ``rollout_kernel_misfit``: K1 and K2 take any frame size, batch and horizon,
 so the choice depends only on the widths, the kernel size and the compute
@@ -148,9 +151,9 @@ class StreamingForecaster:
     def forecast(self, state: StreamState, horizon: int) -> torch.Tensor:
         """Free-running rollout of ``horizon`` frames ``[B, horizon, C, H, W]``
         float32 beyond the state's nowcast, without touching ``state`` (a pure
-        branch). On the kernel path: horizon x n_cells K1 launches and
-        horizon K2 launches; under int8 none (int8 convs on
-        ``torch._int_mm``)."""
+        branch). On the kernel path: one K5 launch in bfloat16, else
+        horizon x n_cells K1 launches and horizon K2 launches; under int8
+        none (int8 convs on ``torch._int_mm``)."""
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
         with torch.inference_mode():

@@ -143,11 +143,13 @@ def profile_trace(logdir: str):
 
 
 def _kernel_flops() -> int:
-    """The operations K1 has launched so far (``convlstm_cell_fwd.flops``,
-    with and without z): the kernel path's forward does not go through
-    aten, so ``FlopCounterMode`` does not see it."""
+    """The operations K1 and K5 have launched so far
+    (``convlstm_cell_fwd.flops``, with and without z, and
+    ``rollout_persistent_fwd.flops``): the kernel path's forward does not go
+    through aten, so ``FlopCounterMode`` does not see it."""
     from ..ops.kernels.convlstm_kernel import convlstm_cell_fwd
-    return convlstm_cell_fwd.flops
+    from ..ops.kernels.rollout_kernel import rollout_persistent_fwd
+    return convlstm_cell_fwd.flops + rollout_persistent_fwd.flops
 
 
 class _CostWindow:

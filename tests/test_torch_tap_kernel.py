@@ -130,12 +130,14 @@ def csrc_copy(tmp_path, monkeypatch):
 @pytest.mark.parametrize("source", build.SOURCES)
 def test_editing_a_header_changes_every_library_path(csrc_copy, source):
     headers = sorted(csrc_copy.glob("*.cuh"))
-    assert [h.name for h in headers] == ["hopper.cuh"]
-    before = build.library_path(source)
-    assert build.library_path(source) == before      # stable
-    with headers[0].open("a") as f:
-        f.write("// edited\n")
-    assert build.library_path(source) != before
+    assert [h.name for h in headers] == ["cell_tile.cuh", "head_tile.cuh",
+                                         "hopper.cuh"]
+    for header in headers:
+        before = build.library_path(source)
+        assert build.library_path(source) == before      # stable
+        with header.open("a") as f:
+            f.write("// edited\n")
+        assert build.library_path(source) != before
 
 
 def test_editing_a_source_changes_only_its_library_path(csrc_copy):
