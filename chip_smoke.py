@@ -708,21 +708,17 @@ def state_close(what, got, want):
 
 
 def stamp_summary(stamps, table):
-    """K5's per-phase clock of block 0 (rollout_persistent_fwd's stamps):
-    the mean µs of each cell's phases and of the head's (block 0's tiles),
-    and of a barrier (from block 0's last tile to the barrier's exit)."""
-    s = stamps.cpu().tolist()
-    rows = table.tolist()
-    work, bar = {}, []
-    for ph, row in enumerate(rows):
-        key = "head" if row[0] == 1 else f"cell_{row[1]}"
-        work.setdefault(key, []).append((s[1 + 2 * ph] - s[2 * ph]) / 1e3)
-        if ph + 1 < len(rows):
-            bar.append((s[2 + 2 * ph] - s[1 + 2 * ph]) / 1e3)
-    return dict(total_us=(s[2 * len(rows)] - s[0]) / 1e3,
-                phase_us={k: statistics.mean(v) for k, v in work.items()},
-                barrier_us=statistics.mean(bar) if bar else 0.0,
-                barriers=len(bar))
+    """K5's per-phase clock of block 0 (rollout_persistent_fwd's stamps,
+    split by ``rollout_kernel.stamp_phases``): the mean µs of each cell's
+    phases and of the head's (block 0's tiles), and of a barrier (from
+    block 0's last tile to the barrier's exit)."""
+    p = head_mod.stamp_phases(stamps.cpu(), table)
+    return dict(total_us=p["total_us"],
+                phase_us={k: v / p["phases"][k]
+                          for k, v in p["work_us"].items()},
+                barrier_us=(p["barrier_us"] / p["barriers"] if p["barriers"]
+                            else 0.0),
+                barriers=p["barriers"])
 
 
 def k5_weights(cfg, seed):

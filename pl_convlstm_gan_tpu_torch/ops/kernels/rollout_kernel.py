@@ -55,7 +55,8 @@ This module holds:
 - ``rollout_schedule`` and ``walk_schedule``: the phase table and its walk;
 - K5's wrapper ``rollout_persistent_fwd`` (``.launches``, ``.flops``, the
   operations it ran, and ``.last_launch``, its grid) and its plain version
-  ``rollout_persistent_plain``;
+  ``rollout_persistent_plain``; ``stamp_phases``, which splits a launch's
+  per-phase clock (its ``stamps``) into cell tiles, head tiles and barriers;
 - ``pack_weights``: the model's state_dict -> the kernels' HWIO layout, and
   on the card each cell's weight packed once for K1 and K5 (``kernel_pack``);
 - ``rollout_kernel`` (the counterpart of ``rollout_pallas``) and
@@ -72,6 +73,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils import profiling
 from ..nn import conv2d_nhwc_f32, hwio_from_oihw, oihw_from_hwio
 from . import build
 from .convlstm_kernel import (cell_kernel_misfit, convlstm_cell_fwd,
@@ -549,10 +551,34 @@ def rollout_persistent_fwd(weights: RolloutWeights, fr, steps: int,
     the models it refuses. ``stamps``, a CUDA int64 tensor of at least
     1 + 2 x phases elements, makes the launch record block 0's clock
     (%globaltimer, ns) at its start and, for each phase, when its tiles are
-    done and when the barrier after them is passed."""
+    done and when the barrier after them is passed (``stamp_phases`` reads
+    them).
+
+    While the program's trace is on (``utils.profiling.tracing``), the
+    host's issue, from here to the return of the launch, is the span
+    ``plcg.k5.issue``, and a launch given no ``stamps`` records them into a
+    buffer of its own that the trace's log keeps on the device
+    (``profiling.k5_stamps`` / ``log_k5``; made before the span opens)."""
     if all(t.device.type == "cpu" for t in (fr, weights.head[0], *(
             t for pair in seeds for t in pair))):
         return rollout_persistent_plain(weights, fr, steps, emit_from, seeds)
+    logged = None
+    if stamps is None and profiling.tracing():
+        n_cells = len(weights.cells)
+        logged = stamps = profiling.k5_stamps(
+            steps * n_cells + steps - emit_from, fr.device)
+    with profiling.span("k5.issue"):
+        out, state = _launch_persistent(weights, fr, steps, emit_from, seeds,
+                                        stamps)
+    if logged is not None:
+        profiling.log_k5(logged, (n_cells, steps, emit_from, fr.shape[0]))
+    return out, state
+
+
+def _launch_persistent(weights: RolloutWeights, fr, steps: int,
+                       emit_from: int, seeds, stamps):
+    """``rollout_persistent_fwd``'s launch on CUDA tensors: checks,
+    buffers, the launch and its counts."""
     widths = _widths(weights)
     _check_persistent(weights, fr, seeds, widths)
     hidden, cin, k = widths
@@ -605,6 +631,34 @@ def rollout_persistent_fwd(weights: RolloutWeights, fr, steps: int,
 rollout_persistent_fwd.launches = 0
 rollout_persistent_fwd.flops = 0
 rollout_persistent_fwd.last_launch = None
+
+
+def stamp_phases(stamps, table) -> dict:
+    """Block 0's clock of one K5 launch (``rollout_persistent_fwd``'s
+    ``stamps``, %globaltimer in ns) split by the phases of its ``table``
+    (``rollout_schedule``), in µs: ``total_us`` from block 0's start to its
+    exit from the last phase; ``work_us``, by ``cell_<k>`` and ``head`` in
+    the table's order, block 0's time in that phase's tiles (from the exit
+    of the barrier before it, or the start); ``barrier_us``, from block 0's
+    last tile of a phase to its exit from the barrier after it (block 0's
+    wait for the slowest block included; no barrier follows the last
+    phase, whose work runs to block 0's exit); ``phases`` (by the same
+    keys) and ``barriers``, their counts. The work and the barriers sum to
+    the total."""
+    s = torch.as_tensor(stamps).reshape(-1).tolist()
+    rows = torch.as_tensor(table).tolist()
+    last = len(rows) - 1
+    work, count, barrier = {}, {}, 0
+    for ph, row in enumerate(rows):
+        key = "head" if row[KIND] == HEAD_PHASE else f"cell_{row[CELL]}"
+        done = s[1 + 2 * ph] if ph < last else s[2 + 2 * ph]
+        work[key] = work.get(key, 0) + done - s[2 * ph]
+        count[key] = count.get(key, 0) + 1
+        if ph < last:
+            barrier += s[2 + 2 * ph] - s[1 + 2 * ph]
+    return dict(total_us=(s[2 + 2 * last] - s[0]) / 1e3,
+                work_us={k: v / 1e3 for k, v in work.items()},
+                barrier_us=barrier / 1e3, phases=count, barriers=last)
 
 
 def _rollout(weights: RolloutWeights, frames, t_out: int, compute_dtype,

@@ -61,6 +61,7 @@ from .ops.kernels.rollout_kernel import (observe_kernel, pack_weights,
                                          rollout_kernel_from_state)
 from .predict import (build_model, compute_dtype, load_state_dict,
                       resolve_device, rollout_choice)
+from .utils.profiling import span
 
 
 class StreamState(NamedTuple):
@@ -123,22 +124,27 @@ class StreamingForecaster:
                        ) -> Tuple[StreamState, torch.Tensor]:
         """Assimilate ``frames [B, T, C, H, W]`` (numpy or tensor); returns
         ``(new_state, nowcast [B, C, H, W] float32)``: the 1-step-ahead
-        prediction from the last frame (the batch rollout's first frame)."""
-        frames = torch.as_tensor(np.asarray(frames) if not isinstance(
-            frames, torch.Tensor) else frames).to(self.device, torch.float32)
-        if frames.ndim != 5 or frames.shape[1] < 1:
-            raise ValueError(f"frames must be [B, T >= 1, C, H, W], got "
-                             f"{tuple(frames.shape)}")
-        with torch.inference_mode():
-            if self._kernels:
-                cells, prev = observe_kernel(self._weights, state.cells,
-                                             frames, self._cdtype)
-            else:
-                cells, prev = _plain_observe(self._core, state.cells,
-                                             state.prev_out, frames,
-                                             self._cdtype)
-            nowcast = prev.permute(0, 3, 1, 2).to(torch.float32, copy=True)
-        return StreamState(cells, prev), nowcast
+        prediction from the last frame (the batch rollout's first frame).
+        While the program's trace is on, the call is the span
+        ``plcg.stream.observe`` (``utils.profiling``)."""
+        with span("stream.observe"):
+            frames = torch.as_tensor(np.asarray(frames) if not isinstance(
+                frames, torch.Tensor) else frames).to(self.device,
+                                                      torch.float32)
+            if frames.ndim != 5 or frames.shape[1] < 1:
+                raise ValueError(f"frames must be [B, T >= 1, C, H, W], got "
+                                 f"{tuple(frames.shape)}")
+            with torch.inference_mode():
+                if self._kernels:
+                    cells, prev = observe_kernel(self._weights, state.cells,
+                                                 frames, self._cdtype)
+                else:
+                    cells, prev = _plain_observe(self._core, state.cells,
+                                                 state.prev_out, frames,
+                                                 self._cdtype)
+                nowcast = prev.permute(0, 3, 1, 2).to(torch.float32,
+                                                      copy=True)
+            return StreamState(cells, prev), nowcast
 
     def observe(self, state: StreamState, frame
                 ) -> Tuple[StreamState, torch.Tensor]:
@@ -153,10 +159,11 @@ class StreamingForecaster:
         float32 beyond the state's nowcast, without touching ``state`` (a pure
         branch). On the kernel path: one K5 launch in bfloat16, else
         horizon x n_cells K1 launches and horizon K2 launches; under int8
-        none (int8 convs on ``torch._int_mm``)."""
+        none (int8 convs on ``torch._int_mm``). While the program's trace is
+        on, the call is the span ``plcg.stream.forecast``."""
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
-        with torch.inference_mode():
+        with span("stream.forecast"), torch.inference_mode():
             if self._int8:
                 return rollout_int8_from_state(
                     self._int8_weights(), state.prev_out, state.cells,

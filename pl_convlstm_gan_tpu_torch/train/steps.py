@@ -72,6 +72,14 @@ group runs the step on its data replica's block and computes the same loss
 - the clip's global norm is the whole logical gradient's: the squared norms
   of the shards summed over the model group, each replicated gradient
   counted once (``clip_by_global_norm_``).
+
+Tracing (``utils.profiling``): each train step is the top-level span
+``plcg.train.step``, with ``train.forward``, ``train.backward`` and
+``train.update`` (``_adam_update``: the gradients' reduction, the clip and
+Adam) inside it, and every host sync of a step is counted (``host_syncs``)
+and spanned as ``plcg.sync.<site>``: ``finite_check`` (``_global_ok``),
+``loss_value`` (the forecaster's loss) and ``metrics`` (the Generator's and
+the GAN's metrics). Each step's docstring says what each sync waits for.
 """
 from __future__ import annotations
 
@@ -88,6 +96,7 @@ from ..losses import (combined_loss, conservation_loss, contingency_counts,
                       scores_from_counts, sharpness_sums, ssim_per_sample,
                       station_sq_err_sums, temporal_consistency_loss)
 from ..parallel.mesh import MeshGroups, as_groups
+from ..utils.profiling import host_sync, span
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -140,12 +149,17 @@ def _world(group) -> int:
 def _global_ok(total: torch.Tensor, groups: MeshGroups) -> bool:
     """Whether ``total`` is finite; on every rank of the data group (an
     all-reduce of the flags with MIN), so that all ranks take one
-    decision. The host waits for the loss here. The loss is the same on
-    the ranks of a model group."""
+    decision. The loss is the same on the ranks of a model group.
+
+    One host sync, ``finite_check``: reading the flag waits for all the
+    work queued before it on the stream, not for the loss alone. The train
+    steps call this after queueing the backward, so the host waits for the
+    forward and the backward (and, under a group, for the slowest rank's)."""
     ok = torch.isfinite(total.detach()).to(torch.float32).reshape(1)
     if groups.data is not None:
         dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=groups.data)
-    return bool(ok)
+    with host_sync("finite_check"):
+        return bool(ok)
 
 
 def _all_reduce_sum(tensors: Sequence[torch.Tensor], group
@@ -203,16 +217,18 @@ def _adam_update(optimizer, params, grads, lr: float, grad_clip_norm: float,
                  groups: MeshGroups) -> None:
     """Average ``grads`` over ``groups`` (``_reduced_grads``), clip them by
     their global norm (optax's rule), then one Adam step of ``params`` at
-    ``lr``; leaves no ``.grad`` behind."""
-    sharded = [getattr(p, "tp_sharded", False) for p in params]
-    grads = _reduced_grads(grads, groups, sharded)
-    clip_by_global_norm_(grads, grad_clip_norm, sharded, groups.model)
-    for p, g in zip(params, grads):
-        p.grad = g
-    for pg in optimizer.param_groups:
-        pg["lr"] = float(lr)
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
+    ``lr``; leaves no ``.grad`` behind. The span ``plcg.train.update``
+    while tracing."""
+    with span("train.update"):
+        sharded = [getattr(p, "tp_sharded", False) for p in params]
+        grads = _reduced_grads(grads, groups, sharded)
+        clip_by_global_norm_(grads, grad_clip_norm, sharded, groups.model)
+        for p, g in zip(params, grads):
+            p.grad = g
+        for pg in optimizer.param_groups:
+            pg["lr"] = float(lr)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
 
 
 # ---------------------------------------------------------------- Generator
@@ -256,31 +272,41 @@ def generator_train_step(state: TrainState, batch, lr: float, loss_cfg: Dict,
     s_coords, s_values): combined loss -> NaN-skip -> clip -> Adam at
     ``lr``. Returns {"total", "rmse" (station RMSE of this batch),
     "skipped", "point", "conserve", "smooth", "temporal"}, as the JAX
-    step's metrics. One host decision (the finite loss), taken after the
-    backward is queued. Under ``group`` (data parallel, module docstring)
+    step's metrics. Under ``group`` (data parallel, module docstring)
     ``batch`` is this rank's block of the global batch, and the update and
-    the metrics are the global batch's."""
-    group = as_groups(group)
-    params = list(state.model.parameters())
-    state.optimizer.zero_grad(set_to_none=True)
-    total, parts, pred, scale = generator_loss(state.model, batch, loss_cfg,
-                                               group.data)
-    total.backward()
-    ok = _global_ok(total, group)
-    if ok:
-        _adam_update(state.optimizer, params, [p.grad for p in params], lr,
-                     grad_clip_norm, group)
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
-    with torch.no_grad():
-        se, cnt = station_sq_err_sums(pred, batch[3], batch[4], scale)
-        if group.data is not None:
-            se, cnt = _all_reduce_sum([se, cnt], group.data)
-        rmse = torch.where(cnt > 0, torch.sqrt(se / cnt.clamp(min=1)), 0.0)
-    names = ("total", "rmse", *parts)
-    values = _mean_over(torch.stack([t.detach().float() for t in (
-        total, rmse, *parts.values())]), group).tolist()
-    return {**dict(zip(names, values)), "skipped": int(not ok)}
+    the metrics are the global batch's.
+
+    Two host syncs: ``finite_check``, the finite-loss decision, queued
+    after the backward, so the host waits for the forward and the backward;
+    and ``metrics``, the metrics read to the host, queued after Adam and
+    the station RMSE, so the host waits for the whole step."""
+    with span("train.step"):
+        group = as_groups(group)
+        params = list(state.model.parameters())
+        state.optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            total, parts, pred, scale = generator_loss(
+                state.model, batch, loss_cfg, group.data)
+        with span("train.backward"):
+            total.backward()
+        ok = _global_ok(total, group)
+        if ok:
+            _adam_update(state.optimizer, params, [p.grad for p in params],
+                         lr, grad_clip_norm, group)
+        state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
+        with torch.no_grad():
+            se, cnt = station_sq_err_sums(pred, batch[3], batch[4], scale)
+            if group.data is not None:
+                se, cnt = _all_reduce_sum([se, cnt], group.data)
+            rmse = torch.where(cnt > 0, torch.sqrt(se / cnt.clamp(min=1)),
+                               0.0)
+        names = ("total", "rmse", *parts)
+        values = _mean_over(torch.stack([t.detach().float() for t in (
+            total, rmse, *parts.values())]), group)
+        with host_sync("metrics"):
+            values = values.tolist()
+        return {**dict(zip(names, values)), "skipped": int(not ok)}
 
 
 @torch.no_grad()
@@ -343,25 +369,34 @@ def forecaster_train_step(state: TrainState, batch, lr: float,
                           ) -> Dict[str, float]:
     """One update of ``state`` in place on batch = (inputs [B,T_in,C,H,W],
     targets [B,T_out,C,H,W]); returns {"total": loss, "skipped": 0 or 1}.
+    Under ``group`` (data parallel, module docstring) ``batch`` and
+    ``teacher_draws`` are this rank's block of the global batch's.
 
-    One host sync: the finite-loss decision. It is taken after the backward
-    is queued, so the host waits only for the forward. Under ``group``
-    (data parallel, module docstring) ``batch`` and ``teacher_draws`` are
-    this rank's block of the global batch's."""
-    group = as_groups(group)
-    inputs, targets = batch
-    params = list(state.model.parameters())
-    state.optimizer.zero_grad(set_to_none=True)
-    total, _ = forecaster_loss(state.model, inputs, targets, teacher_draws)
-    total.backward()
-    ok = _global_ok(total, group)
-    if ok:
-        _adam_update(state.optimizer, params, [p.grad for p in params], lr,
-                     grad_clip_norm, group)
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
-    total = _mean_over(total.detach().float().reshape(1), group)
-    return {"total": float(total), "skipped": int(not ok)}
+    Two host syncs: ``finite_check``, the finite-loss decision, queued
+    after the backward, so the host waits for the forward and the backward;
+    and ``loss_value``, the loss read to the host, queued after Adam, so the
+    host waits for the whole step and never runs ahead into the next
+    step's forward."""
+    with span("train.step"):
+        group = as_groups(group)
+        inputs, targets = batch
+        params = list(state.model.parameters())
+        state.optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            total, _ = forecaster_loss(state.model, inputs, targets,
+                                       teacher_draws)
+        with span("train.backward"):
+            total.backward()
+        ok = _global_ok(total, group)
+        if ok:
+            _adam_update(state.optimizer, params, [p.grad for p in params],
+                         lr, grad_clip_norm, group)
+        state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
+        total = _mean_over(total.detach().float().reshape(1), group)
+        with host_sync("loss_value"):
+            total = float(total)
+        return {"total": total, "skipped": int(not ok)}
 
 
 # ---------------------------------------------------------------------- GAN
@@ -410,46 +445,61 @@ def gan_train_step(state: GANTrainState, batch, g_lr: float, d_lr: float,
     ``no_grad`` (on the kernel path: K1 without z), then a second forward
     with gradients (K1 with z) and the same teacher draws. "vjp": one
     forward with gradients; D reads ``fake.detach()``, and G's gradient
-    goes back through that forward's graph. Two host syncs, the D and G
-    finite-loss decisions, each after its backward is queued. Under
-    ``group`` (data parallel, module docstring) each decision is global and
-    each side's gradients are averaged over the ranks."""
+    goes back through that forward's graph. Under ``group`` (data
+    parallel, module docstring) each decision is global and each side's
+    gradients are averaged over the ranks.
+
+    Three host syncs: D's ``finite_check``, queued after D's backward, so
+    the host waits for G's forward and D's forward and backward; G's
+    ``finite_check``, queued after G's backward, so it waits for D's
+    update and G's forward and backward; and ``metrics``, queued after G's
+    update, so it waits for the whole step. Spans: ``train.forward`` (G's
+    forward with D's loss; then G's loss, after a second G forward under
+    "default"), ``train.backward`` (each side's gradient) and
+    ``train.update`` twice, D's then G's."""
     if impl not in GAN_IMPLS:
         raise ValueError(f"Unknown gan_step_impl: {impl!r} (valid: "
                          f"{', '.join(GAN_IMPLS)})")
-    group = as_groups(group)
-    inputs, targets = batch
-    gen, disc = state.gen, state.disc
-    g_params, d_params = list(gen.parameters()), list(disc.parameters())
-    if impl == "vjp":
-        fake = gen(inputs, targets, teacher_draws)
-    else:
-        with torch.no_grad():
-            fake = gen(inputs, targets, teacher_draws)
+    with span("train.step"):
+        group = as_groups(group)
+        inputs, targets = batch
+        gen, disc = state.gen, state.disc
+        g_params, d_params = list(gen.parameters()), list(disc.parameters())
+        with span("train.forward"):
+            if impl == "vjp":
+                fake = gen(inputs, targets, teacher_draws)
+            else:
+                with torch.no_grad():
+                    fake = gen(inputs, targets, teacher_draws)
+            d_total, d_parts = gan_d_loss(disc, targets, fake.detach(),
+                                          label_smoothing)
+        with span("train.backward"):
+            d_grads = list(torch.autograd.grad(d_total, d_params))
+        d_ok = _global_ok(d_total, group)
+        if d_ok:
+            _adam_update(state.disc_optimizer, d_params, d_grads, d_lr,
+                         grad_clip_norm, group)
+        del d_grads
 
-    d_total, d_parts = gan_d_loss(disc, targets, fake.detach(),
-                                  label_smoothing)
-    d_grads = list(torch.autograd.grad(d_total, d_params))
-    d_ok = _global_ok(d_total, group)
-    if d_ok:
-        _adam_update(state.disc_optimizer, d_params, d_grads, d_lr,
-                     grad_clip_norm, group)
-    del d_grads
-
-    if impl == "default":
-        fake = gen(inputs, targets, teacher_draws)
-    g_total, g_parts = gan_g_loss(disc, fake, targets, lambda_adv, lambda_l1)
-    g_grads = list(torch.autograd.grad(g_total, g_params))
-    g_ok = _global_ok(g_total, group)
-    if g_ok:
-        _adam_update(state.gen_optimizer, g_params, g_grads, g_lr,
-                     grad_clip_norm, group)
-    state.step += 1
-    names = ("d_total", "g_total", *d_parts, *g_parts)
-    values = _mean_over(torch.stack([t.detach().float() for t in (
-        d_total, g_total, *d_parts.values(), *g_parts.values())]),
-        group).tolist()
-    return {**dict(zip(names, values)), "skipped": int(not (d_ok and g_ok))}
+        with span("train.forward"):
+            if impl == "default":
+                fake = gen(inputs, targets, teacher_draws)
+            g_total, g_parts = gan_g_loss(disc, fake, targets, lambda_adv,
+                                          lambda_l1)
+        with span("train.backward"):
+            g_grads = list(torch.autograd.grad(g_total, g_params))
+        g_ok = _global_ok(g_total, group)
+        if g_ok:
+            _adam_update(state.gen_optimizer, g_params, g_grads, g_lr,
+                         grad_clip_norm, group)
+        state.step += 1
+        names = ("d_total", "g_total", *d_parts, *g_parts)
+        values = _mean_over(torch.stack([t.detach().float() for t in (
+            d_total, g_total, *d_parts.values(), *g_parts.values())]), group)
+        with host_sync("metrics"):
+            values = values.tolist()
+        return {**dict(zip(names, values)),
+                "skipped": int(not (d_ok and g_ok))}
 
 
 @torch.no_grad()

@@ -15,16 +15,44 @@ a warm compile cache is the nvcc cache of ``ops/kernels/build.py``
 Synchronization: where JAX blocks on a value (``jax.block_until_ready``),
 the port synchronizes every CUDA device that holds a tensor of the value
 (``torch.cuda.synchronize``); tensors on the CPU need nothing.
+
+The program's own trace (not in the JAX module): spans and counters where
+the work happens.
+
+- ``span(name)`` marks a stretch of the host's work as ``plcg.<name>``:
+  ``stream.observe`` / ``stream.forecast`` (``streaming.py``), ``k5.issue``
+  (``rollout_persistent_fwd``, the host's issue of the rollout kernel),
+  ``train.step`` with ``train.forward``, ``train.backward`` and
+  ``train.update`` (``train/steps.py``), and ``sync.<site>`` at each host
+  sync of a train step (``host_sync``). Tracing is off unless switched on,
+  and then a span costs one test of two flags and returns a shared null
+  context. It is on (a) inside ``program_trace()`` and (b) while any
+  ``torch.profiler`` runs (``profile_trace`` among them). While on, each
+  span is logged in memory (``program_log()``: name, start and end on the
+  clock of the profiler's events, its parent and the id of its top-level
+  span, which all spans of one request or step share), every K5 launch
+  records block 0's clock of each phase into a buffer that stays on the
+  device until the log is read (``ProgramLog.k5_phases``), and under (b)
+  each span is also a ``record_function`` range, so that the profiler's
+  trace shows it.
+- ``counters()``: every counter of the program in one dict: the kernel
+  wrappers' launches and operations (K1, K2, K5, K3/K4), the collectives
+  of tensor parallelism and ``host_syncs`` (``host_sync``). Counters count
+  whether tracing is on or not.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast as _record_range
 
 
 def _cuda_devices(value, found=None) -> set:
@@ -128,9 +156,15 @@ def profile_trace(logdir: str):
     """A ``torch.profiler`` trace of the block (CPU, and CUDA where a device
     is present), written into ``logdir`` as a Chrome / Perfetto trace file
     (``*.pt.trace.json``) when the block ends. Yields the profiler, whose
-    ``key_averages()`` sum the device time by kernel."""
+    ``key_averages()`` sum the device time by kernel. The program's spans
+    are ``plcg.*`` ranges in it, and are logged into a fresh
+    ``program_log()`` (unless ``program_trace()`` is on, whose log they
+    join)."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
+    global _log
+    if not _on:
+        _log = ProgramLog()
     os.makedirs(logdir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -236,3 +270,263 @@ def log_compiled_cost(label: str, fn: Callable, *args, **kwargs
     cost = window.cost()
     print(cost_line(label, cost), flush=True)
     return out, cost
+
+
+# ---------------------------------------------------- the program's trace
+
+SPAN_PREFIX = "plcg."
+# K5 launches whose stamps one log keeps (each a device buffer of
+# 8 x (1 + 2 phases) bytes: ~2 KB for a forecast(30) of three cells)
+K5_STAMPED_MAX = 1 << 14
+
+
+class Span:
+    """One logged span: ``name`` (``plcg.<name>``), ``start_ns`` and
+    ``end_ns`` (0 while open) on the clock of the profiler's events (Unix
+    time, ``time.time_ns``), its ``id``, its ``parent``'s id (-1: none),
+    ``root``, the id of its top-level span (its own for a top-level span),
+    and for a closed top-level span ``counts``: what each of
+    ``counters()`` rose by over it (from the snapshots ``c0`` and ``c1``,
+    taken in the order of ``counters()``)."""
+    __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "root", "c0",
+                 "c1")
+
+    def __init__(self, name: str, start_ns: int, sid: int, parent: int,
+                 root: int):
+        self.name, self.start_ns, self.end_ns = name, start_ns, 0
+        self.id, self.parent, self.root = sid, parent, root
+        self.c0: Optional[list] = None
+        self.c1: Optional[list] = None
+
+    @property
+    def duration_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+    @property
+    def counts(self) -> Optional[Dict[str, int]]:
+        if self.c0 is None or self.c1 is None:
+            return None
+        return {key: b - a for (key, _, _), a, b in zip(_counter_sources(),
+                                                        self.c0, self.c1)}
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, "
+                f"root={self.root}, {self.duration_ns / 1e3:.1f} us)")
+
+
+class ProgramLog:
+    """What the program's trace logged: ``spans`` in the order they
+    opened, and ``k5``, one (host time of the launch in ns, block 0's stamps
+    on the device, the schedule ``(n_cells, steps, emit_from, t_in)``) a
+    K5 launch (at most ``K5_STAMPED_MAX``)."""
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.k5: list = []
+        self._ids = itertools.count()
+        self._local = threading.local()
+
+    def _stack(self) -> List[Span]:
+        """This thread's open spans."""
+        return self._local.__dict__.setdefault("stack", [])
+
+    def between(self, t0_ns: Optional[float] = None,
+                t1_ns: Optional[float] = None) -> List[Span]:
+        """The closed spans that start at or after ``t0_ns`` and end at or
+        before ``t1_ns`` (None: no bound)."""
+        lo = float("-inf") if t0_ns is None else t0_ns
+        hi = float("inf") if t1_ns is None else t1_ns
+        return [s for s in self.spans
+                if s.end_ns and lo <= s.start_ns and s.end_ns <= hi]
+
+    def k5_phases(self, t0_ns: Optional[float] = None,
+                  t1_ns: Optional[float] = None) -> List[Dict[str, Any]]:
+        """``rollout_kernel.stamp_phases`` of each K5 launch issued between
+        ``t0_ns`` and ``t1_ns``, in order: block 0's time in each cell's
+        tiles, in the head's and at the barriers. Copies the stamps to the
+        host, one copy a schedule, which waits for the launches."""
+        from ..ops.kernels.rollout_kernel import (rollout_schedule,
+                                                  stamp_phases)
+        lo = float("-inf") if t0_ns is None else t0_ns
+        hi = float("inf") if t1_ns is None else t1_ns
+        chosen = [(i, key) for i, (t, _, key) in enumerate(self.k5)
+                  if lo <= t <= hi]
+        by_key: Dict[tuple, List[int]] = {}
+        for i, key in chosen:
+            by_key.setdefault(key, []).append(i)
+        phases = {}
+        for key, idx in by_key.items():
+            table = rollout_schedule(*key)
+            host = torch.stack([self.k5[i][1] for i in idx]).cpu()
+            for i, stamps in zip(idx, host):
+                phases[i] = stamp_phases(stamps, table)
+        return [phases[i] for i, _ in chosen]
+
+
+class _NullSpan:
+    """What a span is while tracing is off: nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _NullSpan()
+_on = False                  # program_trace()'s switch
+_log = ProgramLog()          # where spans go while tracing is on
+
+
+class _Span:
+    """A span while tracing is on: logged into the current log, and a
+    ``record_function`` range while a profiler runs (torch's
+    ``_RecordFunctionFast``, the one its compiled code enters: ~1 µs
+    against ~12 µs for ``torch.profiler.record_function`` on the H100's
+    host)."""
+    __slots__ = ("_name", "_span", "_log", "_record")
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __enter__(self) -> Span:
+        log = _log
+        stack = log._stack()
+        sid = next(log._ids)
+        parent = stack[-1] if stack else None
+        sp = Span(SPAN_PREFIX + self._name, 0, sid,
+                  -1 if parent is None else parent.id,
+                  sid if parent is None else parent.root)
+        if parent is None:
+            sp.c0 = _snapshot()
+        self._log, self._span, self._record = log, sp, None
+        if _autograd_profiler._is_profiler_enabled:
+            self._record = _record_range(sp.name)
+            self._record.__enter__()
+        # stamped inside the span's own work, so that its length leaves out
+        # what the span itself costs
+        sp.start_ns = time.time_ns()
+        log.spans.append(sp)
+        stack.append(sp)
+        return sp
+
+    def __exit__(self, *exc):
+        sp = self._span
+        sp.end_ns = time.time_ns()
+        if self._record is not None:
+            self._record.__exit__(*exc)
+        if sp.c0 is not None:
+            sp.c1 = _snapshot()
+        stack = self._log._stack()
+        if stack and stack[-1] is sp:
+            stack.pop()
+        return False
+
+
+def tracing() -> bool:
+    """Whether the program's trace is on: inside ``program_trace()``, or
+    while a ``torch.profiler`` runs (``torch.autograd.profiler``'s
+    ``_is_profiler_enabled``, which the profiler sets and clears)."""
+    return _on or _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A context manager that marks the block as the span ``plcg.<name>``
+    while tracing is on (``tracing()``); otherwise a shared null context,
+    after one test of two flags: no allocation, no ``record_function``."""
+    if _on or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _NULL
+
+
+def host_sync(site: str):
+    """Mark a host sync (a read of a device value that waits for the
+    device) at ``site``: counted in ``host_sync.count`` (``host_syncs`` of
+    ``counters()``) whether tracing is on or not, and while it is on
+    spanned as ``plcg.sync.<site>``, whose length is the host's wait."""
+    host_sync.count += 1
+    if _on or _autograd_profiler._is_profiler_enabled:
+        return _Span("sync." + site)
+    return _NULL
+
+
+host_sync.count = 0
+
+
+@contextlib.contextmanager
+def program_trace():
+    """Switch the program's trace on for the block, into a fresh log,
+    without a profiler (so without ``record_function`` ranges, unless a
+    profiler runs as well). Yields the ``ProgramLog``, which stays
+    ``program_log()`` after the block until the next ``program_trace()``
+    or ``profile_trace()``. Not reentrant."""
+    global _on, _log
+    if _on:
+        raise RuntimeError("program_trace() is already on")
+    _log = ProgramLog()
+    _on = True
+    try:
+        yield _log
+    finally:
+        _on = False
+
+
+def program_log() -> ProgramLog:
+    """The log that spans go to while tracing is on: the last
+    ``program_trace()``'s or ``profile_trace()``'s, else the process's
+    first (which a bare ``torch.profiler`` fills)."""
+    return _log
+
+
+def k5_stamps(n_phases: int, device) -> Optional[torch.Tensor]:
+    """A stamps buffer for a K5 launch of ``n_phases`` phases while tracing
+    is on and the log keeps fewer than ``K5_STAMPED_MAX`` launches' stamps;
+    else None. Hand it to ``log_k5`` once the launch is issued."""
+    if not (_on or _autograd_profiler._is_profiler_enabled) or len(
+            _log.k5) >= K5_STAMPED_MAX:
+        return None
+    return torch.empty(1 + 2 * n_phases, dtype=torch.int64, device=device)
+
+
+def log_k5(stamps: torch.Tensor, schedule: Tuple[int, int, int, int]) -> None:
+    """Keep a K5 launch's ``stamps`` (left on the device) and its schedule
+    ``(n_cells, steps, emit_from, t_in)`` in the log."""
+    _log.k5.append((time.time_ns(), stamps, schedule))
+
+
+_COUNTERS: List[Tuple[str, Any, str]] = []
+
+
+def _counter_sources() -> List[Tuple[str, Any, str]]:
+    """(key, object, attribute) of each counter, found once."""
+    if not _COUNTERS:
+        from ..ops.kernels.convlstm_kernel import convlstm_cell_fwd
+        from ..ops.kernels.rollout_kernel import (conv_head_fwd,
+                                                  rollout_persistent_fwd)
+        from ..ops.kernels.tap_structure_kernel import tap_k1152, tap_loop
+        from ..parallel.tp_collectives import copy_in, gather_h
+        _COUNTERS.extend(
+            (f"{fn.__name__}.{attr}", fn, attr) for fn, attr in (
+                (convlstm_cell_fwd, "launches"),
+                (convlstm_cell_fwd, "launches_z"),
+                (convlstm_cell_fwd, "flops"), (conv_head_fwd, "launches"),
+                (rollout_persistent_fwd, "launches"),
+                (rollout_persistent_fwd, "flops"), (tap_loop, "launches"),
+                (tap_k1152, "launches"), (gather_h, "calls"),
+                (copy_in, "calls")))
+        _COUNTERS.append(("host_syncs", host_sync, "count"))
+    return _COUNTERS
+
+
+def _snapshot() -> list:
+    return [getattr(obj, attr) for _, obj, attr in _counter_sources()]
+
+
+def counters() -> Dict[str, int]:
+    """Every counter of the program, by ``<function>.<attribute>``: K1's
+    launches (with z apart) and operations, K2's launches, K5's launches
+    and operations, K3's and K4's launches, the tensor-parallel
+    collectives' calls, and ``host_syncs``. One snapshot; the counters
+    only rise, except where a caller resets them."""
+    return {key: getattr(obj, attr) for key, obj, attr in _counter_sources()}
