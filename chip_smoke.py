@@ -104,15 +104,27 @@ own line:
    and the share of the bound; then
    ConvLSTMCellFn's backward on the card against torch autograd through
    convlstm_step_torch at the (64, 64) shape: all five gradients;
+8a. cell_backward: K6, the cell's gate backward, against its plain version
+   (the eager ops ConvLSTMCellFn's backward ran before K6) at the nowcast
+   cells (bf16, B 4, 128^2, Cx 1 and 64, Ch 64), the Generator's (f32, B 8,
+   16^2, (16, 16) and (16, 32)) and a Ch of 20 (the scalar variant): dz,
+   dc_prev, xh and db within K6_TOL, two launches bit-equal; at the nowcast
+   and Generator cells K6 and the plain version timed in turns beside K6's
+   bound (its bytes at 3.35 TB/s) and the host's time a call of each (K6
+   as the backward launches it and through its checked wrapper). Every
+   phase's launch counts include K6's: 0 wherever nothing trains, one a
+   cell step of every training backward (the kernels line's K6 entries
+   list each count read, by path);
 9. train: configs/nowcast_128_pallas.yaml at full width (3x64, 128x128, B
    4, 5 -> 20, bf16 compute on f32 params), weights from seed 0 through
    weights.py, batches from the port's SyntheticSequenceDataset (seed 0):
    the step-1 gradients, then 5 steps on the kernel path (convlstm_impl
-   pallas: 72 K1-with-z launches a step, no K1 without z, no K2) and the
-   same 5 steps on the plain path (xla) from the same state: per-step
-   losses, gradients and params after 5 steps within TRAIN_TOL; p50 step
-   times; 72 K1 without z per eval batch; torch.profiler over one kernel
-   step (device time by kernel group, idle share); then 2 steps in f32;
+   pallas: 72 K1-with-z and 72 K6 launches a step, no K1 without z, no
+   K2) and the same 5 steps on the plain path (xla) from the same state:
+   per-step losses, gradients and params after 5 steps within TRAIN_TOL;
+   p50 step times; 72 K1 without z per eval batch; torch.profiler over one
+   kernel step (device time by kernel group, idle share); then 2 steps in
+   f32;
 10. trainer: the CLI's train path on nowcast_128_pallas with 24 sequences
    and 2 epochs, --resume to 3 epochs (starts at epoch 2), --mode eval,
    and load_predictor on the trainer's best_model serving one request on
@@ -242,7 +254,8 @@ from pl_convlstm_gan_tpu_torch.ops.kernels import build
 from pl_convlstm_gan_tpu_torch.ops.kernels import convlstm_kernel as cell_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels import rollout_kernel as head_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
-    ConvLSTMCellFn, convlstm_cell_fwd, convlstm_cell_plain, kernel_pack)
+    ConvLSTMCellFn, cell_backward, cell_backward_plain, convlstm_cell_fwd,
+    convlstm_cell_plain, kernel_pack)
 from pl_convlstm_gan_tpu_torch.ops.kernels import tap_structure_kernel as tap_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain, persistent_misfit, rollout_persistent_fwd,
@@ -324,6 +337,17 @@ Z_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 2.0 ** -7)}
 # float32 values it never rounded, and each gradient is rounded to bf16
 # (2^-9) at the end: a few bf16 ulps of the largest gradient
 CELL_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# K6 (csrc/cell_backward.cu) against cell_backward_plain on the same CUDA
+# tensors (tests/test_torch_cell_backward.py states the reasons): dz (and
+# float32 dc_prev) 2^-20 relative plus 2^-20 of the largest magnitude
+# (float32 ulps: the same operations in the same order, expf / tanhf of two
+# builds); bf16 dc_prev one bf16 ulp (2^-7 relative); db per channel 2^-15
+# of the sum of |dz| (the same terms summed in other orders) plus a bf16
+# ulp where it is rounded to bf16
+K6_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/cell_backward.cu"
+K6_REPLACES = ("none: XLA's fusion of _bwd's gate algebra, "
+               "pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:336-385")
+K6_TOL = {"dz": 2.0 ** -20, "dc_prev_bf16": 2.0 ** -7, "db": 2.0 ** -15}
 TRAIN_STEPS = {"bfloat16": 5, "float32": 2}
 # kernel path (K1 + ConvLSTMCellFn) against the plain path (autograd through
 # convlstm_step_torch) from one state, same batches:
@@ -435,6 +459,25 @@ def time_ms(fn, iters):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters, hold_cycles=100_000_000):
+    """Mean device time of fn over `iters` back-to-back calls, as time_ms,
+    but issued while the device is held by a spin kernel of
+    ``hold_cycles`` clocks (~50 ms): the calls wait queued, so the events
+    time their device work alone, not the host's issue of each call (which
+    sets time_ms for work shorter than its launch)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -1031,6 +1074,96 @@ def phase_cell_grad(gen, shape, dtype, name):
     return errs
 
 
+def cell_backward_bytes(b, hgt, wid, cx, ch, dtype):
+    """K6's bytes, each operand read or written once: z, c, c', dh', dc', h
+    and x read in the operands' type; dz and xh written in float32, dc_prev
+    and db in the operands' type."""
+    e, px = torch.empty((), dtype=dtype).element_size(), b * hgt * wid
+    return px * ((9 * ch + cx) * e + (5 * ch + cx) * 4 + ch * e) + 4 * ch * e
+
+
+def k6_errors(got, want, dtype):
+    """K6's outputs against the plain version's, each against K6_TOL:
+    {output: the largest error over its bound} (<= 1 passes)."""
+    dz, dc_prev, xh, db = (t.float() for t in got)
+    dz_p, dc_prev_p, xh_p, db_p = (t.float() for t in want)
+
+    def ratio(err, bound):
+        return float((err / bound.clamp_min(1e-30)).max())
+
+    def f32(a, b):
+        return ratio((a - b).abs(), K6_TOL["dz"] * (b.abs() + b.abs().max()))
+    errs = {"dz": f32(dz, dz_p), "xh": 0.0 if torch.equal(xh, xh_p) else
+            float("inf")}
+    if dtype == torch.float32:
+        errs["dc_prev"] = f32(dc_prev, dc_prev_p)
+    else:
+        errs["dc_prev"] = ratio((dc_prev - dc_prev_p).abs(),
+                                K6_TOL["dc_prev_bf16"] * dc_prev_p.abs()
+                                + K6_TOL["dz"] * dc_prev_p.abs().max())
+    db_bound = K6_TOL["db"] * dz_p.abs().sum(dim=(0, 1, 2))
+    if dtype == torch.bfloat16:
+        db_bound = db_bound + K6_TOL["dc_prev_bf16"] * db_p.abs()
+    errs["db"] = ratio((db - db_p).abs(), db_bound)
+    return errs
+
+
+def phase_cell_backward(gen, shapes):
+    """K6 against cell_backward_plain at each shape (b, hgt, wid, cx, ch,
+    dtype, timed); the timed shapes also in turns (K6, plain, plain, K6;
+    device time by queued_ms) beside K6's bound, with the host's time a call (Python and launch, not
+    waiting for the device) of the launch ConvLSTMCellFn's backward makes,
+    of the checked wrapper and of the plain version. Returns the
+    records."""
+    recs = []
+    for b, hgt, wid, cx, ch, dtype, timed in shapes:
+        name = str(dtype).split(".")[-1]
+
+        def draw(*shape, scale=1.0):
+            return (torch.randn(shape, device=DEVICE, generator=gen)
+                    * scale).to(dtype)
+        ops = (draw(b, hgt, wid, 4 * ch, scale=2.0), draw(b, hgt, wid, ch),
+               draw(b, hgt, wid, ch), draw(b, hgt, wid, ch, scale=1e-2),
+               draw(b, hgt, wid, ch, scale=1e-2), draw(b, hgt, wid, cx),
+               draw(b, hgt, wid, ch))
+        reset_counts()
+        got = cell_backward(*ops, dtype)
+        again = cell_backward(*ops, dtype)
+        if cell_backward.launches != 2:
+            raise AssertionError(f"K6 {name}: {cell_backward.launches} "
+                                 f"launches for 2 calls")
+        errs = k6_errors(got, cell_backward_plain(*ops, dtype), dtype)
+        repeat = all(torch.equal(a, c) for a, c in zip(got, again))
+        rec = dict(shape=[b, hgt, wid, cx, ch], dtype=name,
+                   err_over_tol=errs, repeat_bit_equal=repeat,
+                   max_abs_dz=float(got[0].abs().max()))
+        if timed:
+            times = {"ms": [], "plain_ms": []}
+            for key in ("ms", "plain_ms", "plain_ms", "ms"):
+                fn = cell_backward if key == "ms" else cell_backward_plain
+                times[key].append(queued_ms(lambda: fn(*ops, dtype), 20))
+            rec.update({k: statistics.mean(v) for k, v in times.items()})
+            nbytes = cell_backward_bytes(b, hgt, wid, cx, ch, dtype)
+            rec["bytes"] = nbytes
+            rec["bound_ms"], rec["bound_by"] = bound(0, nbytes, name)
+            rec["roofline"] = rec["bound_ms"] / rec["ms"]
+            for key, fn in (("host_us", cell_mod._launch_cell_backward),
+                            ("wrapper_host_us", cell_backward),
+                            ("plain_host_us", cell_backward_plain)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    fn(*ops, dtype)
+                rec[key] = (time.perf_counter() - t0) / 50 * 1e6
+                torch.cuda.synchronize()
+        say(phase="cell_backward", tol=K6_TOL, **rec)
+        if not repeat or not all(v <= 1.0 for v in errs.values()):
+            raise AssertionError(f"K6 {name} {rec['shape']}: errors over "
+                                 f"tolerance {errs}, repeat {repeat}")
+        recs.append(rec)
+    return recs
+
+
 def nowcast_params(cfg, seed):
     """The nowcast_128 forecaster as a flax params tree of numpy arrays, with
     torch-default-init ranges (the layout a JAX checkpoint exports)."""
@@ -1075,7 +1208,8 @@ def phase_main_path(ckpt, dtype_name, requests):
     reset_counts()
     outs, k_ms = zip(*(request_ms(kernel_predict, f) for f in requests))
     launches = expect_rollout(f"main path {dtype_name}", dtype_name, n_cells,
-                              steps, cfg.model.output_frames, N_REQUESTS)
+                              steps, cfg.model.output_frames, N_REQUESTS,
+                              path=f"predict.{dtype_name}")
     refs, t_ms = zip(*(request_ms(torch_predict, f) for f in requests))
     b, t_in, cin, hgt, wid = requests[0].shape
     cells_fn, head_fn = conv_parts(b, hgt, wid, cin, cfg.model.hidden_dims,
@@ -1152,25 +1286,36 @@ def profile_request(predict, frames, phase="profile"):
 def reset_counts():
     convlstm_cell_fwd.launches = 0
     convlstm_cell_fwd.launches_z = 0
+    cell_backward.launches = 0
     conv_head_fwd.launches = 0
     rollout_persistent_fwd.launches = 0
     tap_loop.launches = 0
     tap_k1152.launches = 0
 
 
-def expect_counts(what, k1, k2, k1z=0, k5=0):
-    """Raise unless K1 (without z), K2, K1 with z and K5 launched exactly
-    k1, k2, k1z and k5 times since the last reset_counts(); returns the
-    counts of K1, K2 and K5."""
+# K6 launches as expect_counts read them, by the path its ``path`` names
+# ("<path>.<compute dtype>"): the kernels line's K6 entries
+K6_BY_PATH = {}
+
+
+def expect_counts(what, k1, k2, k1z=0, k5=0, k6=0, path=None):
+    """Raise unless K1 (without z), K2, K1 with z, K5 and K6 launched
+    exactly k1, k2, k1z, k5 and k6 times since the last reset_counts();
+    returns the counts of K1, K2, K5 and K6. With ``path`` the K6 count
+    read is kept in K6_BY_PATH[path]."""
     got = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
            "conv_head_fwd": conv_head_fwd.launches,
-           "rollout_persistent_fwd": rollout_persistent_fwd.launches}
+           "rollout_persistent_fwd": rollout_persistent_fwd.launches,
+           "cell_backward": cell_backward.launches}
     if got != {"convlstm_cell_fwd": k1, "conv_head_fwd": k2,
-               "rollout_persistent_fwd": k5} or \
+               "rollout_persistent_fwd": k5, "cell_backward": k6} or \
             convlstm_cell_fwd.launches_z != k1z:
         raise AssertionError(f"{what}: launches {got}, with z "
                              f"{convlstm_cell_fwd.launches_z}; expected {k1} "
-                             f"K1, {k2} K2, {k1z} K1 with z and {k5} K5")
+                             f"K1, {k2} K2, {k1z} K1 with z, {k5} K5 and "
+                             f"{k6} K6")
+    if path is not None:
+        K6_BY_PATH[path] = got["cell_backward"]
     return got
 
 
@@ -1184,10 +1329,11 @@ def rollout_launches(dtype_name, n_cells, steps, heads, calls=1):
     return n_cells * steps * calls, heads * calls, 0
 
 
-def expect_rollout(what, dtype_name, n_cells, steps, heads, calls=1):
-    """expect_counts of ``rollout_launches``."""
+def expect_rollout(what, dtype_name, n_cells, steps, heads, calls=1,
+                   path=None):
+    """expect_counts of ``rollout_launches`` (no K6)."""
     k1, k2, k5 = rollout_launches(dtype_name, n_cells, steps, heads, calls)
-    return expect_counts(what, k1, k2, k5=k5)
+    return expect_counts(what, k1, k2, k5=k5, path=path)
 
 
 def p50_ms(fns, n=N_TIMED):
@@ -1303,7 +1449,7 @@ def phase_stream(ckpt, dtype_name, request, frames8):
     k1, k2, k5 = rollout_launches(dtype_name, n_cells, t_in + t_out - 1,
                                   t_in + t_out - 1)
     launches = expect_counts("observe_window + forecast", k1, k2,
-                             k5=2 * k5)
+                             k5=2 * k5, path=f"stream.{dtype_name}")
     rollout = torch.cat([nowcast[:, None], rest], 1)
     err_batch = check_close(f"stream {dtype_name} vs batch", rollout, batch,
                             atol, rtol)
@@ -1392,7 +1538,7 @@ def export_worker(work, dtype_name):
     """``chip_smoke.py --export-worker <work> <dtype>``: a process that has
     only the artifact <work>/model_<dtype>.pt2 (the checkpoint is deleted)
     serves the requests of <work>/requests.npy through serve.load_exported
-    and saves the outputs and the K1 / K2 / K1-with-z / K5 counts of the
+    and saves the outputs and the K1 / K2 / K1-with-z / K5 / K6 counts of the
     requests to <work>/served_<dtype>.pt."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1406,7 +1552,8 @@ def export_worker(work, dtype_name):
     torch.save({"outs": [o.cpu() for o in outs],
                 "counts": (convlstm_cell_fwd.launches, conv_head_fwd.launches,
                            convlstm_cell_fwd.launches_z,
-                           rollout_persistent_fwd.launches)},
+                           rollout_persistent_fwd.launches,
+                           cell_backward.launches)},
                os.path.join(work, f"served_{dtype_name}.pt"))
     return 0
 
@@ -1469,10 +1616,11 @@ def export_batch(tmp, dtype_name, requests, seed):
     served = torch.load(os.path.join(work, f"served_{dtype_name}.pt"),
                         weights_only=False)
     n = len(requests)
-    if served["counts"] != (n * k1, n * k2, 0, n * k5):
+    if served["counts"] != (n * k1, n * k2, 0, n * k5, 0):
         raise AssertionError(f"export {dtype_name}: the child launched "
-                             f"(K1, K2, K1 with z, K5) {served['counts']}, "
-                             f"expected {(n * k1, n * k2, 0, n * k5)}")
+                             f"(K1, K2, K1 with z, K5, K6) {served['counts']}, "
+                             f"expected {(n * k1, n * k2, 0, n * k5, 0)}")
+    K6_BY_PATH[f"export_served_in_a_child.{dtype_name}"] = served["counts"][4]
     atol, rtol = PATH_TOL[dtype_name]
     errs = []
     for i, (got, want, ref) in enumerate(zip(served["outs"], outs, refs)):
@@ -1502,7 +1650,8 @@ def export_batch(tmp, dtype_name, requests, seed):
     serve = load_exported(blob)
     reset_counts()
     out = serve(requests[0])
-    launches = expect_counts(f"export {dtype_name} request", k1, k2, k5=k5)
+    launches = expect_counts(f"export {dtype_name} request", k1, k2, k5=k5,
+                             path=f"export_predict.{dtype_name}")
     if not torch.equal(out, outs[0]):
         raise AssertionError(f"export {dtype_name}: the artifact in this "
                              f"process differs from the eager kernel path")
@@ -1576,7 +1725,8 @@ def export_stream(tmp, dtype_name, request, frames8, seed):
         reset_counts()
         out = server.forecast(state, h)
         seen = expect_rollout(f"export stream {dtype_name} {what} "
-                              f"forecast({h})", dtype_name, n_cells, h, h)
+                              f"forecast({h})", dtype_name, n_cells, h, h,
+                              path=f"export_stream.{dtype_name}")
         if not torch.equal(out, sf.forecast(eager, h)):
             raise AssertionError(f"export stream {dtype_name} {what}: "
                                  f"forecast({h}) differs from the eager "
@@ -1638,7 +1788,8 @@ def export_generator(tmp, dtype_name, seed):
     serve = load_exported(blob)
     reset_counts()
     out = serve(*batch)
-    expect_counts(f"export generator {dtype_name}", 0, 0)
+    expect_counts(f"export generator {dtype_name}", 0, 0,
+                  path=f"export_generator.{dtype_name}")
     ref = eager(*batch)
     hgt, wid = batch[0].shape[-2:]
     want = (batch[0].shape[0], mc.T, 1, hgt * mc.scale_factor,
@@ -1683,7 +1834,8 @@ def phase_precip_256(tmp, seed):
     reset_counts()
     warm, _ = sf.observe_window(sf.init_state(1, size, size), frames)
     launches = expect_rollout("precip_256 observe_window", dtype_name,
-                              n_cells, t_in, t_in)
+                              n_cells, t_in, t_in,
+                              path=f"precip_256_observe_window.{dtype_name}")
     err = check_forecast_vs_plain("precip_256 B 1", sf, sf_plain, warm,
                                   STREAM_HORIZON, dtype_name)
     times = p50_ms({"forecast": lambda: sf.forecast(warm, STREAM_HORIZON),
@@ -1811,7 +1963,9 @@ def phase_train(dtype_name, seed):
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3)
             if name == "kernel":
-                expect_counts(f"train {dtype_name} step {i}", 0, 0, per_step)
+                expect_counts(f"train {dtype_name} step {i}", 0, 0, per_step,
+                              k6=per_step,
+                              path=f"train_per_step.{dtype_name}")
             else:
                 expect_counts(f"plain train {dtype_name} step {i}", 0, 0, 0)
             if m["skipped"] or not np.isfinite(m["total"]):
@@ -1839,7 +1993,8 @@ def phase_train(dtype_name, seed):
     reset_counts()
     acc = forecaster_eval_step(paths["kernel"].model, batches[0], b,
                                tuple(cfg.training.eval_thresholds))
-    expect_counts(f"eval {dtype_name}", per_step, 0)
+    expect_counts(f"eval {dtype_name}", per_step, 0,
+                  path=f"eval_batch.{dtype_name}")
     if not all(bool(torch.isfinite(v[0]).all()) for v in acc.values()):
         raise AssertionError(f"eval {dtype_name}: non-finite metrics")
 
@@ -1849,7 +2004,9 @@ def phase_train(dtype_name, seed):
             paths["kernel"], batches[0], lr))
     rec = dict(dtype=dtype_name, steps=steps, batch=b,
                launches_per_step={"convlstm_cell_fwd_save_z": per_step,
-                                  "convlstm_cell_fwd": 0, "conv_head_fwd": 0},
+                                  "convlstm_cell_fwd": 0, "conv_head_fwd": 0,
+                                  "cell_backward": K6_BY_PATH[
+                                      f"train_per_step.{dtype_name}"]},
                launches_train=per_step * steps, launches_eval_batch=per_step,
                kernel_p50_ms=statistics.median(times["kernel"]),
                plain_p50_ms=statistics.median(times["plain"]),
@@ -1890,7 +2047,9 @@ def phase_trainer(tmp, request):
     h2 = cli.main(["--config", yamls[0], "--mode", "train"])
     train_launches = convlstm_cell_fwd.launches_z
     expect_counts("trainer 2 epochs", TRAINER_EPOCHS * n_val * per_step, 0,
-                  TRAINER_EPOCHS * n_train * per_step)
+                  TRAINER_EPOCHS * n_train * per_step,
+                  k6=TRAINER_EPOCHS * n_train * per_step,
+                  path="trainer_train." + cfg.precision.compute_dtype)
     h3 = cli.main(["--config", yamls[1], "--mode", "train", "--resume"])
     if h3["epoch"] != list(range(TRAINER_EPOCHS + 1)) or \
             {k: v[:TRAINER_EPOCHS] for k, v in h3.items()} != h2:
@@ -1910,7 +2069,8 @@ def phase_trainer(tmp, request):
     served = expect_rollout("trainer best_model predict",
                             cfg.precision.compute_dtype,
                    len(mc.hidden_dims), mc.input_frames + mc.output_frames - 1,
-                   mc.output_frames)
+                   mc.output_frames, path="trainer_best_model_request."
+                   + cfg.precision.compute_dtype)
     want = (request.shape[0], mc.output_frames) + tuple(request.shape[2:])
     if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"trainer predict: {tuple(out.shape)}")
@@ -2181,7 +2341,9 @@ def phase_gan(name, dtype_name, step_impl, tf_prob, steps, cuts, seed):
             torch.cuda.synchronize()
             times[p].append((time.perf_counter() - t0) * 1e3)
             want = expect if p == "kernel" else (0, 0)
-            expect_counts(f"gan {name} {p} step {i}", want[0], 0, want[1])
+            expect_counts(f"gan {name} {p} step {i}", want[0], 0, want[1],
+                          k6=want[1], path=f"gan_{name}_{step_impl}_per_step"
+                          f".{dtype_name}" if p == "kernel" else None)
             if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
                 raise AssertionError(f"gan {name} {p} step {i}: {m}")
             metrics[p].append(m)
@@ -2247,7 +2409,10 @@ def phase_gan(name, dtype_name, step_impl, tf_prob, steps, cuts, seed):
                cuts=cuts,
                launches_per_step={"convlstm_cell_fwd": expect[0],
                                   "convlstm_cell_fwd_save_z": expect[1],
-                                  "conv_head_fwd": 0},
+                                  "conv_head_fwd": 0,
+                                  "cell_backward": K6_BY_PATH[
+                                      f"gan_{name}_{step_impl}_per_step."
+                                      f"{dtype_name}"]},
                kernel_p50_ms=statistics.median(times["kernel"]),
                plain_p50_ms=statistics.median(times["plain"]),
                kernel_ms=times["kernel"], plain_ms=times["plain"],
@@ -2302,7 +2467,9 @@ def phase_gan_trainer(tmp, seed):
     # step; validation runs K1 without z
     expect_counts("gan trainer 2 epochs",
                   TRAINER_EPOCHS * (n_train + n_val) * per_step, 0,
-                  TRAINER_EPOCHS * n_train * per_step)
+                  TRAINER_EPOCHS * n_train * per_step,
+                  k6=TRAINER_EPOCHS * n_train * per_step,
+                  path="gan_trainer_train." + cfg.precision.compute_dtype)
     h3 = cli.main(["--config", yamls[1], "--mode", "train", "--resume"])
     if h3["epoch"] != list(range(TRAINER_EPOCHS + 1)) or \
             {k: v[:TRAINER_EPOCHS] for k, v in h3.items()} != h2:
@@ -2319,7 +2486,8 @@ def phase_gan_trainer(tmp, seed):
     reset_counts()
     out = predict(request)
     expect_counts("gan trainer best_model predict", per_step,
-                  mc.output_frames)
+                  mc.output_frames, path="gan_trainer_best_model_request."
+                  + cfg.precision.compute_dtype)
     want = (request.shape[0], mc.output_frames) + tuple(request.shape[2:])
     if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"gan trainer predict: {tuple(out.shape)}")
@@ -2436,7 +2604,8 @@ def phase_generator(tmp, dtype_name, seed):
     reset_counts()
     outs = [predicts["kernel"](*x[:3]) for x in batches[:N_REQUESTS]]
     launches = expect_counts(f"generator {dtype_name} requests",
-                             N_REQUESTS * per_call, 0)
+                             N_REQUESTS * per_call, 0,
+                             path=f"generator_request.{dtype_name}")
     refs = [predicts["plain"](*x[:3]) for x in batches[:N_REQUESTS]]
     expect_counts(f"generator {dtype_name} plain requests",
                   N_REQUESTS * per_call, 0)
@@ -2471,7 +2640,8 @@ def phase_generator(tmp, dtype_name, seed):
         reset_counts()
         generator_loss(st.model, batches[0], loss_cfg)[0].backward()
         expect_counts(f"generator {dtype_name} {p} gradients", 0, 0,
-                      per_call if p == "kernel" else 0)
+                      per_call if p == "kernel" else 0,
+                      k6=per_call if p == "kernel" else 0)
         grads[p] = flat_grads(st.model)
         st.optimizer.zero_grad(set_to_none=True)
     grad_err = float((grads["kernel"] - grads["plain"]).norm()
@@ -2488,7 +2658,10 @@ def phase_generator(tmp, dtype_name, seed):
             torch.cuda.synchronize()
             times[p].append((time.perf_counter() - t0) * 1e3)
             expect_counts(f"generator {dtype_name} {p} step {i}", 0, 0,
-                          per_call if p == "kernel" else 0)
+                          per_call if p == "kernel" else 0,
+                          k6=per_call if p == "kernel" else 0,
+                          path=f"generator_train_step.{dtype_name}"
+                          if p == "kernel" else None)
             if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
                 raise AssertionError(f"generator {dtype_name} {p} step {i}: "
                                      f"{m}")
@@ -2513,7 +2686,8 @@ def phase_generator(tmp, dtype_name, seed):
 
     reset_counts()
     acc = generator_eval_step(paths["kernel"].model, batches[0], b, loss_cfg)
-    expect_counts(f"generator {dtype_name} eval", per_call, 0)
+    expect_counts(f"generator {dtype_name} eval", per_call, 0,
+                  path=f"generator_eval_batch.{dtype_name}")
     if not all(bool(torch.isfinite(v[0])) for v in acc.values()):
         raise AssertionError(f"generator {dtype_name} eval: non-finite sums")
 
@@ -2528,7 +2702,9 @@ def phase_generator(tmp, dtype_name, seed):
                hr_size=list(want[-2:]), requests=N_REQUESTS,
                launches=launches,
                launches_per_request={"convlstm_cell_fwd": per_call},
-               launches_per_step={"convlstm_cell_fwd_save_z": per_call},
+               launches_per_step={"convlstm_cell_fwd_save_z": per_call,
+                                  "cell_backward": K6_BY_PATH[
+                                      f"generator_train_step.{dtype_name}"]},
                launches_eval_batch=per_call,
                request_p50_ms=req_times["kernel"][0],
                request_plain_p50_ms=req_times["plain"][0],
@@ -2587,7 +2763,10 @@ def phase_generator_trainer(tmp, seed):
     train_launches_z = convlstm_cell_fwd.launches_z
     expect_counts("generator trainer 2 epochs",
                   TRAINER_EPOCHS * -(-n_val // b) * per_call, 0,
-                  TRAINER_EPOCHS * (n_train // b) * per_call)
+                  TRAINER_EPOCHS * (n_train // b) * per_call,
+                  k6=TRAINER_EPOCHS * (n_train // b) * per_call,
+                  path="generator_trainer_train."
+                  + cfg.precision.compute_dtype)
     t0 = time.perf_counter()
     h3 = cli.main(["--config", yamls[1], "--mode", "train", "--resume"])
     seconds["resume"] = time.perf_counter() - t0
@@ -2705,9 +2884,9 @@ def phase_fit(tmp, seed):
         predict = load_predictor(cfg, ckpt)
         reset_counts()
         predict(request)
-        fits[dtype_name] = expect_rollout(f"fit nowcast_128 {dtype_name}",
-                                          dtype_name, n_cells, steps,
-                                          cfg.model.output_frames)
+        fits[dtype_name] = expect_rollout(
+            f"fit nowcast_128 {dtype_name}", dtype_name, n_cells, steps,
+            cfg.model.output_frames, path=f"fit_request.{dtype_name}")
     say(phase="fit", refused=recs, nowcast_128_launches=fits)
     return dict(refused=recs, nowcast_128_launches=fits)
 
@@ -2836,7 +3015,8 @@ def phase_int8(ckpt, requests, frames8):
     forecast = sf.forecast(state, STREAM_HORIZON)
     stream_launches = expect_counts("int8 stream observe_window + "
                                     f"forecast({STREAM_HORIZON})",
-                                    n_cells * t_in, t_in)
+                                    n_cells * t_in, t_in,
+                                    path="int8_stream.float32")
     f_ref = sf_f.forecast(state, STREAM_HORIZON)
     stream_rel_l2 = float((forecast - f_ref).norm() / f_ref.norm())
     per_batch = []
@@ -2958,7 +3138,10 @@ def phase_profiling(tmp, int8_predict, request, seed):
         per_step = len(mc.hidden_dims) * (mc.input_frames
                                           + mc.output_frames - 1)
         expect_counts(f"profiling {name} step", 0, 0,
-                      per_step if name == "kernel" else 0)
+                      per_step if name == "kernel" else 0,
+                      k6=per_step if name == "kernel" else 0,
+                      path="profiling_train_step." + cfg.precision.compute_dtype
+                      if name == "kernel" else None)
         if cost is None or m["skipped"] or not np.isfinite(m["total"]):
             raise AssertionError(f"profiling {name} step: {m}, {cost}")
         costs[name] = cost
@@ -3032,8 +3215,9 @@ def remat_config(impl, remat, policy):
 
 def remat_run(label, cfg, gen_sd, disc_sd, batches, draws, expect):
     """One run of the remat phase from the seeded state: the step-1
-    gradients of G and D, then the steps with exact K1 counts (``expect``:
-    K1 without z, K1 with z, per step and per gradient pass), their times,
+    gradients of G and D, then the steps with exact K1 and K6 counts
+    (``expect``: K1 without z, K1 with z, K6, per step and per gradient
+    pass), their times,
     and the peak of allocated device memory over the gradient pass and the
     steps. Returns its record, with the gradients and the final params."""
     tc = cfg.training
@@ -3045,7 +3229,8 @@ def remat_run(label, cfg, gen_sd, disc_sd, batches, draws, expect):
     base = torch.cuda.memory_allocated()
     reset_counts()
     grads = gan_grads(st, cfg, batches[0], draws[0])
-    expect_counts(f"remat {label} gradients", expect[0], 0, expect[1])
+    expect_counts(f"remat {label} gradients", expect[0], 0, expect[1],
+                  k6=expect[2])
     metrics, times = [], []
     for i, batch in enumerate(batches):
         step = gan_step_fn(st, cfg, lr, d_lr, draws[i])
@@ -3055,7 +3240,9 @@ def remat_run(label, cfg, gen_sd, disc_sd, batches, draws, expect):
         m = step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        expect_counts(f"remat {label} step {i}", expect[0], 0, expect[1])
+        expect_counts(f"remat {label} step {i}", expect[0], 0, expect[1],
+                      k6=expect[2], path=f"remat_{label}_per_step."
+                      + cfg.precision.compute_dtype)
         if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"remat {label} step {i}: {m}")
         metrics.append(m)
@@ -3063,7 +3250,10 @@ def remat_run(label, cfg, gen_sd, disc_sd, batches, draws, expect):
     rec = dict(label=label, convlstm_impl=cfg.model.convlstm_impl,
                remat=cfg.model.remat, remat_policy=cfg.model.remat_policy,
                launches_per_step={"convlstm_cell_fwd": expect[0],
-                                  "convlstm_cell_fwd_save_z": expect[1]},
+                                  "convlstm_cell_fwd_save_z": expect[1],
+                                  "cell_backward": K6_BY_PATH[
+                                      f"remat_{label}_per_step."
+                                      + cfg.precision.compute_dtype]},
                p50_ms=statistics.median(times), step_ms=times,
                peak_mem_gb=peak / 1e9, peak_over_base_gb=(peak - base) / 1e9,
                d_total=[m["d_total"] for m in metrics],
@@ -3080,8 +3270,9 @@ def phase_remat(seed):
     REMAT_RUNS), each against its run without remat from one seeded state
     and the same batches and draws: step-1 gradients of G and D, per-step
     d_total and g_total, params after the steps within TRAIN_TOL; exact K1
-    counts a step (kernel path: 68 with z without remat; under "" and
-    "dots" the backward runs every step again, K1 with z included: 136);
+    and K6 counts a step (kernel path: 68 K1 with z without remat; under ""
+    and "dots" the backward runs every step again, K1 with z included: 136;
+    68 K6 under each);
     p50 step times and peak memory of each run."""
     base = remat_config("auto", True, "save_z")
     mc, tc = base.model, base.training
@@ -3101,9 +3292,9 @@ def phase_remat(seed):
     for label, impl, remat, policy, _ in REMAT_RUNS:
         cfg = remat_config(impl, remat, policy)
         if impl == "auto":
-            expect = (0, 0)
-        else:       # vjp: one forward with z; remat runs it again
-            expect = (0, per_pass * (2 if remat else 1))
+            expect = (0, 0, 0)
+        else:       # vjp: one forward with z, remat runs it again; one K6
+            expect = (0, per_pass * (2 if remat else 1), per_pass)
         runs[label] = remat_run(label, cfg, gen_sd, disc_sd, batches, draws,
                                 expect)
     for label, _, _, _, against in REMAT_RUNS:
@@ -3200,8 +3391,9 @@ def dp_config(name, batch, impl):
 
 def dp_setup(seed, runs=DP_RUNS):
     """name -> what a rank needs to run runs[name]: the seeded initial
-    state dicts, the global batches and draws (numpy), and the K1 counts a
-    step each rank must show (without z, with z)."""
+    state dicts, the global batches and draws (numpy), and the K1 and K6
+    counts a step each rank must show (K1 without z, K1 with z, K6: one a
+    cell step of the backward)."""
     setup = {}
     for name, batch, impl, tf_prob, cuts in runs:
         cfg = dp_config(name, batch, impl)
@@ -3220,7 +3412,7 @@ def dp_setup(seed, runs=DP_RUNS):
                 batches.append(tuple(bt[:4]) + (sv,))
             entry["draws"] = [None] * DP_STEPS
             per_pass = mc.T * len(mc.hidden_dims)
-            entry["expect"] = (0, per_pass if impl == "pallas" else 0)
+            entry["expect"] = (0,) + (per_pass if impl == "pallas" else 0,) * 2
         else:
             size = cfg.data.synthetic_image_size
             scan = mc.input_frames + mc.output_frames - 1
@@ -3241,7 +3433,7 @@ def dp_setup(seed, runs=DP_RUNS):
             detached = (mc.family == "gan"
                         and cfg.training.gan_step_impl == "default")
             entry["expect"] = (per_pass * (k1 and detached),
-                               per_pass * k1)
+                               per_pass * k1, per_pass * k1)
         entry["batches"] = batches
         entry["dtype"] = cfg.precision.compute_dtype
         setup[name] = entry
@@ -3336,7 +3528,7 @@ def dp_drive(entry, group, rank=0, world=1):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts.append((convlstm_cell_fwd.launches,
-                       convlstm_cell_fwd.launches_z))
+                       convlstm_cell_fwd.launches_z, cell_backward.launches))
     params = [p.detach().cpu() for m in modules for p in m.parameters()]
     return dict(grads=grads, grad_norms=grad_norms, metrics=metrics,
                 counts=counts, step_ms=times, params=params)
@@ -3419,15 +3611,16 @@ def dp_launch(work, backend, world, names):
 def dp_compare(name, entry, ranks, ref, label):
     """The ranks' records against the single-process record: params
     identical across the ranks, the same metrics on every rank, exact K1
-    counts a step on every rank, and the DP run against one process:
+    and K6 counts a step on every rank, and the DP run against one process:
     per-step losses and params after the steps within TRAIN_TOL, the
     step-1 gradients within dp_grad_tol."""
     dtype_name = entry["dtype"]
     for r, rec in enumerate(ranks):
         if rec["counts"] != [tuple(entry["expect"])] * len(rec["counts"]):
-            raise AssertionError(f"dp {label} {name} rank {r}: K1 launches "
-                                 f"(without z, with z) {rec['counts']}, "
-                                 f"expected {tuple(entry['expect'])} a step")
+            raise AssertionError(f"dp {label} {name} rank {r}: launches "
+                                 f"(K1 without z, K1 with z, K6) "
+                                 f"{rec['counts']}, expected "
+                                 f"{tuple(entry['expect'])} a step")
         if any(m["skipped"] for m in rec["metrics"]):
             raise AssertionError(f"dp {label} {name} rank {r} skipped")
     for rec in ranks[1:]:
@@ -3485,7 +3678,10 @@ def phase_dp(seed):
                 f"depth: {DP_STEPS} steps"],
             launches_per_step_per_rank={
                 "convlstm_cell_fwd": entry["expect"][0],
-                "convlstm_cell_fwd_save_z": entry["expect"][1]},
+                "convlstm_cell_fwd_save_z": entry["expect"][1],
+                "cell_backward": K6_BY_PATH.setdefault(
+                    f"dp_gloo_{name}_per_step_per_rank.{entry['dtype']}",
+                    ranks[0][name]["counts"][0][2])},
             errors=errs, tol=tol,
             losses_dp=[{k: v for k, v in m.items() if k != "skipped"}
                        for m in ranks[0][name]["metrics"]],
@@ -3495,6 +3691,8 @@ def phase_dp(seed):
             **runs[name])
     errs, tol = dp_compare(DP_NCCL_RUN, nccl_setup, [nccl[0][DP_NCCL_RUN]],
                            refs[DP_NCCL_RUN], "nccl")
+    K6_BY_PATH[f"dp_nccl_{DP_NCCL_RUN}_per_step.{nccl_setup['dtype']}"] = \
+        nccl[0][DP_NCCL_RUN]["counts"][0][2]
     exact = all(torch.equal(a, b) for a, b in zip(
         nccl[0][DP_NCCL_RUN]["params"], refs[DP_NCCL_RUN]["params"]))
     rec = dict(world=DP_WORLD, backend="gloo", steps=DP_STEPS, runs=runs,
@@ -3720,6 +3918,7 @@ def tp_drive(entry, group, pos, count=None):
         counts.append(dict(
             convlstm_cell_fwd=convlstm_cell_fwd.launches,
             convlstm_cell_fwd_save_z=convlstm_cell_fwd.launches_z,
+            cell_backward=cell_backward.launches,
             gather_h=tpc.gather_h.calls, copy_in=tpc.copy_in.calls,
             all_reduce=None if count is None else count["n"]))
         if i == 0:
@@ -3833,7 +4032,7 @@ def tp_compare(label, entry, ranks, ref):
     process, and the failures (the caller raises after recording them)."""
     dtype_name = entry["dtype"]
     want = dict(convlstm_cell_fwd=0, convlstm_cell_fwd_save_z=0,
-                **entry["expect"])
+                cell_backward=0, **entry["expect"])
     for r, rec in enumerate(ranks):
         if rec["counts"] != [want] * TP_STEPS:
             raise AssertionError(f"tp {label} rank {r}: counts "
@@ -3922,7 +4121,9 @@ def tp_serve_checkpoint(work):
     launches = expect_rollout("tp trainer: served on the kernels",
                               cfg.precision.compute_dtype,
                               len(cfg.model.hidden_dims), steps,
-                              cfg.model.output_frames)
+                              cfg.model.output_frames,
+                              path="tp_trainer_best_model_request."
+                              + cfg.precision.compute_dtype)
     return want, served, launches
 
 
@@ -4000,8 +4201,10 @@ def phase_tp(seed, backend="gloo", runs=TP_RUNS, layouts=None):
                 global_batch=entry["batch"], layout=out["layout"],
                 cuts=entry["cuts"] + [f"depth: {TP_STEPS} steps"],
                 collectives_per_step=entry["expect"],
-                launches_per_step_per_rank={"convlstm_cell_fwd": 0,
-                                            "convlstm_cell_fwd_save_z": 0},
+                launches_per_step_per_rank={
+                    "convlstm_cell_fwd": 0, "convlstm_cell_fwd_save_z": 0,
+                    "cell_backward": ranks[0][label]["counts"][0][
+                        "cell_backward"]},
                 errors=errs, tol=tol, unchanged_init_reads=init_reads,
                 worst_param_element=worst,
                 peak_gb_per_rank=[r[label]["peak_gb"] for r in ranks],
@@ -4157,7 +4360,7 @@ def k5_entry(k5, paths, streams, exports, precip, fit, trainer, tp):
 
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                    trainer, gans, gan_trainer, gens, gen_trainer, taps,
-                   remat, dp, tp, exports, int8, k5, precip, fit):
+                   remat, dp, tp, exports, int8, k5, precip, fit, cell_bwd):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
@@ -4205,6 +4408,8 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
     # the tp phase: K1 is refused under TP (the plain cell), 0 a step
     for label, r in tp["layouts"][TP_WORLD]["runs"].items():
         n = r["launches_per_step_per_rank"]
+        K6_BY_PATH[f"tp_{label}_step_per_rank.{r['dtype']}"] = \
+            n["cell_backward"]
         gan_k1[r["dtype"]][f"{label}_step_per_rank"] = n["convlstm_cell_fwd"]
         gan_k1z[r["dtype"]][f"{label}_step_per_rank"] = \
             n["convlstm_cell_fwd_save_z"]
@@ -4291,6 +4496,33 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             per_shape=[r for r in head[name] if "ms" in r]))
     entries.append(k5_entry(k5, paths, streams, exports, precip, fit, trainer,
                             tp))
+    # K6 by dtype: bf16 timed at the nowcast train step's mix of cells
+    # (cell 1: Cx 1; cells 2-3: Cx 64), float32 at the Generator's two cells
+    # (one launch each a time step); launches as expect_counts read them
+    for name in ("bfloat16", "float32"):
+        timed = [r for r in cell_bwd if "ms" in r and r["dtype"] == name]
+        wts = weights if name == "bfloat16" else [1] * len(timed)
+        kmix = lambda key: sum(w * r[key] for w, r in zip(wts, timed)) / sum(wts)
+        per_step = ("train_per_step" if name == "bfloat16"
+                    else "generator_train_step")
+        entries.append(dict(
+            name="cell_backward", dtype=name, route="cuda", source=K6_SOURCE,
+            replaces=K6_REPLACES, stands_for=[K6_REPLACES],
+            measured_at=("nowcast_128 train step cells, B 4, 128^2"
+                         if name == "bfloat16" else
+                         "the Generator's cells (16, 16), (16, 32), B 8, 16^2"),
+            launches=K6_BY_PATH[f"{per_step}.{name}"],
+            launches_by_path={p.rsplit(".", 1)[0]: n
+                              for p, n in K6_BY_PATH.items()
+                              if p.rsplit(".", 1)[1] == name},
+            err_over_tol=max(max(r["err_over_tol"].values())
+                             for r in cell_bwd if r["dtype"] == name),
+            ms=kmix("ms"), plain_ms=kmix("plain_ms"),
+            bound_ms=kmix("bound_ms"), bound_by=timed[0]["bound_by"],
+            library_ms=None, host_us=kmix("host_us"),
+            wrapper_host_us=kmix("wrapper_host_us"),
+            plain_host_us=kmix("plain_host_us"),
+            per_shape=[r for r in cell_bwd if r["dtype"] == name]))
     for name, source, replaces, stands_for in (
             ("tap_loop", K3_SOURCE, K3_REPLACES, K3_STANDS_FOR),
             ("tap_k1152", K4_SOURCE, K4_REPLACES, K4_STANDS_FOR)):
@@ -4374,6 +4606,13 @@ def main() -> int:
     head = phase_head(gen, head_shapes, dtypes)
     cell_z = phase_cell_save_z(gen, cell_shapes,
                                (b, size, size, hidden[0], hidden[1], 3))
+    # K6 at the nowcast cells and the Generator's (timed) and a scalar Ch
+    cell_bwd = phase_cell_backward(
+        gen, [(b, size, size, cx, ch, torch.bfloat16, True)
+              for cx, ch in nowcast]
+        + [(bb, hh, ww, cx, ch, torch.float32, True)
+           for bb, hh, ww, cx, ch, _, _ in gen_cells]
+        + [(2, 13, 21, 3, 20, torch.float32, False)])
 
     rng = np.random.default_rng(SEED)
     requests = [torch.from_numpy(rng.random(
@@ -4418,7 +4657,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
         gans, gan_trainer, gens, gen_trainer, taps, remat, dp, tp,
-        exports, int8, k5, precip, fit)}), flush=True)
+        exports, int8, k5, precip, fit, cell_bwd)}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

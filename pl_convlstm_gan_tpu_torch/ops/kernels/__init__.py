@@ -2,7 +2,8 @@
 
 - ``convlstm_kernel``: K1, the fused ConvLSTM cell step (csrc/convlstm_cell.cu),
   with or without the pre-activation z, and ``ConvLSTMCellFn``, the training
-  step with its hand-written backward
+  step with its hand-written backward, whose gate algebra is K6
+  (csrc/cell_backward.cu)
 - ``rollout_kernel``: K2, the conv head (csrc/conv_head.cu); K5, the whole
   bfloat16 rollout in one cooperative launch (csrc/rollout_persistent.cu);
   the rollout's phase table; and the free-running rollouts (cold, and warm

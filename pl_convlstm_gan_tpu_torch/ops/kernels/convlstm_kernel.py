@@ -15,13 +15,17 @@ aten's count), the kernels' weight layouts ``pack_cell_weight`` (bfloat16) and
 ``pack_cell_weight_f32`` (float32), made once per predictor, stream or
 training forward pass, ``cell_kernel_misfit`` (the shapes K1 does not take,
 each rule stated once) and ``ConvLSTMCellFn``, the training step as a
-``torch.autograd.Function``.
+``torch.autograd.Function``, whose gate backward is K6
+(``csrc/cell_backward.cu``): its wrapper ``cell_backward``, its plain
+version ``cell_backward_plain`` and its launch count
+(``cell_backward.launches``).
 
-On CUDA tensors the wrapper launches the kernel or raises; it takes the plain
-version only for tensors on the CPU.
+On CUDA tensors the wrappers launch their kernel or raise; they take the
+plain version only for tensors on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -36,6 +40,11 @@ _I = ctypes.c_int
 _ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
 _SYMBOLS = {torch.float32: "convlstm_cell_fwd_f32",
             torch.bfloat16: "convlstm_cell_fwd_bf16"}
+_BWD_ARGTYPES = [_P] * 13 + [ctypes.c_longlong, _I, _I, _I, _P]
+_BWD_SYMBOLS = {torch.float32: "cell_backward_f32",
+                torch.bfloat16: "cell_backward_bf16"}
+# K6's grid cap, blocks an SM: its partial sums of db have that many rows
+_BWD_BLOCKS_PER_SM = 2
 BK = 64                 # k-block of the bfloat16 kernel: 64 input channels
 _SMEM_LIMIT = 232448    # shared memory one Hopper block may use (227 KB)
 _STAGE_BYTES = 128 * BK * 2 + 256 * BK * 2   # A tile + B tile of one k-block
@@ -315,6 +324,148 @@ convlstm_cell_fwd.launches_z = 0
 convlstm_cell_fwd.flops = 0
 
 
+def cell_backward_plain(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
+    """Plain PyTorch version of K6 with the same arguments and outputs: the
+    gate algebra of the JAX package's ``_bwd`` as eager ops in float32.
+    z [B,H,W,4Ch] (gate-major i|f|o|g, as K1 writes it), c, c' (``c_next``),
+    dh', dc' and h [B,H,W,Ch], x [B,H,W,Cx]. Returns (dz [B,H,W,4Ch] float32,
+    dc_prev in c's dtype, xh = concat(x, h) [B,H,W,Cx+Ch] float32, db [4Ch]
+    in ``db_dtype``): dc_prev and db are rounded once, at the end."""
+    i, f, o, g = torch.chunk(z.float(), 4, dim=-1)
+    i, f, o, g = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o), \
+        torch.tanh(g)
+    tc = torch.tanh(c_next.float())
+    dh = dh_next.float()
+    dc_tot = dc_next.float() + dh * o * (1.0 - tc * tc)
+    do = dh * tc
+    df = dc_tot * c.float()
+    dc_prev = dc_tot * f
+    di = dc_tot * g
+    dg = dc_tot * i
+    dz = torch.cat([di * i * (1 - i), df * f * (1 - f), do * o * (1 - o),
+                    dg * (1 - g * g)], dim=-1)
+    xh = torch.cat([x, h], dim=-1).float()
+    db = dz.sum(dim=(0, 1, 2)).to(db_dtype)
+    return dz, dc_prev.to(c.dtype), xh, db
+
+
+def _check_backward_args(z, c, c_next, dh_next, dc_next, x, h, db_dtype,
+                         one_dtype=True):
+    """Raise ValueError on operands K6 does not take: shapes always (x
+    [B,H,W,Cx], z [B,H,W,4Ch], the rest [B,H,W,Ch]); with ``one_dtype``
+    (the card's rule) also a dtype other than float32 / bfloat16 or shared
+    by all operands and ``db_dtype``, and residuals that are not
+    contiguous. The incoming gradients may be strided: the wrapper makes
+    them contiguous. Written as plain comparisons: the host runs it for
+    every call of a train step."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, Cx], got {tuple(x.shape)}")
+    b, hgt, wid, _ = x.shape
+    ch = c.shape[-1]
+    s = (b, hgt, wid, ch)
+    for name, t, shape in (("z", z, (b, hgt, wid, 4 * ch)), ("c", c, s),
+                           ("c_next", c_next, s), ("dh_next", dh_next, s),
+                           ("dc_next", dc_next, s), ("h", h, s)):
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if not one_dtype:
+        return
+    dt = z.dtype
+    if dt not in _BWD_SYMBOLS:
+        raise ValueError(f"the cell backward takes float32 or bfloat16, got "
+                         f"{dt}")
+    if not (c.dtype == c_next.dtype == dh_next.dtype == dc_next.dtype
+            == x.dtype == h.dtype == db_dtype == dt):
+        raise ValueError("the cell backward's operands and db must share one "
+                         "dtype, got " + str(sorted(
+                             {str(t.dtype) for t in (z, c, c_next, dh_next,
+                                                     dc_next, x, h)}
+                             | {str(db_dtype)})))
+    if not (z.is_contiguous() and c.is_contiguous() and c_next.is_contiguous()
+            and x.is_contiguous() and h.is_contiguous()):
+        raise ValueError("the cell backward's residuals must be contiguous")
+
+
+# per (device index, stream): the last-block counter (zero between
+# launches: K6's last block resets it), the float32 buffer of partial sums
+# and the grid's cap, used in turn by K6's launches on that stream
+_bwd_workspace: dict = {}
+
+
+def _workspace(device, stream, cols: int):
+    """(counter, partials, max_blocks) for a K6 launch of ``cols`` = 4Ch
+    columns on ``stream``: partials holds max_blocks rows of them."""
+    ws = _bwd_workspace.get((device.index, stream))
+    if ws is None or ws[1].numel() < ws[2] * cols:
+        blocks = _BWD_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+            device).multi_processor_count
+        counter = ws[0] if ws is not None else torch.zeros(
+            1, dtype=torch.int32, device=device)
+        ws = _bwd_workspace[(device.index, stream)] = (
+            counter, torch.empty(blocks * cols, dtype=torch.float32,
+                                 device=device), blocks)
+    return ws
+
+
+def cell_backward(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
+    """K6: the cell's gate backward in one launch; ``cell_backward_plain``
+    states what it computes and returns (dz, dc_prev, xh, db). On CPU
+    tensors it runs that plain version (which also takes mixed dtypes); on
+    CUDA tensors it launches the kernel or raises: every operand one dtype
+    (float32 or bfloat16, db's too), one device. Each launch counts in
+    ``cell_backward.launches``."""
+    tensors = (z, c, c_next, dh_next, dc_next, x, h)
+    dev = z.device
+    if dev.type == "cpu" and all(t.device.type == "cpu" for t in tensors):
+        _check_backward_args(*tensors, db_dtype, one_dtype=False)
+        return cell_backward_plain(*tensors, db_dtype)
+    _check_backward_args(*tensors, db_dtype)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("the cell backward's operands must all lie on one "
+                         "CUDA device")
+    if not dh_next.is_contiguous():
+        dh_next = dh_next.contiguous()
+    if not dc_next.is_contiguous():
+        dc_next = dc_next.contiguous()
+    return _launch_cell_backward(z, c, c_next, dh_next, dc_next, x, h,
+                                 db_dtype)
+
+
+def _launch_cell_backward(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
+    """K6's launch on operands that meet ``cell_backward``'s rules and are
+    contiguous, without testing them again: what ``ConvLSTMCellFn.backward``
+    holds on the card (its residuals passed K1's checks in the forward, and
+    autograd hands it gradients of h' and c' in their shapes and dtype).
+    Each output is an allocation of its own: on the H100's host one
+    ``torch.empty`` takes ~2 µs, two views of a shared buffer ~6 µs."""
+    b, hgt, wid, cx = x.shape
+    ch = c.shape[-1]
+    dev = z.device
+    dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    xh = torch.empty((b, hgt, wid, cx + ch), dtype=torch.float32, device=dev)
+    dc_prev = torch.empty_like(c)
+    db = torch.empty(4 * ch, dtype=db_dtype, device=dev)
+    fn = build.load_function("cell_backward", _BWD_SYMBOLS[z.dtype],
+                             _BWD_ARGTYPES)
+    # the launch goes to the current device (autograd's thread for dev has
+    # it current already); the stream's handle without a Stream object
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        counter, partials, blocks = _workspace(dev, stream, 4 * ch)
+        err = fn(z.data_ptr(), c.data_ptr(), c_next.data_ptr(),
+                 dh_next.data_ptr(), dc_next.data_ptr(), x.data_ptr(),
+                 h.data_ptr(), dz.data_ptr(), dc_prev.data_ptr(),
+                 xh.data_ptr(), db.data_ptr(), partials.data_ptr(),
+                 counter.data_ptr(), b * hgt * wid, cx, ch, blocks, stream)
+    build.check(err, "cell_backward", "cell_backward launch")
+    cell_backward.launches += 1
+    return dz, dc_prev, xh, db
+
+
+cell_backward.launches = 0
+
+
 class ConvLSTMCellFn(torch.autograd.Function):
     """One training cell step: forward on K1 with ``z`` (save_z=True), the
     hand-written backward of the JAX package's ``convlstm_step_pallas_core``
@@ -326,17 +477,22 @@ class ConvLSTMCellFn(torch.autograd.Function):
     non-differentiable ``kernel_pack(weight, x.dtype)``, made by the caller
     once per forward pass, while ``weight`` itself, which may be a view, is
     kept for the backward); on CPU tensors it runs K1's plain version, which also
-    takes mixed dtypes, and the backward is the same code either way.
+    takes mixed dtypes.
 
     The residuals are those of ``_fwd``: (weight, bias, x, h, c, z, c'). The
-    backward recomputes the gates from the stored z in float32 and tanh from
-    the stored c', builds dz, and runs both convs in float32 on float32 dz
-    and a float32 copy of the weight (cuDNN on the card): the input gradient
-    as a SAME conv with the spatially flipped, in/out-swapped kernel, the
-    weight gradient as the patch correlation, both by aten's
-    ``convolution_backward``. Each gradient is cast to its primal's dtype
-    only at the end. The forward allocates fresh h', c' and
-    z: c is a residual here, so it is never updated in place."""
+    backward's gate algebra is K6 (on CPU tensors its plain version; on the
+    card the launch behind ``cell_backward``, without its checks, which K1's
+    forward made of the residuals): one launch reads z, c, c', dh', dc', x
+    and h and writes dz [B,H,W,4Ch] in float32 (the gates recomputed from
+    the stored z in float32, tanh from the stored c'), dc_prev in c's dtype,
+    xh = concat(x, h) in float32, and db in the bias's dtype. Both convs then run
+    in float32 on that dz and xh and a float32 copy of the weight (cuDNN on
+    the card): the input gradient as a SAME conv with the spatially
+    flipped, in/out-swapped kernel, the weight gradient as the patch
+    correlation, both by aten's ``convolution_backward``. dx, dh_prev and dw
+    are cast to their primals' dtypes only at the end. The forward
+    allocates fresh h', c' and z: c is a residual here, so it is never
+    updated in place."""
 
     @staticmethod
     def forward(ctx, weight, bias, x, h, c, packed=None):
@@ -356,20 +512,16 @@ class ConvLSTMCellFn(torch.autograd.Function):
         weight, bias, x, h, c, z, c_next = ctx.saved_tensors
         cx = x.shape[-1]
         k = weight.shape[0]
-
-        i, f, o, g = torch.chunk(z.float(), 4, dim=-1)
-        i, f, o, g = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o), \
-            torch.tanh(g)
-        tc = torch.tanh(c_next.float())
-        dh = dh_next.float()
-        dc_tot = dc_next.float() + dh * o * (1.0 - tc * tc)
-        do = dh * tc
-        df = dc_tot * c.float()
-        dc_prev = dc_tot * f
-        di = dc_tot * g
-        dg = dc_tot * i
-        dz = torch.cat([di * i * (1 - i), df * f * (1 - f), do * o * (1 - o),
-                        dg * (1 - g * g)], dim=-1).permute(0, 3, 1, 2)
+        if z.device.type == "cuda":
+            if not dh_next.is_contiguous():
+                dh_next = dh_next.contiguous()
+            if not dc_next.is_contiguous():
+                dc_next = dc_next.contiguous()
+            dz, dc_prev, xh, db = _launch_cell_backward(
+                z, c, c_next, dh_next, dc_next, x, h, bias.dtype)
+        else:
+            dz, dc_prev, xh, db = cell_backward_plain(
+                z, c, c_next, dh_next, dc_next, x, h, bias.dtype)
 
         # Both convs in one call of aten's convolution_backward (the op of
         # autograd's conv backward and of torch.nn.grad): cuDNN's dgrad is
@@ -381,11 +533,11 @@ class ConvLSTMCellFn(torch.autograd.Function):
         # step took ~14 s on an H100.
         need_dxh = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
         need_dw = ctx.needs_input_grad[0]
-        xh = torch.cat([x, h], dim=-1).float().permute(0, 3, 1, 2)
         w32 = oihw_from_hwio(weight).float().contiguous()  # [4Ch, Cin, K, K]
         dxh, dw, _ = torch.ops.aten.convolution_backward(
-            dz, xh, w32, None, (1, 1), (k // 2, k // 2), (1, 1), False,
-            (0, 0), 1, (need_dxh, need_dw, False))
+            dz.permute(0, 3, 1, 2), xh.permute(0, 3, 1, 2), w32, None,
+            (1, 1), (k // 2, k // 2), (1, 1), False, (0, 0), 1,
+            (need_dxh, need_dw, False))
         dx = dh_prev = None
         if need_dxh:
             dxh = dxh.permute(0, 2, 3, 1)
@@ -393,5 +545,4 @@ class ConvLSTMCellFn(torch.autograd.Function):
             dh_prev = dxh[..., cx:].to(h.dtype)
         if need_dw:
             dw = dw.permute(2, 3, 1, 0).to(weight.dtype)  # OIHW -> HWIO
-        db = dz.sum(dim=(0, 2, 3)).to(bias.dtype)
-        return dw, db, dx, dh_prev, dc_prev.to(c.dtype), None
+        return dw, db, dx, dh_prev, dc_prev, None

@@ -36,7 +36,7 @@ the work happens.
   each span is also a ``record_function`` range, so that the profiler's
   trace shows it.
 - ``counters()``: every counter of the program in one dict: the kernel
-  wrappers' launches and operations (K1, K2, K5, K3/K4), the collectives
+  wrappers' launches and operations (K1, K6, K2, K5, K3/K4), the collectives
   of tensor parallelism and ``host_syncs`` (``host_sync``). Counters count
   whether tracing is on or not.
 """
@@ -501,7 +501,8 @@ _COUNTERS: List[Tuple[str, Any, str]] = []
 def _counter_sources() -> List[Tuple[str, Any, str]]:
     """(key, object, attribute) of each counter, found once."""
     if not _COUNTERS:
-        from ..ops.kernels.convlstm_kernel import convlstm_cell_fwd
+        from ..ops.kernels.convlstm_kernel import (cell_backward,
+                                                   convlstm_cell_fwd)
         from ..ops.kernels.rollout_kernel import (conv_head_fwd,
                                                   rollout_persistent_fwd)
         from ..ops.kernels.tap_structure_kernel import tap_k1152, tap_loop
@@ -510,7 +511,8 @@ def _counter_sources() -> List[Tuple[str, Any, str]]:
             (f"{fn.__name__}.{attr}", fn, attr) for fn, attr in (
                 (convlstm_cell_fwd, "launches"),
                 (convlstm_cell_fwd, "launches_z"),
-                (convlstm_cell_fwd, "flops"), (conv_head_fwd, "launches"),
+                (convlstm_cell_fwd, "flops"), (cell_backward, "launches"),
+                (conv_head_fwd, "launches"),
                 (rollout_persistent_fwd, "launches"),
                 (rollout_persistent_fwd, "flops"), (tap_loop, "launches"),
                 (tap_k1152, "launches"), (gather_h, "calls"),
@@ -525,7 +527,8 @@ def _snapshot() -> list:
 
 def counters() -> Dict[str, int]:
     """Every counter of the program, by ``<function>.<attribute>``: K1's
-    launches (with z apart) and operations, K2's launches, K5's launches
+    launches (with z apart) and operations, K6's launches (the cell's gate
+    backward), K2's launches, K5's launches
     and operations, K3's and K4's launches, the tensor-parallel
     collectives' calls, and ``host_syncs``. One snapshot; the counters
     only rise, except where a caller resets them."""

@@ -287,7 +287,8 @@ def test_counters_hold_every_counter():
     got = profiling.counters()
     assert set(got) == {
         "convlstm_cell_fwd.launches", "convlstm_cell_fwd.launches_z",
-        "convlstm_cell_fwd.flops", "conv_head_fwd.launches",
+        "convlstm_cell_fwd.flops", "cell_backward.launches",
+        "conv_head_fwd.launches",
         "rollout_persistent_fwd.launches", "rollout_persistent_fwd.flops",
         "tap_loop.launches", "tap_k1152.launches", "gather_h.calls",
         "copy_in.calls", "host_syncs"}
