@@ -210,6 +210,19 @@ own line:
    and the work-done guard (the 56 extra repetitions take at least their
    FLOPs at the bf16 peak; no rate above 1.05x the peak), with the
    steady-state TFLOP/s of that slope;
+8b. st_gates: K7, the ST-LSTM cell's gate passes (A and B, forward and
+   backward, some gradients absent), against their plain versions at
+   PredRNN-V2's KTH width (B 8 x 32^2 pixels, F 128) in bf16 and float32
+   and at a scalar width; the KTH shapes timed in turns (queued_ms)
+   beside K7's byte bound, with the wrapper's host time;
+9a. predrnn: PredRNN-V2 at its KTH widths (4 x 128, 5x5, patch 4, 128^2,
+   10 -> 20 frames, B 8, bf16, masks at p 0.5): a train step's loss and
+   gradients on K7 against the same step on K7's plain versions from one
+   state (PREDRNN_TOL), six train steps timed (304 K7 launches each, no
+   K1/K2/K5/K6; from the third on, replays of the CUDA graphs the second
+   captured), a profile of one, and a request of 10 frames through
+   load_predictor (152 K7 launches) against the plain versions'; K7 reads
+   0 on every ConvLSTM phase (expect_counts);
 19. one JSON line {"kernels": [...]} with each kernel's launches (per path,
    K5's among them; K1's and K2's bf16 launches those of the host loop a
    model K5 refuses keeps,
@@ -227,6 +240,7 @@ On four GPUs: ``--tp-nccl`` runs phase 17 over NCCL, one rank a GPU;
 ``--dp-nccl`` runs phase 16's NCCL run (nowcast_128_pallas, global batch 4)
 at world 2 and 4, one rank a GPU, against one process.
 """
+import contextlib
 import functools
 import itertools
 import json
@@ -256,10 +270,14 @@ from pl_convlstm_gan_tpu_torch.ops.kernels import rollout_kernel as head_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
     ConvLSTMCellFn, cell_backward, cell_backward_plain, convlstm_cell_fwd,
     convlstm_cell_plain, kernel_pack)
+from pl_convlstm_gan_tpu_torch.ops.kernels import st_gates_kernel as k7_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels import tap_structure_kernel as tap_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain, persistent_misfit, rollout_persistent_fwd,
     rollout_schedule)
+from pl_convlstm_gan_tpu_torch.ops.kernels.st_gates_kernel import (
+    st_gates, st_gates_bwd_plain, st_gates_plain, st_hidden_bwd_plain,
+    st_hidden_plain)
 from pl_convlstm_gan_tpu_torch.ops.kernels.tap_structure_kernel import (
     big_plain, tap_k1152, tap_loop, taps_plain)
 from pl_convlstm_gan_tpu_torch.ops.nn import oihw_from_hwio
@@ -348,6 +366,30 @@ K6_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/cell_backward.cu"
 K6_REPLACES = ("none: XLA's fusion of _bwd's gate algebra, "
                "pl_convlstm_gan_tpu/ops/pallas/convlstm_kernel.py:336-385")
 K6_TOL = {"dz": 2.0 ** -20, "dc_prev_bf16": 2.0 ** -7, "db": 2.0 ** -15}
+# K7 (csrc/st_lstm_gates.cu) against its plain versions on the same CUDA
+# tensors (tests/test_torch_st_gates.py states the reasons): 2^-18 of the
+# largest magnitude (float32 ulps of the same operations in the same order,
+# expf / tanhf of two builds), plus one bf16 ulp (2^-7 relative) where the
+# result is rounded to bf16
+K7_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/st_lstm_gates.cu"
+K7_REPLACES = ("none: the JAX package has no PredRNN; the ST-LSTM cell's "
+               "gate algebra (models/predrnn.py), ~75 eager launches a "
+               "cell-step forward and backward")
+K7_TOL = {"max": 2.0 ** -18, "bf16": 2.0 ** -7}
+# PredRNN-V2 at its KTH widths (bench_cuda/configs/predrnn_v2_kth_bf16.json)
+PREDRNN_MODEL = {"family": "predrnn", "hidden_dims": [128] * 4,
+                 "kernel_size": 5, "patch_size": 4, "in_channels": 1,
+                 "input_frames": 10, "output_frames": 10,
+                 "decouple_beta": 0.1}
+PREDRNN_B, PREDRNN_SIZE = 8, 128
+# the K7 path against the same model with K7's plain versions on the card,
+# bf16, from one state: both round at the same sites, and differ by a bf16
+# ulp where expf / tanhf of two builds straddle a rounding point; the
+# recurrence carries such ulps through 19 steps and 4 layers, and the
+# decoupling term's |cos| flips the sign of a pair's gradient where its
+# cosine lies within such a change of zero, so the gradients are compared
+# by the norm of their difference over all parameters
+PREDRNN_TOL = {"loss": 1e-3, "request": 2e-2, "grad": 5e-2}
 TRAIN_STEPS = {"bfloat16": 5, "float32": 2}
 # kernel path (K1 + ConvLSTMCellFn) against the plain path (autograd through
 # convlstm_step_torch) from one state, same batches:
@@ -1283,10 +1325,222 @@ def profile_request(predict, frames, phase="profile"):
     return rec
 
 
+def st_gates_bytes(kind, px, fw, dtype):
+    """K7's bytes of one launch with every operand present, each read or
+    written once at its dtype (oxh and its gradient float32): the a_fwd
+    pass 16F read and 4F written (mem = c' | m', dc, dm; c' and m' written
+    again apart are not counted), a_bwd 14F + 6F gradients read and 16F
+    written, b_fwd 2F + oxh read and h' written, b_bwd 3F + oxh read and
+    2F + d_oxh written (bench_cuda/flops_predrnn.py keeps the same count)."""
+    e = torch.empty((), dtype=dtype).element_size()
+    per = {"a_fwd": 20 * e + 4, "b_fwd": 3 * e + 4, "a_bwd": 36 * e + 4,
+           "b_bwd": 5 * e + 8}[kind]
+    return px * fw * per
+
+
+def k7_err(got, want):
+    """The largest error of K7's output over its bound (K7_TOL; <= 1
+    passes)."""
+    w = want.float()
+    bound = K7_TOL["max"] * w.abs().max()
+    if want.dtype == torch.bfloat16:
+        bound = bound + K7_TOL["bf16"] * w.abs()
+    return float(((got.float() - w).abs() / bound.clamp_min(1e-30)).max())
+
+
+def phase_st_gates(gen, shapes):
+    """K7 against its plain versions (passes A and B, forward and backward,
+    with some gradients absent) at each shape (pixels, F, dtype, timed);
+    the timed shapes also in turns (K7, plain, plain, K7; device time by
+    queued_ms: back to back, so operands that fit the 50 MB L2 stay there,
+    which a train step's other work would evict) beside K7's byte bound,
+    with the host's time a call of the wrapper. Returns the records."""
+    recs = []
+    for px, fw, dtype, timed in shapes:
+        name = str(dtype).split(".")[-1]
+
+        def draw(width, scale=1.0, dt=dtype):
+            return (torch.randn((px, width), device=DEVICE, generator=gen)
+                    * scale).to(dt)
+        ops = (draw(7 * fw, 2.0), draw(4 * fw, 2.0), draw(3 * fw, 2.0),
+               draw(fw), draw(fw))
+        grads = (draw(2 * fw), draw(fw), draw(fw), draw(fw), draw(fw),
+                 draw(fw, dt=torch.float32))
+        oxh, om, last, gh = (draw(fw, 2.0, torch.float32), draw(fw, 2.0),
+                             draw(fw, 2.0), draw(fw))
+        calls = {
+            "a_fwd": (lambda: k7_mod.st_gates_fwd(*ops),
+                      lambda: st_gates_plain(*ops)),
+            "a_bwd": (lambda: k7_mod.st_gates_bwd(*ops, *grads),
+                      lambda: st_gates_bwd_plain(*ops, *grads)),
+            "a_bwd_some_absent": (
+                lambda: k7_mod.st_gates_bwd(*ops, None, grads[1], None, None,
+                                            grads[4], None, need_c=False),
+                lambda: st_gates_bwd_plain(*ops, None, grads[1], None, None,
+                                           grads[4])),
+            "b_fwd": (lambda: (k7_mod.st_hidden_fwd(oxh, om, last),),
+                      lambda: (st_hidden_plain(oxh, om, last),)),
+            "b_bwd": (lambda: k7_mod.st_hidden_bwd(gh, oxh, om, last),
+                      lambda: st_hidden_bwd_plain(gh, oxh, om, last))}
+        reset_counts()
+        errs = {}
+        for key, (k7_fn, plain_fn) in calls.items():
+            got, want = k7_fn(), plain_fn()
+            errs[key] = max(k7_err(g, w) for g, w in zip(got, want)
+                            if g is not None)
+        if st_gates.launches != len(calls):
+            raise AssertionError(f"K7 {name}: {st_gates.launches} launches "
+                                 f"for {len(calls)} calls")
+        rec = dict(pixels=px, hidden=fw, dtype=name, err_over_tol=errs)
+        if timed:
+            for kind in ("a_fwd", "a_bwd", "b_fwd", "b_bwd"):
+                k7_fn, plain_fn = calls[kind]
+                times = {"ms": [], "plain_ms": []}
+                for key in ("ms", "plain_ms", "plain_ms", "ms"):
+                    times[key].append(queued_ms(
+                        k7_fn if key == "ms" else plain_fn, 20))
+                nbytes = st_gates_bytes(kind, px, fw, dtype)
+                bound_ms, by = bound(0, nbytes, name)
+                ms = statistics.mean(times["ms"])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    k7_fn()
+                host_us = (time.perf_counter() - t0) / 50 * 1e6
+                torch.cuda.synchronize()
+                rec[kind] = dict(ms=ms, plain_ms=statistics.mean(
+                    times["plain_ms"]), bytes=nbytes, bound_ms=bound_ms,
+                    bound_by=by, roofline=bound_ms / ms,
+                    wrapper_host_us=host_us)
+        say(phase="st_gates", tol=K7_TOL, **rec)
+        if not all(v <= 1.0 for v in errs.values()):
+            raise AssertionError(f"K7 {name} {px}x{fw}: errors over "
+                                 f"tolerance {errs}")
+        recs.append(rec)
+    return recs
+
+
+def predrnn_config():
+    from pl_convlstm_gan_tpu_torch.config import Config
+    return Config.from_dict({
+        "model": dict(PREDRNN_MODEL),
+        "training": {"batch_size": PREDRNN_B, "learning_rate": 1e-4},
+        "precision": {"compute_dtype": "bfloat16"}})
+
+
+class k7_plain_on_card:
+    """Within: K7's wrappers run their plain versions on the card's
+    tensors (the path K7 replaces), with no launch counted."""
+
+    def __enter__(self):
+        def a_fwd(x_cat, h_cat, m_cat, c, m, deltas=True):
+            out = st_gates_plain(x_cat, h_cat, m_cat, c, m)
+            return out if deltas else out[:3] + (None, None, out[5])
+
+        def a_bwd(*args, need_c=True, need_m=True):
+            out = st_gates_bwd_plain(*args)
+            return out[:3] + (out[3] if need_c else None,
+                              out[4] if need_m else None)
+        self.saved = (k7_mod.st_gates_fwd, k7_mod.st_gates_bwd,
+                      k7_mod.st_hidden_fwd, k7_mod.st_hidden_bwd)
+        (k7_mod.st_gates_fwd, k7_mod.st_gates_bwd, k7_mod.st_hidden_fwd,
+         k7_mod.st_hidden_bwd) = (a_fwd, a_bwd, st_hidden_plain,
+                                  st_hidden_bwd_plain)
+        return self
+
+    def __exit__(self, *exc):
+        (k7_mod.st_gates_fwd, k7_mod.st_gates_bwd, k7_mod.st_hidden_fwd,
+         k7_mod.st_hidden_bwd) = self.saved
+        return False
+
+
+def phase_predrnn(tmp, seed):
+    """PredRNN-V2 at its KTH widths (B 8, 128^2 patched to 32^2 x 16, 4 x
+    128, 5x5, 10 -> 20 frames, bf16, masks at p 0.5): a train step's
+    gradients and loss on K7 against the same step with K7's plain versions
+    on the card, from one state; train steps timed (4 x 76 K7 launches a
+    step, no K1/K2/K5/K6; the third on replay the CUDA graphs the second
+    captured); a request of 10 frames through load_predictor
+    (2 x 76 K7 launches) against the plain versions' request; a profile of
+    one step. Returns the record."""
+    cfg = predrnn_config()
+    torch.manual_seed(seed)
+    model = build_model(cfg)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    ckpt = os.path.join(tmp, "predrnn_seed.pt")
+    torch.save(sd, ckpt)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    frames = torch.rand(PREDRNN_B, 20, 1, PREDRNN_SIZE, PREDRNN_SIZE,
+                        device=DEVICE, generator=g)
+    mask = torch.rand(18, PREDRNN_B, device=DEVICE, generator=g) < 0.5
+    batch = (frames[:, :10], frames[:, 10:])
+    per_step = 4 * len(PREDRNN_MODEL["hidden_dims"]) * 19
+
+    def grads_of(plain):
+        m = build_model(cfg)
+        m.load_state_dict(sd)
+        m.to(DEVICE).train()
+        reset_counts()
+        with (k7_plain_on_card() if plain else contextlib.nullcontext()):
+            loss, _ = forecaster_loss(m, *batch, mask)
+            loss.backward()
+        expect_counts(f"predrnn {'plain' if plain else 'K7'} gradients",
+                      0, 0, k7=0 if plain else per_step)
+        return float(loss.detach()), torch.cat([p.grad.flatten().float()
+                                       for p in m.parameters()])
+    (loss_k, g_k), (loss_p, g_p) = grads_of(False), grads_of(True)
+    errs = {"loss": abs(loss_k - loss_p) / abs(loss_p),
+            "grad": float((g_k - g_p).norm() / g_p.norm())}
+    del g_k, g_p
+
+    model.load_state_dict(sd)
+    model.to(DEVICE).train()
+    state = TrainState(model, make_optimizer(model))
+    times = []
+    for i in range(6):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = forecaster_train_step(state, batch, 1e-4, teacher_draws=mask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        expect_counts(f"predrnn train step {i}", 0, 0, k7=per_step)
+        if m["skipped"] or not np.isfinite(m["total"]):
+            raise AssertionError(f"predrnn train step {i}: {m}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile = profile_train_step(lambda: forecaster_train_step(
+        state, batch, 1e-4, teacher_draws=mask), phase="predrnn_profile")
+    del state, model
+    torch.cuda.empty_cache()
+
+    predict = load_predictor(cfg, ckpt)
+    reset_counts()
+    out = predict(frames[:, :10])
+    expect_counts("predrnn request", 0, 0, k7=per_step // 2)
+    with k7_plain_on_card():
+        want = predict(frames[:, :10])
+    errs["request"] = float((out - want).norm() / want.norm())
+    request_ms = p50_ms({"k7": lambda: predict(frames[:, :10])})["k7"][0]
+    rec = dict(widths=PREDRNN_MODEL, batch=PREDRNN_B, errors=errs,
+               tol=PREDRNN_TOL, losses=(loss_k, loss_p),
+               k7_per_step=per_step, k7_per_request=per_step // 2,
+               step_ms=times, step_p50_ms=statistics.median(times[2:]),
+               request_p50_ms=request_ms, peak_gib=peak,
+               out_shape=list(out.shape))
+    say(phase="predrnn", **rec)
+    for key, err in errs.items():
+        if not err <= PREDRNN_TOL[key]:
+            raise AssertionError(f"predrnn: {key} error {err:.3e} > "
+                                 f"{PREDRNN_TOL[key]}")
+    rec["profile"] = profile
+    return rec
+
+
 def reset_counts():
     convlstm_cell_fwd.launches = 0
     convlstm_cell_fwd.launches_z = 0
     cell_backward.launches = 0
+    st_gates.launches = 0
     conv_head_fwd.launches = 0
     rollout_persistent_fwd.launches = 0
     tap_loop.launches = 0
@@ -1298,22 +1552,25 @@ def reset_counts():
 K6_BY_PATH = {}
 
 
-def expect_counts(what, k1, k2, k1z=0, k5=0, k6=0, path=None):
-    """Raise unless K1 (without z), K2, K1 with z, K5 and K6 launched
-    exactly k1, k2, k1z, k5 and k6 times since the last reset_counts();
-    returns the counts of K1, K2, K5 and K6. With ``path`` the K6 count
-    read is kept in K6_BY_PATH[path]."""
+def expect_counts(what, k1, k2, k1z=0, k5=0, k6=0, path=None, k7=0):
+    """Raise unless K1 (without z), K2, K1 with z, K5, K6 and K7 launched
+    exactly k1, k2, k1z, k5, k6 and k7 times since the last reset_counts()
+    (K7, the ST-LSTM gate passes, 0 on every ConvLSTM path); returns the
+    counts of K1, K2, K5, K6 and K7. With ``path`` the K6 count read is
+    kept in K6_BY_PATH[path]."""
     got = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
            "conv_head_fwd": conv_head_fwd.launches,
            "rollout_persistent_fwd": rollout_persistent_fwd.launches,
-           "cell_backward": cell_backward.launches}
+           "cell_backward": cell_backward.launches,
+           "st_gates": st_gates.launches}
     if got != {"convlstm_cell_fwd": k1, "conv_head_fwd": k2,
-               "rollout_persistent_fwd": k5, "cell_backward": k6} or \
+               "rollout_persistent_fwd": k5, "cell_backward": k6,
+               "st_gates": k7} or \
             convlstm_cell_fwd.launches_z != k1z:
         raise AssertionError(f"{what}: launches {got}, with z "
                              f"{convlstm_cell_fwd.launches_z}; expected {k1} "
-                             f"K1, {k2} K2, {k1z} K1 with z, {k5} K5 and "
-                             f"{k6} K6")
+                             f"K1, {k2} K2, {k1z} K1 with z, {k5} K5, {k6} K6 "
+                             f"and {k7} K7")
     if path is not None:
         K6_BY_PATH[path] = got["cell_backward"]
     return got
@@ -1906,6 +2163,8 @@ def profile_train_step(step, phase="train_profile"):
     def group(key):
         if "convlstm_cell" in key:
             return "K1"
+        if "st_gates" in key:
+            return "K7"
         if any(m in key.lower() for m in conv_marks):
             return "cudnn_conv"
         return "elementwise_reduce_copy"
@@ -4360,7 +4619,8 @@ def k5_entry(k5, paths, streams, exports, precip, fit, trainer, tp):
 
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                    trainer, gans, gan_trainer, gens, gen_trainer, taps,
-                   remat, dp, tp, exports, int8, k5, precip, fit, cell_bwd):
+                   remat, dp, tp, exports, int8, k5, precip, fit, cell_bwd,
+                   k7, predrnn):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
@@ -4523,6 +4783,22 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             wrapper_host_us=kmix("wrapper_host_us"),
             plain_host_us=kmix("plain_host_us"),
             per_shape=[r for r in cell_bwd if r["dtype"] == name]))
+    for r in k7:
+        if "a_fwd" not in r:
+            continue
+        passes = {k: r[k] for k in ("a_fwd", "b_fwd", "a_bwd", "b_bwd")}
+        bf16 = r["dtype"] == "bfloat16"
+        entries.append(dict(
+            name="st_gates", dtype=r["dtype"], route="cuda", source=K7_SOURCE,
+            replaces=K7_REPLACES,
+            launches=predrnn["k7_per_step"] if bf16 else 0,
+            launches_by_path={"predrnn_train_step": predrnn["k7_per_step"],
+                              "predrnn_request": predrnn["k7_per_request"]}
+            if bf16 else {}, err_over_tol=r["err_over_tol"],
+            ms=sum(p["ms"] for p in passes.values()),
+            plain_ms=sum(p["plain_ms"] for p in passes.values()),
+            bound_ms=sum(p["bound_ms"] for p in passes.values()),
+            bound_by="bytes", library_ms=None, per_pass=passes))
     for name, source, replaces, stands_for in (
             ("tap_loop", K3_SOURCE, K3_REPLACES, K3_STANDS_FOR),
             ("tap_k1152", K4_SOURCE, K4_REPLACES, K4_STANDS_FOR)):
@@ -4613,6 +4889,10 @@ def main() -> int:
         + [(bb, hh, ww, cx, ch, torch.float32, True)
            for bb, hh, ww, cx, ch, _, _ in gen_cells]
         + [(2, 13, 21, 3, 20, torch.float32, False)])
+    # K7 at PredRNN-V2's KTH width (B 8 x 32^2 pixels, F 128) and a scalar F
+    k7 = phase_st_gates(gen, [(PREDRNN_B * 32 * 32, 128, torch.bfloat16, True),
+                              (PREDRNN_B * 32 * 32, 128, torch.float32, True),
+                              (2 * 13 * 21, 12, torch.bfloat16, False)])
 
     rng = np.random.default_rng(SEED)
     requests = [torch.from_numpy(rng.random(
@@ -4643,6 +4923,7 @@ def main() -> int:
         del int8_predict
         trains = {dtype_name: phase_train(dtype_name, SEED)
                   for dtype_name in ("bfloat16", "float32")}
+        predrnn = phase_predrnn(tmp, SEED)
         trainer = phase_trainer(tmp, requests[0])
         gans = [phase_gan(*run, seed=SEED) for run in GAN_RUNS]
         gan_trainer = phase_gan_trainer(tmp, SEED)
@@ -4657,7 +4938,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
         gans, gan_trainer, gens, gen_trainer, taps, remat, dp, tp,
-        exports, int8, k5, precip, fit, cell_bwd)}), flush=True)
+        exports, int8, k5, precip, fit, cell_bwd, k7, predrnn)}),
+        flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,

@@ -14,7 +14,9 @@ data-parallel and tensor-parallel training over ``torch.distributed``
 (launched by ``torchrun``), profiling and the offline tools, with
 hand-written CUDA kernels: the fused ConvLSTM cell step (which also writes
 the conv pre-activation for the custom backward in training), the conv
-head, and the tap-structure experiment's two contractions. Serving's kernel path is also registered as
+head, and the tap-structure experiment's two contractions. It also runs
+PredRNN-V2 (family ``predrnn``), whose gate passes are a hand-written
+kernel as well, beside a plain float32 reference (``reference``). Serving's kernel path is also registered as
 PyTorch ops, so that exported programs hold it.
 
 Layout
@@ -26,8 +28,9 @@ Layout
                with their plain versions, and serving's kernel path as
                registered ops (``export_ops``)
 - ``models``   ``Generator``, ``ConvLSTMForecaster``, the GAN's
-               ``Discriminator`` and their layers as ``nn.Module``s; the
-               int8 rollout (``quantized``)
+               ``Discriminator``, ``PredRNN`` and their layers as
+               ``nn.Module``s; the int8 rollout (``quantized``)
+- ``reference`` plain float32 references (``predrnn``: thuml's PredRNN-V2)
 - ``weights``  flax params tree <-> torch state_dict; optax Adam state <->
                torch.optim.Adam; a whole JAX GANTrainState; the reference
                PyTorch Generator's ``.pth`` names

@@ -74,7 +74,8 @@ class ModelConfig:
     target_grid_size: Optional[List[int]] = None
     input_grid_size: Optional[List[int]] = None
     # TPU-build extensions
-    family: str = "generator"      # "generator" | "forecaster" | "gan"
+    # "generator" | "forecaster" | "gan" | "predrnn"
+    family: str = "generator"
     in_channels: int = 1
     dem_channels: int = 1
     lu_channels: int = 0           # 0 => resolved from dataset at setup_model time
@@ -105,6 +106,10 @@ class ModelConfig:
     output_frames: int = 20
     # discriminator (gan family)
     disc_features: List[int] = field(default_factory=lambda: [64, 128, 256])
+    # predrnn family (PredRNN-V2, models/predrnn.py): frames folded
+    # patch_size x patch_size into channels, and the decoupling loss's weight
+    patch_size: int = 1
+    decouple_beta: float = 0.1
 
 
 @dataclass
@@ -256,8 +261,10 @@ class Config:
             raise ValueError("Time window T must be positive")
         if self.training.epochs <= 0:
             raise ValueError("Epochs must be positive")
-        if self.model.family not in ("generator", "forecaster", "gan"):
+        if self.model.family not in FAMILIES:
             raise ValueError(f"Unknown model family: {self.model.family}")
+        if self.model.family == "predrnn":
+            self._check_predrnn()
         if self.precision.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype: {self.precision.compute_dtype}")
         convlstm_cell_impl(self.model.convlstm_impl)   # raises if unknown
@@ -308,6 +315,30 @@ class Config:
         if training:
             self._check_training()
 
+    def _check_predrnn(self) -> None:
+        """What the predrnn family needs: equal hidden widths (the memory
+        passes between layers and the decoupling adapter is shared), an odd
+        kernel, a patch that divides the synthetic frames, and none of the
+        ConvLSTM paths' options it has no counterpart of."""
+        mc = self.model
+        if len(set(mc.hidden_dims)) != 1:
+            raise ValueError(f"predrnn needs every hidden width equal, got "
+                             f"hidden_dims {mc.hidden_dims}")
+        if mc.kernel_size % 2 == 0:
+            raise ValueError(f"predrnn needs an odd kernel_size, got "
+                             f"{mc.kernel_size}")
+        if mc.patch_size < 1 or (
+                self.data.source == "synthetic"
+                and self.data.synthetic_image_size % mc.patch_size):
+            raise ValueError(f"patch_size {mc.patch_size} must divide the "
+                             f"frames ({self.data.synthetic_image_size})")
+        if mc.input_frames < 1 or mc.output_frames < 1:
+            raise ValueError("predrnn needs input_frames and output_frames "
+                             ">= 1")
+        if self.mesh.model_axis > 1 or mc.remat:
+            raise ValueError("predrnn has no tensor-parallel or remat path "
+                             "(mesh.model_axis 1, model.remat false)")
+
     def _check_training(self) -> None:
         """What a training run needs beyond the checks above."""
         if self.data.loader == "grain" and \
@@ -315,6 +346,7 @@ class Config:
             raise ImportError(GRAIN_MISSING)
 
 
+FAMILIES = ("generator", "forecaster", "gan", "predrnn")
 GRAIN_MISSING = ("data.loader 'grain' needs the grain package, which is not "
                  "installed; use data.loader: plain")
 

@@ -48,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..losses import l1_loss
 from ..ops.convlstm import Z_NAME, current_checkpoint_name
 from .layers import Conv2dTorch, ConvLSTMCell
 
@@ -106,6 +107,8 @@ class _Core(nn.Module):
 
 class ConvLSTMForecaster(nn.Module):
     """frames [B, T_in, C, H, W] -> predictions [B, T_out, C, H, W] float32."""
+
+    loss_name = "L1"            # what ``loss`` computes, for the logs
 
     def __init__(self, hidden_dims: Sequence[int] = (64, 64, 64),
                  input_frames: int = 5, output_frames: int = 20,
@@ -200,6 +203,18 @@ class ConvLSTMForecaster(nn.Module):
                 prev_out = out[-1]
                 preds.append(prev_out)
         return torch.stack(preds).permute(1, 0, 4, 2, 3).float()
+
+    def loss(self, inputs: torch.Tensor, targets: torch.Tensor,
+             teacher_draws: Optional[torch.Tensor] = None):
+        """(L1 of the rollout with scheduled sampling against ``targets``,
+        the predictions)."""
+        pred = self(inputs, targets, teacher_draws)
+        return l1_loss(pred, targets), pred
+
+    def teacher_probs(self, p: float) -> torch.Tensor:
+        """Each scheduled-sampling draw's probability of the true frame at
+        teacher-forcing probability ``p``: [steps], p at every step."""
+        return torch.full((self.input_frames + self.output_frames - 1,), p)
 
     def _step(self, x, packed, with_head, *flat):
         """One step of the recurrence, a function of its tensor inputs alone:

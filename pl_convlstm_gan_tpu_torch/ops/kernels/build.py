@@ -24,7 +24,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("convlstm_cell", "conv_head", "rollout_persistent", "tap_structure",
-           "cell_backward")
+           "cell_backward", "st_lstm_gates")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # after the source: the driver API (cuTensorMapEncodeTiled, for TMA maps)

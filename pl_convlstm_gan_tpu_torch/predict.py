@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .config import Config, convlstm_cell_impl, rollout_path
-from .models import ConvLSTMForecaster, Discriminator, Generator
+from .models import ConvLSTMForecaster, Discriminator, Generator, PredRNN
 from .models.quantized import prepare_int8_forecaster, rollout_int8
 from .ops.kernels.rollout_kernel import (pack_weights, rollout_kernel,
                                          rollout_kernel_misfit)
@@ -54,7 +54,9 @@ def build_model(config: Config, lu_channels: int = 0,
     """The (randomly initialised) module a config describes:
     ``ConvLSTMForecaster`` (families forecaster and gan; ``output_frames``
     overrides the rollout horizon, which the recurrent weights do not
-    depend on) or ``Generator`` (family generator; ``lu_channels``, else
+    depend on), ``PredRNN`` (family predrnn; the same override; its gate
+    passes on K7 on the card) or ``Generator`` (family generator;
+    ``lu_channels``, else
     ``model.lu_channels``, is the LUCC class count; ``input_grid_size`` is
     passed when ``target_grid_size`` is configured).
     ``model.convlstm_impl`` picks the cells' step (``convlstm_cell_impl``).
@@ -70,6 +72,13 @@ def build_model(config: Config, lu_channels: int = 0,
             in_channels=mc.in_channels, kernel_size=mc.kernel_size,
             dtype=dtype, convlstm_impl=impl, remat=mc.remat,
             remat_policy=mc.remat_policy, tp_group=tp_group)
+    if mc.family == "predrnn":
+        return PredRNN(
+            hidden_dims=tuple(mc.hidden_dims), input_frames=mc.input_frames,
+            output_frames=output_frames or mc.output_frames,
+            in_channels=mc.in_channels, kernel_size=mc.kernel_size,
+            patch_size=mc.patch_size, decouple_beta=mc.decouple_beta,
+            dtype=dtype)
     if mc.family != "generator":
         raise ValueError(f"Unknown model family: {mc.family!r}")
     sizing = {"scale_factor": mc.scale_factor}
@@ -165,8 +174,17 @@ def build_predict_fn(config: Config, checkpoint_path: str,
     ``ConvLSTMForecaster.forward``; 'auto' = 'kernel' on a GPU when the
     kernels take the model's widths, else 'torch'; 'int8' = the
     post-training-quantized rollout (``models/quantized.py``), its weights
-    quantized once here."""
+    quantized once here.
+
+    Family predrnn: fn(frames [B,T_in,C,H,W]) -> [B,T_out,C,H,W] float32,
+    the model itself (thuml's test mask: the input frames, then its own
+    predictions), its convs on cuDNN and its gate passes on K7 on the card;
+    ``rollout_impl`` does not apply."""
     dev = resolve_device(device)
+    if config.model.family == "predrnn":
+        model = build_model(config, output_frames=output_frames)
+        model.load_state_dict(load_state_dict(checkpoint_path))
+        return model.to(dev).eval()
     if config.model.family == "generator":
         state = load_state_dict(checkpoint_path)
         model = build_model(config, lu_channels=lu_channels or state[

@@ -150,6 +150,10 @@ def export_model(config: Config, checkpoint_path: str, example_args: Sequence,
     weights are loaded and the path decided (``rollout_choice``); the
     forecaster's kernel path becomes the ``plcg_torch::rollout`` op, its
     int8 path the traced ``rollout_int8`` on weights quantized here."""
+    if config.model.family == "predrnn":
+        raise ValueError("export_model serves the forecaster, GAN and "
+                         "Generator families; family predrnn has no "
+                         "serving artifact (serve it with load_predictor)")
     dev = resolve_device(device)
     plain = _plain_cells(config)
     if config.model.family == "generator":

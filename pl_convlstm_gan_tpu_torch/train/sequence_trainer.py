@@ -1,5 +1,5 @@
-"""SequenceTrainer: training of the forecaster and GAN families, on one
-device or data-parallel over the ranks of a process group.
+"""SequenceTrainer: training of the forecaster, GAN and PredRNN families,
+on one device or data-parallel over the ranks of a process group.
 
 Counterpart of the JAX package's ``train/sequence_trainer.py``. What it
 keeps:
@@ -15,6 +15,13 @@ keeps:
   config's compute dtype, initialised from ``training.seed``;
 - the linear scheduled-sampling decay, with draws from a ``torch.Generator``
   seeded ``seed * 100_003 + epoch`` (the JAX trainer's key for the epoch);
+- ``family: predrnn`` (``models/predrnn.py``): the same step on the
+  model's own loss, its [T_in + T_out - 2, B] reverse-scheduled-sampling
+  masks drawn from the same generator: with the decay's probability p, a
+  true frame at an input-phase choice with probability 1 - p / 2 and at a
+  prediction-phase choice with p / 2 (thuml's ``r_eta`` and ``eta``, 0.5
+  and 0.5 at the start, 1 and 0 at the end); with p 0 no masks (the input
+  frames, then the model's own predictions);
 - the forecaster train step (clip 0.5, Adam, NaN-skip: ``steps.py``),
   ReduceLROnPlateau on the val L1, optional early stopping;
 - ``family: gan``: a discriminator (``model.disc_features``) initialised
@@ -250,25 +257,25 @@ class SequenceTrainer:
 
     # ----------------------------------------------------------------- train
     def train_epoch(self, epoch: int) -> Dict[str, float]:
-        tc, mc = self.config.training, self.config.model
+        tc = self.config.training
         tf_prob = self.teacher_forcing_prob(epoch)
         lr = self.scheduler.lr
         gen = torch.Generator().manual_seed(tc.seed * 100_003 + epoch)
-        steps = mc.input_frames + mc.output_frames - 1
         local = tc.batch_size // self.n_data
+        prob = self.model.teacher_probs(tf_prob)
         metrics_acc = []
         for i, batch in enumerate(self._loader(self.train_dataset, epoch)):
             draws = None
             if tf_prob > 0:
                 # the global batch's draws; this data replica's columns
-                draws = torch.rand((steps, tc.batch_size), generator=gen)
-                draws = (draws < tf_prob)[:, self.data_index * local:
-                                          (self.data_index + 1) * local]
+                draws = torch.rand((len(prob), tc.batch_size), generator=gen)
+                draws = (draws < prob[:, None])[
+                    :, self.data_index * local:(self.data_index + 1) * local]
             lrs = (lr, self.disc_lr) if self.is_gan else (lr,)
             args = (self.state, batch, *lrs, draws)
             if i == 0 and epoch == self.start_epoch and \
                     self.config.debug.log_compiled_cost:
-                fam = "gan" if self.is_gan else "forecaster"
+                fam = self.config.model.family
                 m, _ = log_compiled_cost(f"{fam} train step", self.train_step,
                                          *args, grad_clip_norm=tc.grad_clip_norm)
             else:
@@ -281,7 +288,8 @@ class SequenceTrainer:
                         f"{m['g_adv']:.4f}, l1 {m['g_l1']:.4f}) | D: "
                         f"{m['d_total']:.4f} | tf_prob {tf_prob:.2f}")
                 else:
-                    print0(f"Epoch {epoch} | L1: {m['total']:.4f} | "
+                    print0(f"Epoch {epoch} | {self.model.loss_name}: "
+                           f"{m['total']:.4f} | "
                            f"tf_prob {tf_prob:.2f}")
         if not metrics_acc:
             raise ValueError(

@@ -9,7 +9,10 @@ Counterpart of the single-device half of the JAX package's
   shapes give (pred width / input width, as the JAX step computes it); its
   eval step returns sums for exact aggregation over wrap-padded batches;
 - the forecaster's loss is L1 of the scheduled-sampling rollout against
-  the targets;
+  the targets; a PredRNN (family predrnn) trains through the same step on
+  its own loss (``PredRNN.loss``: the MSE of every step's prediction plus
+  the weighted decoupling loss), the draws its [T_in + T_out - 2, B]
+  reverse-scheduled-sampling masks;
 - the update is clip-by-global-norm then Adam moments, with the LR passed
   per step: ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` with ``lr``
   set in its ``param_groups`` each step, and the clip written by hand to
@@ -92,7 +95,7 @@ import torch.distributed as dist
 
 from ..losses import (combined_loss, conservation_loss, contingency_counts,
                       discriminator_loss, gan_generator_loss, gradient_loss,
-                      l1_loss, point_supervision_sums, safe_ratio,
+                      point_supervision_sums, safe_ratio,
                       scores_from_counts, sharpness_sums, ssim_per_sample,
                       station_sq_err_sums, temporal_consistency_loss)
 from ..parallel.mesh import MeshGroups, as_groups
@@ -358,9 +361,10 @@ def aggregate_generator_eval(metric_batches, loss_cfg: Dict
 # --------------------------------------------------------------- forecaster
 
 def forecaster_loss(model, inputs, targets, teacher_draws=None):
-    """(L1 loss, predictions) of the rollout with scheduled sampling."""
-    pred = model(inputs, targets, teacher_draws)
-    return l1_loss(pred, targets), pred
+    """(loss, predictions): the model's own ``loss`` (``ConvLSTMForecaster``:
+    L1 of the rollout with scheduled sampling; ``PredRNN``: MSE plus the
+    weighted decoupling loss, ``teacher_draws`` its masks)."""
+    return model.loss(inputs, targets, teacher_draws)
 
 
 def forecaster_train_step(state: TrainState, batch, lr: float,

@@ -23,7 +23,10 @@ the work happens.
   ``stream.observe`` / ``stream.forecast`` (``streaming.py``), ``k5.issue``
   (``rollout_persistent_fwd``, the host's issue of the rollout kernel),
   ``train.step`` with ``train.forward``, ``train.backward`` and
-  ``train.update`` (``train/steps.py``), and ``sync.<site>`` at each host
+  ``train.update`` (``train/steps.py``), ``predrnn.rollout`` and
+  ``predrnn.decouple`` (``models/predrnn.py``: PredRNN's recurrence and its
+  batched decoupling loss) and ``predrnn.replay`` (a replay of its captured
+  train step's forward), and ``sync.<site>`` at each host
   sync of a train step (``host_sync``). Tracing is off unless switched on,
   and then a span costs one test of two flags and returns a shared null
   context. It is on (a) inside ``program_trace()`` and (b) while any
@@ -36,9 +39,10 @@ the work happens.
   each span is also a ``record_function`` range, so that the profiler's
   trace shows it.
 - ``counters()``: every counter of the program in one dict: the kernel
-  wrappers' launches and operations (K1, K6, K2, K5, K3/K4), the collectives
+  wrappers' launches and operations (K1, K6, K2, K5, K3/K4, K7), the collectives
   of tensor parallelism and ``host_syncs`` (``host_sync``). Counters count
-  whether tracing is on or not.
+  whether tracing is on or not; a replayed CUDA graph adds what its capture
+  counted (``add_counts``).
 """
 from __future__ import annotations
 
@@ -505,6 +509,7 @@ def _counter_sources() -> List[Tuple[str, Any, str]]:
                                                    convlstm_cell_fwd)
         from ..ops.kernels.rollout_kernel import (conv_head_fwd,
                                                   rollout_persistent_fwd)
+        from ..ops.kernels.st_gates_kernel import st_gates
         from ..ops.kernels.tap_structure_kernel import tap_k1152, tap_loop
         from ..parallel.tp_collectives import copy_in, gather_h
         _COUNTERS.extend(
@@ -515,8 +520,8 @@ def _counter_sources() -> List[Tuple[str, Any, str]]:
                 (conv_head_fwd, "launches"),
                 (rollout_persistent_fwd, "launches"),
                 (rollout_persistent_fwd, "flops"), (tap_loop, "launches"),
-                (tap_k1152, "launches"), (gather_h, "calls"),
-                (copy_in, "calls")))
+                (tap_k1152, "launches"), (st_gates, "launches"),
+                (gather_h, "calls"), (copy_in, "calls")))
         _COUNTERS.append(("host_syncs", host_sync, "count"))
     return _COUNTERS
 
@@ -529,7 +534,17 @@ def counters() -> Dict[str, int]:
     """Every counter of the program, by ``<function>.<attribute>``: K1's
     launches (with z apart) and operations, K6's launches (the cell's gate
     backward), K2's launches, K5's launches
-    and operations, K3's and K4's launches, the tensor-parallel
+    and operations, K3's and K4's launches, K7's (``st_gates.launches``:
+    the ST-LSTM gate passes, forward and backward), the tensor-parallel
     collectives' calls, and ``host_syncs``. One snapshot; the counters
     only rise, except where a caller resets them."""
     return {key: getattr(obj, attr) for key, obj, attr in _counter_sources()}
+
+
+def add_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by the keys of ``counters()``) to the program's
+    counters: a replayed CUDA graph runs the launches its capture counted,
+    and a capture itself runs none."""
+    for key, obj, attr in _counter_sources():
+        if counts.get(key):
+            setattr(obj, attr, getattr(obj, attr) + counts[key])

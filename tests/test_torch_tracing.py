@@ -290,8 +290,8 @@ def test_counters_hold_every_counter():
         "convlstm_cell_fwd.flops", "cell_backward.launches",
         "conv_head_fwd.launches",
         "rollout_persistent_fwd.launches", "rollout_persistent_fwd.flops",
-        "tap_loop.launches", "tap_k1152.launches", "gather_h.calls",
-        "copy_in.calls", "host_syncs"}
+        "tap_loop.launches", "tap_k1152.launches", "st_gates.launches",
+        "gather_h.calls", "copy_in.calls", "host_syncs"}
     assert all(isinstance(v, int) for v in got.values())
 
 
