@@ -122,9 +122,13 @@ own line:
    pallas: 72 K1-with-z and 72 K6 launches a step, no K1 without z, no
    K2) and the same 5 steps on the plain path (xla) from the same state:
    per-step losses, gradients and params after 5 steps within TRAIN_TOL;
-   p50 step times; 72 K1 without z per eval batch; torch.profiler over one
-   kernel step (device time by kernel group, idle share); then 2 steps in
-   f32;
+   on both paths the step-1 gradient is the loss's eager first call (timed
+   as eager_first_fwd_bwd_ms), step 1 captures its CUDA graphs and later
+   steps replay them (models/loss_graphs.py: one capture and a replay,
+   then a replay a step, no eager call; the launch counts hold through the
+   replays); p50 step times, the replayed steps' apart; 72 K1 without z
+   per eval batch; torch.profiler over one replayed kernel step (device
+   time by kernel group, idle share); then 2 steps in f32;
 10. trainer: the CLI's train path on nowcast_128_pallas with 24 sequences
    and 2 epochs, --resume to 3 epochs (starts at epoch 2), --mode eval,
    and load_predictor on the trainer's best_model serving one request on
@@ -180,7 +184,9 @@ own line:
    but its global batch (16 -> 2, one a rank); per-step losses and params
    after 2 steps within TRAIN_TOL, the step-1 gradients within the
    rounding bound dp_grad_tol derives, params bit-equal across the ranks,
-   exact K1 counts on every rank; then one NCCL group at world 1 (the
+   exact K1 counts on every rank, the forecaster's steps a capture then a
+   replay of its loss's CUDA graphs (none for the GAN and the Generator);
+   then one NCCL group at world 1 (the
    production backend) running nowcast_128_pallas's DP steps. No scaling
    numbers: the box has one card;
 17. tp: tensor parallelism at world 2 (data 1 x model 2) on the one card:
@@ -261,6 +267,7 @@ from pl_convlstm_gan_tpu_torch.config import load_config
 from pl_convlstm_gan_tpu_torch.data import (SyntheticDownscalingDataset,
                                             SyntheticSequenceDataset,
                                             batch_iterator, to_device)
+from pl_convlstm_gan_tpu_torch.models.loss_graphs import loss_graphs
 from pl_convlstm_gan_tpu_torch.models.quantized import (
     _int8_step, _zero_states, prepare_int8_forecaster)
 from pl_convlstm_gan_tpu_torch.ops.convlstm import convlstm_step_torch
@@ -1576,6 +1583,26 @@ def expect_counts(what, k1, k2, k1z=0, k5=0, k6=0, path=None, k7=0):
     return got
 
 
+def graph_counts():
+    """(captures, replays, eager calls) of the training losses' CUDA graphs
+    so far (``models/loss_graphs.py``)."""
+    return (loss_graphs.captures, loss_graphs.replays, loss_graphs.eager)
+
+
+def graph_delta(before):
+    return tuple(a - b for a, b in zip(graph_counts(), before))
+
+
+def expect_graphs(what, got, steps):
+    """Raise unless ``got`` (graph_delta a step, from the step after the
+    warm-up call on) reads one capture and a replay, then replays, and no
+    eager call."""
+    want = [(1, 1, 0)] + [(0, 1, 0)] * (steps - 1)
+    if list(got) != want:
+        raise AssertionError(f"{what}: loss graphs (captures, replays, "
+                             f"eager) a step {list(got)}, expected {want}")
+
+
 def rollout_launches(dtype_name, n_cells, steps, heads, calls=1):
     """(K1, K2, K5) launches of ``calls`` rollouts (or observes) of
     ``steps`` steps with ``heads`` head steps each on the kernel path of
@@ -2202,25 +2229,38 @@ def phase_train(dtype_name, seed):
     paths = {"kernel": train_state(cfg, state_dict),
              "plain": train_state(train_config(dtype_name, "xla"), state_dict)}
 
-    grads = {}
-    for name, st in paths.items():        # step-1 gradients, then cleared
+    # step-1 gradients, then cleared: each path's first call at the shape,
+    # eager (it warms every kernel; the first step then captures the loss's
+    # CUDA graphs and later steps replay them)
+    grads, eager_ms = {}, {}
+    for name, st in paths.items():
+        before = graph_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         forecaster_loss(st.model, *batches[0])[0].backward()
+        torch.cuda.synchronize()
+        eager_ms[name] = (time.perf_counter() - t0) * 1e3
+        if graph_delta(before) != (0, 0, 1):
+            raise AssertionError(f"train {name} {dtype_name}: the first call "
+                                 f"was not eager: {graph_delta(before)}")
         grads[name] = flat_grads(st.model)
         st.optimizer.zero_grad(set_to_none=True)
     grad_err = float((grads["kernel"] - grads["plain"]).norm()
                      / grads["plain"].norm())
     del grads
 
-    losses, times = {}, {}
+    losses, times, graphs = {}, {}, {}
     for name, st in paths.items():
-        losses[name], times[name] = [], []
+        losses[name], times[name], graphs[name] = [], [], []
         for i, batch in enumerate(batches):
             reset_counts()
+            before = graph_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = forecaster_train_step(st, batch, lr)
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3)
+            graphs[name].append(graph_delta(before))
             if name == "kernel":
                 expect_counts(f"train {dtype_name} step {i}", 0, 0, per_step,
                               k6=per_step,
@@ -2231,6 +2271,7 @@ def phase_train(dtype_name, seed):
                 raise AssertionError(f"train {name} {dtype_name} step {i}: "
                                      f"{m}")
             losses[name].append(m["total"])
+        expect_graphs(f"train {name} {dtype_name}", graphs[name], steps)
     loss_err = max(abs(a - c) for a, c in zip(losses["kernel"],
                                                losses["plain"]))
     param_err = max(float((pk - pp).detach().abs().max()) for pk, pp in zip(
@@ -2270,6 +2311,12 @@ def phase_train(dtype_name, seed):
                kernel_p50_ms=statistics.median(times["kernel"]),
                plain_p50_ms=statistics.median(times["plain"]),
                kernel_ms=times["kernel"], plain_ms=times["plain"],
+               # the first call's forward and backward, eager; the first
+               # step captures; later steps replay
+               eager_first_fwd_bwd_ms=eager_ms,
+               replayed_step_p50_ms={k: statistics.median(v[1:])
+                                     for k, v in times.items()},
+               graphs_per_step=graphs,
                losses_kernel=losses["kernel"], losses_plain=losses["plain"],
                errors=errs, tol={k: v[dtype_name] for k, v in TRAIN_TOL.items()},
                max_param_move=moved,
@@ -3695,6 +3742,7 @@ def dp_setup(seed, runs=DP_RUNS):
                                per_pass * k1, per_pass * k1)
         entry["batches"] = batches
         entry["dtype"] = cfg.precision.compute_dtype
+        entry["graph_steps"] = mc.family == "forecaster"
         setup[name] = entry
     return setup
 
@@ -3778,9 +3826,10 @@ def dp_drive(entry, group, rank=0, world=1):
     got = grads_fn(batches[0], draws[0])
     grads = {k: g.cpu() for k, (g, _) in got.items()}
     grad_norms = {k: n for k, (_, n) in got.items()}
-    metrics, counts, times = [], [], []
+    metrics, counts, times, graphs = [], [], [], []
     for batch, d in zip(batches, draws):
         reset_counts()
+        before = graph_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics.append(run(batch, d))
@@ -3788,9 +3837,10 @@ def dp_drive(entry, group, rank=0, world=1):
         times.append((time.perf_counter() - t0) * 1e3)
         counts.append((convlstm_cell_fwd.launches,
                        convlstm_cell_fwd.launches_z, cell_backward.launches))
+        graphs.append(graph_delta(before))
     params = [p.detach().cpu() for m in modules for p in m.parameters()]
     return dict(grads=grads, grad_norms=grad_norms, metrics=metrics,
-                counts=counts, step_ms=times, params=params)
+                counts=counts, step_ms=times, graphs=graphs, params=params)
 
 
 def dp_worker(rank, world, port, work, backend, names):
@@ -3882,6 +3932,15 @@ def dp_compare(name, entry, ranks, ref, label):
                                  f"{tuple(entry['expect'])} a step")
         if any(m["skipped"] for m in rec["metrics"]):
             raise AssertionError(f"dp {label} {name} rank {r} skipped")
+        # the forecaster's steps replay its loss's graphs (the step-1
+        # gradient was the eager warm-up); the GAN's and the Generator's
+        # steps never call ConvLSTMForecaster.loss
+        if entry["graph_steps"]:
+            expect_graphs(f"dp {label} {name} rank {r}", rec["graphs"],
+                          len(rec["graphs"]))
+        elif any(any(g) for g in rec["graphs"]):
+            raise AssertionError(f"dp {label} {name} rank {r}: loss graphs "
+                                 f"{rec['graphs']}, expected none")
     for rec in ranks[1:]:
         if not all(torch.equal(a, b) for a, b in zip(ranks[0]["params"],
                                                      rec["params"])):
@@ -3945,7 +4004,8 @@ def phase_dp(seed):
             losses_dp=[{k: v for k, v in m.items() if k != "skipped"}
                        for m in ranks[0][name]["metrics"]],
             step_ms_rank0_shared_card=ranks[0][name]["step_ms"],
-            step_ms_one_process=refs[name]["step_ms"])
+            step_ms_one_process=refs[name]["step_ms"],
+            graphs_per_step=ranks[0][name]["graphs"])
         say(phase="dp_run", config=name, world=DP_WORLD, backend="gloo",
             **runs[name])
     errs, tol = dp_compare(DP_NCCL_RUN, nccl_setup, [nccl[0][DP_NCCL_RUN]],

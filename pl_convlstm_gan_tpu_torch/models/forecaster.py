@@ -15,6 +15,12 @@ backward), the port's meaning of the config's ``xla`` and ``pallas``. With
 'kernel' on the card each cell's weight is packed for K1 once per forward
 pass, not once per step.
 
+Training on the card (``loss`` with gradients on CUDA tensors) replays CUDA
+graphs (``models/loss_graphs.py``, shared with PredRNN): from the second
+call at a shape on, the rollout with its loss and the backward to the
+parameters' gradients are replayed, so a step no longer waits on the host's
+~2,000 launches. Remat and tensor parallelism stay eager.
+
 ``remat`` (JAX's ``nn.remat`` over the scan body) runs each step of the
 recurrence, the cell stack and the head, under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: the forward keeps
@@ -45,12 +51,14 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..losses import l1_loss
 from ..ops.convlstm import Z_NAME, current_checkpoint_name
 from .layers import Conv2dTorch, ConvLSTMCell
+from .loss_graphs import loss_graphs
 
 REMAT_POLICIES = ("", "save_z", "dots")
 _aten = torch.ops.aten
@@ -207,8 +215,22 @@ class ConvLSTMForecaster(nn.Module):
     def loss(self, inputs: torch.Tensor, targets: torch.Tensor,
              teacher_draws: Optional[torch.Tensor] = None):
         """(L1 of the rollout with scheduled sampling against ``targets``,
-        the predictions)."""
-        pred = self(inputs, targets, teacher_draws)
+        the predictions). With gradients on CUDA tensors, from the second
+        call at a shape on, replayed from CUDA graphs
+        (``models/loss_graphs.py``)."""
+        return loss_graphs(self, list(self.parameters()), self._loss,
+                           inputs, targets, teacher_draws)
+
+    def _loss(self, inputs, targets, teacher_draws, weights=None):
+        """``loss``, eagerly: on the parameters, or on ``weights`` in
+        ``parameters()``'s order in their place (``functional_call``: the
+        one forward, on other leaves)."""
+        if weights is None:
+            pred = self(inputs, targets, teacher_draws)
+        else:
+            names = [name for name, _ in self.named_parameters()]
+            pred = functional_call(self, dict(zip(names, weights)),
+                                   (inputs, targets, teacher_draws))
         return l1_loss(pred, targets), pred
 
     def teacher_probs(self, p: float) -> torch.Tensor:

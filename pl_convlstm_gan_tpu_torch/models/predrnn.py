@@ -50,25 +50,18 @@ conv_last``, ``conv_last``, ``adapter``; thuml's ``conv_x.0`` is this
 ``nn.Sequential``'s ``.0``.
 
 Training on the card (``loss`` with gradients on CUDA tensors) replays CUDA
-graphs (``_LossGraphs``): the first call at a shape runs eagerly and warms
-every kernel, the second captures the forward (rollout, decoupling term and
-MSE) as one graph and the backward to the parameters' gradients as another,
-and every later call copies its inputs into the graphs' buffers and replays
-them. A step at thuml's widths is ~2,700 launches: issued one by one they
-take the host longer than the device takes to run them, and the step would
-time the host. The graphs run the same kernels (K7 and cuDNN's convs) on the
-same addresses, so a replayed step computes what the eager one computes; the
-launch counters rise by what the capture counted.
+graphs (``models/loss_graphs.py``, shared with the ConvLSTM forecaster):
+from the second call at a shape on, the forward (rollout, decoupling term
+and MSE) and the backward to the parameters' gradients are replayed. A step
+at thuml's widths is ~2,700 launches: issued one by one they take the host
+longer than the device takes to run them, and the step would time the host.
 
 Tracing: the recurrence is the span ``plcg.predrnn.rollout``, the batched
 decoupling term ``plcg.predrnn.decouple`` (inside ``plcg.train.forward`` in
-a train step); a replayed forward is ``plcg.predrnn.replay`` (inside
-``plcg.train.forward``; the backward's replay runs on autograd's thread,
-inside ``plcg.train.backward``).
+a train step); a replayed forward is ``plcg.loss_graphs.replay``.
 """
 from __future__ import annotations
 
-import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -76,7 +69,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.st_gates_kernel import st_gates, st_hidden
-from ..utils.profiling import add_counts, counters, span
+from ..utils.profiling import span
+from .loss_graphs import loss_graphs
 
 
 def reshape_patch(frames: torch.Tensor, p: int) -> torch.Tensor:
@@ -303,11 +297,9 @@ class PredRNN(nn.Module):
         H, W] float32) on the sequence concat(inputs, targets).
 
         With gradients on CUDA tensors, from the second call at a shape on,
-        through CUDA graphs (``_LossGraphs``)."""
-        graphs = _loss_graphs(self, inputs, targets, mask)
-        if graphs is None:
-            return self._loss(inputs, targets, mask)
-        return graphs(inputs, targets, mask)
+        replayed from CUDA graphs (``models/loss_graphs.py``)."""
+        return loss_graphs(self, self._weights(), self._loss, inputs,
+                           targets, mask, key=(self.decouple_beta,))
 
     def teacher_probs(self, p: float) -> torch.Tensor:
         """Each mask entry's probability of the true frame at the trainer's
@@ -328,123 +320,3 @@ class PredRNN(nn.Module):
                                self.patch_size).transpose(0, 1)
         mse = (gens.float() - target).square().mean()
         return mse + self.decouple_beta * dec, self._outputs(gens)
-
-
-# PredRNN -> {shape key: _LossGraphs, or None once the key ran eagerly}
-_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def _loss_graphs(model: PredRNN, inputs, targets, mask
-                 ) -> Optional["_LossGraphs"]:
-    """The captured graphs of ``model.loss`` for these operands, capturing
-    them at the key's second call; None where the call runs eagerly: no
-    gradient wanted, CPU tensors, gradients to the inputs, a capture under
-    way, the key's first call (the warm-up), or a replayed forward whose
-    backward has not run yet while its loss is alive (a second forward
-    would overwrite what that backward reads)."""
-    weights = model._weights()
-    if not (torch.is_grad_enabled() and inputs.is_cuda and
-            any(w.requires_grad for w in weights)) or \
-            inputs.requires_grad or targets.requires_grad or \
-            torch.cuda.is_current_stream_capturing():
-        return None
-    key = (tuple(inputs.shape), inputs.dtype, tuple(targets.shape),
-           targets.dtype, None if mask is None else tuple(mask.shape),
-           inputs.device, model.decouple_beta,
-           tuple((w.data_ptr(), w.requires_grad) for w in weights))
-    cache = _GRAPHS.setdefault(model, {})
-    if key not in cache:
-        cache.clear()                   # one shape and one set of weights
-        cache[key] = None
-        return None
-    graphs = cache[key]
-    if graphs is None:
-        graphs = cache[key] = _LossGraphs(model, weights, inputs, targets,
-                                          mask)
-    return None if graphs.pending() else graphs
-
-
-class _LossGraphs:
-    """``PredRNN._loss`` at one shape, dtype and set of parameters as two
-    CUDA graphs in one memory pool: the forward, from copies of the inputs
-    to the loss and predictions, and the backward, from the loss's gradient
-    to the parameters'. Replaying them needs the parameters where they were
-    at capture (the key holds their addresses) and runs the forward and the
-    backward in turn: a backward replay reads what the last forward replay
-    left in the pool.
-
-    The capture runs on leaves of its own that share the parameters'
-    storage, so that it builds no edge to the parameters' gradient
-    accumulators: one that an earlier eager step's graph still holds (its
-    loss or predictions kept alive) belongs to the default stream, and
-    reaching it from the capture's stream would end the capture."""
-
-    def __init__(self, model: PredRNN, weights, inputs, targets, mask):
-        self.params = [w for w in weights if w.requires_grad]
-        leaves = [w.detach().requires_grad_(w.requires_grad)
-                  for w in weights]
-        self.static = [t.detach().clone() for t in (inputs, targets)]
-        self.static.append(None if mask is None
-                           else mask.to(inputs.device, copy=True))
-        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        before = counters()
-        with torch.cuda.graph(self.fwd):
-            total, pred = model._loss(*self.static, weights=leaves)
-        mid = counters()
-        self.grad_total = torch.empty_like(total)
-        with torch.cuda.graph(self.bwd, pool=self.fwd.pool()):
-            self.grads = torch.autograd.grad(
-                total, [w for w in leaves if w.requires_grad],
-                self.grad_total, allow_unused=True)
-        after = counters()
-        # a capture launches nothing: what it counted is what a replay runs
-        add_counts({k: before[k] - after[k] for k in after})
-        self.fwd_counts = {k: mid[k] - before[k] for k in mid}
-        self.bwd_counts = {k: after[k] - mid[k] for k in after}
-        self.total, self.pred = total.detach(), pred.detach()
-        self._live = None               # the loss of a pending backward
-
-    def pending(self) -> bool:
-        return self._live is not None and self._live() is not None
-
-    def __call__(self, inputs, targets, mask):
-        total, pred = _Replay.apply(self, inputs, targets, mask,
-                                    *self.params)
-        self._live = weakref.ref(total)
-        return total, pred
-
-    def forward(self, inputs, targets, mask):
-        for buf, t in zip(self.static, (inputs, targets, mask)):
-            if buf is not None and buf.data_ptr() != t.data_ptr():
-                buf.copy_(t)
-        with span("predrnn.replay"):
-            self.fwd.replay()
-        add_counts(self.fwd_counts)
-        return self.total.clone(), self.pred.clone()
-
-    def backward(self, g_total) -> Tuple[Optional[torch.Tensor], ...]:
-        if self._live is None:
-            raise RuntimeError("PredRNN's captured backward replayed twice "
-                               "after one forward")
-        self._live = None
-        self.grad_total.copy_(g_total)
-        self.bwd.replay()
-        add_counts(self.bwd_counts)
-        return tuple(None if g is None else g.clone() for g in self.grads)
-
-
-class _Replay(torch.autograd.Function):
-    """apply(graphs, inputs, targets, mask, *params) -> (loss, predictions):
-    the forward graph's replay, whose backward replays the backward graph
-    into the parameters' gradients (the predictions take none)."""
-
-    @staticmethod
-    def forward(ctx, graphs: _LossGraphs, inputs, targets, mask, *params):
-        ctx.graphs = graphs
-        total, pred = graphs.forward(inputs, targets, mask)
-        ctx.mark_non_differentiable(pred)
-        return total, pred
-
-    @staticmethod
-    def backward(ctx, g_total, g_pred):
-        return (None, None, None, None) + ctx.graphs.backward(g_total)

@@ -386,24 +386,50 @@ def _check_backward_args(z, c, c_next, dh_next, dc_next, x, h, db_dtype,
         raise ValueError("the cell backward's residuals must be contiguous")
 
 
-# per (device index, stream): the last-block counter (zero between
-# launches: K6's last block resets it), the float32 buffer of partial sums
-# and the grid's cap, used in turn by K6's launches on that stream
+# per (device index, stream, whether the stream is capturing): the
+# last-block counter (zero between launches: K6's last block resets it),
+# the float32 buffer of partial sums and the grid's cap, used in turn by
+# K6's launches on that stream. An eager launch never reads a capture's
+# entry, which is made before its capture (reserve_capture_workspace).
 _bwd_workspace: dict = {}
 
 
 def _workspace(device, stream, cols: int):
     """(counter, partials, max_blocks) for a K6 launch of ``cols`` = 4Ch
     columns on ``stream``: partials holds max_blocks rows of them."""
-    ws = _bwd_workspace.get((device.index, stream))
+    capturing = torch.cuda.is_current_stream_capturing()
+    key = (device.index, stream, capturing)
+    ws = _bwd_workspace.get(key)
     if ws is None or ws[1].numel() < ws[2] * cols:
+        if capturing:
+            raise RuntimeError(
+                "K6 captured into a CUDA graph without a workspace reserved "
+                "before the capture (reserve_capture_workspace)")
         blocks = _BWD_BLOCKS_PER_SM * torch.cuda.get_device_properties(
             device).multi_processor_count
         counter = ws[0] if ws is not None else torch.zeros(
             1, dtype=torch.int32, device=device)
-        ws = _bwd_workspace[(device.index, stream)] = (
+        ws = _bwd_workspace[key] = (
             counter, torch.empty(blocks * cols, dtype=torch.float32,
                                  device=device), blocks)
+    return ws
+
+
+def reserve_capture_workspace(device, stream: int):
+    """A fresh K6 workspace for the launches captured on ``stream`` (a raw
+    stream handle) from now on, as large as the largest eager one on
+    ``device`` (a capture replays a call that ran eagerly first); None where
+    K6 has not run there. A graph holds its addresses, so the capture's
+    owner keeps it as long as the graph: the next reservation for the
+    stream replaces the entry."""
+    eager = [ws for (index, _, capturing), ws in _bwd_workspace.items()
+             if index == device.index and not capturing]
+    if not eager:
+        return None
+    numel = max(ws[1].numel() for ws in eager)
+    ws = _bwd_workspace[(device.index, stream, True)] = (
+        torch.zeros(1, dtype=torch.int32, device=device),
+        torch.empty(numel, dtype=torch.float32, device=device), eager[0][2])
     return ws
 
 

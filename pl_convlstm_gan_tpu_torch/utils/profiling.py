@@ -25,8 +25,9 @@ the work happens.
   ``train.step`` with ``train.forward``, ``train.backward`` and
   ``train.update`` (``train/steps.py``), ``predrnn.rollout`` and
   ``predrnn.decouple`` (``models/predrnn.py``: PredRNN's recurrence and its
-  batched decoupling loss) and ``predrnn.replay`` (a replay of its captured
-  train step's forward), and ``sync.<site>`` at each host
+  batched decoupling loss), ``loss_graphs.replay`` (``models/loss_graphs.
+  py``: a replay of a captured training loss's forward, the forecaster's
+  or PredRNN's), and ``sync.<site>`` at each host
   sync of a train step (``host_sync``). Tracing is off unless switched on,
   and then a span costs one test of two flags and returns a shared null
   context. It is on (a) inside ``program_trace()`` and (b) while any
@@ -40,7 +41,8 @@ the work happens.
   trace shows it.
 - ``counters()``: every counter of the program in one dict: the kernel
   wrappers' launches and operations (K1, K6, K2, K5, K3/K4, K7), the collectives
-  of tensor parallelism and ``host_syncs`` (``host_sync``). Counters count
+  of tensor parallelism, the training losses' CUDA graphs (captures,
+  replays and eager calls) and ``host_syncs`` (``host_sync``). Counters count
   whether tracing is on or not; a replayed CUDA graph adds what its capture
   counted (``add_counts``).
 """
@@ -510,6 +512,7 @@ def _counter_sources() -> List[Tuple[str, Any, str]]:
         from ..ops.kernels.rollout_kernel import (conv_head_fwd,
                                                   rollout_persistent_fwd)
         from ..ops.kernels.st_gates_kernel import st_gates
+        from ..models.loss_graphs import loss_graphs
         from ..ops.kernels.tap_structure_kernel import tap_k1152, tap_loop
         from ..parallel.tp_collectives import copy_in, gather_h
         _COUNTERS.extend(
@@ -521,7 +524,9 @@ def _counter_sources() -> List[Tuple[str, Any, str]]:
                 (rollout_persistent_fwd, "launches"),
                 (rollout_persistent_fwd, "flops"), (tap_loop, "launches"),
                 (tap_k1152, "launches"), (st_gates, "launches"),
-                (gather_h, "calls"), (copy_in, "calls")))
+                (gather_h, "calls"), (copy_in, "calls"),
+                (loss_graphs, "captures"), (loss_graphs, "replays"),
+                (loss_graphs, "eager")))
         _COUNTERS.append(("host_syncs", host_sync, "count"))
     return _COUNTERS
 
@@ -536,7 +541,9 @@ def counters() -> Dict[str, int]:
     backward), K2's launches, K5's launches
     and operations, K3's and K4's launches, K7's (``st_gates.launches``:
     the ST-LSTM gate passes, forward and backward), the tensor-parallel
-    collectives' calls, and ``host_syncs``. One snapshot; the counters
+    collectives' calls, the training losses' CUDA graphs (``loss_graphs.
+    captures``, ``.replays`` and ``.eager``: calls with gradients on CUDA
+    tensors that ran eagerly) and ``host_syncs``. One snapshot; the counters
     only rise, except where a caller resets them."""
     return {key: getattr(obj, attr) for key, obj, attr in _counter_sources()}
 

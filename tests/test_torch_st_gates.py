@@ -323,7 +323,7 @@ def test_predrnn_replayed_steps_equal_eager_ones(card):
     masks each) its loss and gradients equal those of the eager
     ``_loss`` on a copy of the model, each step counts 4 x 76 K7 launches,
     and the graphs exist from the second step on."""
-    from pl_convlstm_gan_tpu_torch.models import predrnn as pmod
+    from pl_convlstm_gan_tpu_torch.models import loss_graphs
     graphed, eager = _graph_model(card), _graph_model(card)
     g = torch.Generator(device=card).manual_seed(7)
     for step in range(4):
@@ -343,7 +343,7 @@ def test_predrnn_replayed_steps_equal_eager_ones(card):
         assert float((lg - le).abs() / le.abs()) <= 1e-6, step
         for a, b in zip(gg, ge):
             assert float((a - b).norm() / b.norm()) <= 1e-3, step
-        graphs = pmod._GRAPHS[graphed]
+        graphs = loss_graphs._GRAPHS[graphed]
         assert any(v is not None for v in graphs.values()) == (step >= 1)
 
 

@@ -291,7 +291,8 @@ def test_counters_hold_every_counter():
         "conv_head_fwd.launches",
         "rollout_persistent_fwd.launches", "rollout_persistent_fwd.flops",
         "tap_loop.launches", "tap_k1152.launches", "st_gates.launches",
-        "gather_h.calls", "copy_in.calls", "host_syncs"}
+        "gather_h.calls", "copy_in.calls", "loss_graphs.captures",
+        "loss_graphs.replays", "loss_graphs.eager", "host_syncs"}
     assert all(isinstance(v, int) for v in got.values())
 
 
