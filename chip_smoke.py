@@ -267,7 +267,6 @@ from pl_convlstm_gan_tpu_torch.config import load_config
 from pl_convlstm_gan_tpu_torch.data import (SyntheticDownscalingDataset,
                                             SyntheticSequenceDataset,
                                             batch_iterator, to_device)
-from pl_convlstm_gan_tpu_torch.models.loss_graphs import loss_graphs
 from pl_convlstm_gan_tpu_torch.models.quantized import (
     _int8_step, _zero_states, prepare_int8_forecaster)
 from pl_convlstm_gan_tpu_torch.ops.convlstm import convlstm_step_torch
@@ -283,8 +282,7 @@ from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain, persistent_misfit, rollout_persistent_fwd,
     rollout_schedule)
 from pl_convlstm_gan_tpu_torch.ops.kernels.st_gates_kernel import (
-    st_gates, st_gates_bwd_plain, st_gates_plain, st_hidden_bwd_plain,
-    st_hidden_plain)
+    st_gates_bwd_plain, st_gates_plain, st_hidden_bwd_plain, st_hidden_plain)
 from pl_convlstm_gan_tpu_torch.ops.kernels.tap_structure_kernel import (
     big_plain, tap_k1152, tap_loop, taps_plain)
 from pl_convlstm_gan_tpu_torch.ops.nn import oihw_from_hwio
@@ -303,7 +301,7 @@ from pl_convlstm_gan_tpu_torch.train.steps import (
     generator_eval_step, generator_loss, generator_train_step, loss_config,
     make_optimizer)
 from pl_convlstm_gan_tpu_torch.utils.profiling import (
-    benchmark_fn, log_compiled_cost, profile_trace)
+    benchmark_fn, counters, log_compiled_cost, profile_trace)
 from pl_convlstm_gan_tpu_torch.weights import flax_to_state_dict
 
 SEED = 0
@@ -564,14 +562,13 @@ def graph_ms(fn, iters):
 def raw_launcher(lib, symbol, argtypes, tensors, ints):
     """The kernel's C entry bound to fixed operands: a launch without the
     wrapper's Python checks (for timing, after the wrapper has checked them
-    once) on the current stream; a None operand passes a null pointer. It
-    does not touch the wrapper's launch counts."""
-    fn = build.load_function(lib, symbol, argtypes)
+    once) through ``build.launch``, on the current stream; a None operand
+    passes a null pointer. It does not touch the wrapper's launch counts."""
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    device = tensors[0].device
 
     def launch():
-        build.check(fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream),
-                    lib, symbol)
+        build.launch(lib, symbol, argtypes, device, *ptrs, *ints, what=symbol)
     return launch
 
 
@@ -1102,7 +1099,7 @@ def phase_cell_grad(gen, shape, dtype, name):
 
     reset_counts()
     got = grads(ConvLSTMCellFn.apply)
-    if convlstm_cell_fwd.launches_z != 1:
+    if counted("k1z") != 1:
         raise AssertionError("ConvLSTMCellFn did not launch K1 with z")
     want = grads(lambda w, bias, x, h, c: convlstm_step_torch(
         x, h, c, oihw_from_hwio(w), bias))
@@ -1178,9 +1175,7 @@ def phase_cell_backward(gen, shapes):
         reset_counts()
         got = cell_backward(*ops, dtype)
         again = cell_backward(*ops, dtype)
-        if cell_backward.launches != 2:
-            raise AssertionError(f"K6 {name}: {cell_backward.launches} "
-                                 f"launches for 2 calls")
+        expect_counts(f"K6 {name}: 2 calls", 0, 0, k6=2)
         errs = k6_errors(got, cell_backward_plain(*ops, dtype), dtype)
         repeat = all(torch.equal(a, c) for a, c in zip(got, again))
         rec = dict(shape=[b, hgt, wid, cx, ch], dtype=name,
@@ -1395,9 +1390,7 @@ def phase_st_gates(gen, shapes):
             got, want = k7_fn(), plain_fn()
             errs[key] = max(k7_err(g, w) for g, w in zip(got, want)
                             if g is not None)
-        if st_gates.launches != len(calls):
-            raise AssertionError(f"K7 {name}: {st_gates.launches} launches "
-                                 f"for {len(calls)} calls")
+        expect_counts(f"K7 {name}: {len(calls)} calls", 0, 0, k7=len(calls))
         rec = dict(pixels=px, hidden=fw, dtype=name, err_over_tol=errs)
         if timed:
             for kind in ("a_fwd", "a_bwd", "b_fwd", "b_bwd"):
@@ -1543,15 +1536,28 @@ def phase_predrnn(tmp, seed):
     return rec
 
 
+# the launch counters of the program's registry (utils.profiling.counters(),
+# declared by the kernel wrappers), by the keyword expect_counts takes
+LAUNCH_KEYS = {"k1": "convlstm_cell_fwd.launches",
+               "k1z": "convlstm_cell_fwd.launches_z",
+               "k2": "conv_head_fwd.launches", "k3": "tap_loop.launches",
+               "k4": "tap_k1152.launches",
+               "k5": "rollout_persistent_fwd.launches",
+               "k6": "cell_backward.launches", "k7": "st_gates.launches"}
+_since = {}
+
+
 def reset_counts():
-    convlstm_cell_fwd.launches = 0
-    convlstm_cell_fwd.launches_z = 0
-    cell_backward.launches = 0
-    st_gates.launches = 0
-    conv_head_fwd.launches = 0
-    rollout_persistent_fwd.launches = 0
-    tap_loop.launches = 0
-    tap_k1152.launches = 0
+    """Snapshot the program's counters: ``counted`` reads from here."""
+    _since.clear()
+    _since.update(counters())
+
+
+def counted(key):
+    """What the counter ``key`` (a key of ``counters()`` or of LAUNCH_KEYS)
+    rose by since the last reset_counts()."""
+    key = LAUNCH_KEYS.get(key, key)
+    return counters()[key] - _since.get(key, 0)
 
 
 # K6 launches as expect_counts read them, by the path its ``path`` names
@@ -1559,34 +1565,30 @@ def reset_counts():
 K6_BY_PATH = {}
 
 
-def expect_counts(what, k1, k2, k1z=0, k5=0, k6=0, path=None, k7=0):
-    """Raise unless K1 (without z), K2, K1 with z, K5, K6 and K7 launched
-    exactly k1, k2, k1z, k5, k6 and k7 times since the last reset_counts()
-    (K7, the ST-LSTM gate passes, 0 on every ConvLSTM path); returns the
-    counts of K1, K2, K5, K6 and K7. With ``path`` the K6 count read is
-    kept in K6_BY_PATH[path]."""
-    got = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
-           "conv_head_fwd": conv_head_fwd.launches,
-           "rollout_persistent_fwd": rollout_persistent_fwd.launches,
-           "cell_backward": cell_backward.launches,
-           "st_gates": st_gates.launches}
-    if got != {"convlstm_cell_fwd": k1, "conv_head_fwd": k2,
-               "rollout_persistent_fwd": k5, "cell_backward": k6,
-               "st_gates": k7} or \
-            convlstm_cell_fwd.launches_z != k1z:
-        raise AssertionError(f"{what}: launches {got}, with z "
-                             f"{convlstm_cell_fwd.launches_z}; expected {k1} "
-                             f"K1, {k2} K2, {k1z} K1 with z, {k5} K5, {k6} K6 "
-                             f"and {k7} K7")
+def expect_counts(what, k1, k2, k1z=0, k5=0, k6=0, path=None, k7=0, k3=0,
+                  k4=0):
+    """Raise unless each kernel launched as often as its keyword of
+    LAUNCH_KEYS says since the last reset_counts() (K1 without z, K2, K1
+    with z, K5, K6, K7 and K3/K4; every one not named 0: K7, the ST-LSTM
+    gate passes, on every ConvLSTM path); returns the counts of K1, K2,
+    K5, K6 and K7 by wrapper. With ``path`` the K6 count read is kept in
+    K6_BY_PATH[path]."""
+    want = dict(k1=k1, k1z=k1z, k2=k2, k3=k3, k4=k4, k5=k5, k6=k6, k7=k7)
+    got = {kw: counted(kw) for kw in LAUNCH_KEYS}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}; expected {want}")
     if path is not None:
-        K6_BY_PATH[path] = got["cell_backward"]
-    return got
+        K6_BY_PATH[path] = got["k6"]
+    return {LAUNCH_KEYS[kw].split(".")[0]: got[kw]
+            for kw in ("k1", "k2", "k5", "k6", "k7")}
 
 
 def graph_counts():
     """(captures, replays, eager calls) of the training losses' CUDA graphs
     so far (``models/loss_graphs.py``)."""
-    return (loss_graphs.captures, loss_graphs.replays, loss_graphs.eager)
+    got = counters()
+    return tuple(got[f"loss_graphs.{k}"] for k in ("captures", "replays",
+                                                   "eager"))
 
 
 def graph_delta(before):
@@ -1834,10 +1836,8 @@ def export_worker(work, dtype_name):
     outs = [serve(r) for r in requests]
     torch.cuda.synchronize()
     torch.save({"outs": [o.cpu() for o in outs],
-                "counts": (convlstm_cell_fwd.launches, conv_head_fwd.launches,
-                           convlstm_cell_fwd.launches_z,
-                           rollout_persistent_fwd.launches,
-                           cell_backward.launches)},
+                "counts": tuple(counted(kw) for kw in ("k1", "k2", "k1z",
+                                                       "k5", "k6"))},
                os.path.join(work, f"served_{dtype_name}.pt"))
     return 0
 
@@ -2351,7 +2351,7 @@ def phase_trainer(tmp, request):
     t0 = time.perf_counter()
     reset_counts()
     h2 = cli.main(["--config", yamls[0], "--mode", "train"])
-    train_launches = convlstm_cell_fwd.launches_z
+    train_launches = counted("k1z")
     expect_counts("trainer 2 epochs", TRAINER_EPOCHS * n_val * per_step, 0,
                   TRAINER_EPOCHS * n_train * per_step,
                   k6=TRAINER_EPOCHS * n_train * per_step,
@@ -2401,11 +2401,9 @@ def phase_tap_structure():
     from pl_convlstm_gan_tpu_torch.experiments import tap_structure as ts
     reset_counts()
     runs = {r["name"]: r for r in ts.run(device=DEVICE)}
-    launches = {"tap_loop": tap_loop.launches, "tap_k1152": tap_k1152.launches}
     expect = ts.ITERS * ts.ROUNDS + 1          # and one warm-up launch
-    if launches != {"tap_loop": expect, "tap_k1152": expect}:
-        raise AssertionError(f"tap_structure launches {launches}, expected "
-                             f"{expect} each")
+    expect_counts("tap_structure", 0, 0, k3=expect, k4=expect)
+    launches = {"tap_loop": expect, "tap_k1152": expect}
     a9, w9, abig, wbig = ts.operands(DEVICE)
     m, n, kt, reps = ts.M, ts.N, ts.TAPS * ts.K, ts.REPS
     flops = ts.flops(reps)
@@ -2565,8 +2563,7 @@ def profile_gan_step(step, batch, p50_ms):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         prof.step()
-    k1 = {"without_z": convlstm_cell_fwd.launches,
-          "with_z": convlstm_cell_fwd.launches_z}
+    k1 = {"without_z": counted("k1"), "with_z": counted("k1z")}
     events = list(prof.events())
     kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA
                and not ev.name.startswith("ProfilerStep")
@@ -2767,8 +2764,8 @@ def phase_gan_trainer(tmp, seed):
     t0 = time.perf_counter()
     reset_counts()
     h2 = cli.main(["--config", yamls[0], "--mode", "train"])
-    train_launches = {"convlstm_cell_fwd": convlstm_cell_fwd.launches,
-                      "convlstm_cell_fwd_save_z": convlstm_cell_fwd.launches_z}
+    train_launches = {"convlstm_cell_fwd": counted("k1"),
+                      "convlstm_cell_fwd_save_z": counted("k1z")}
     # default step: one detached forward (K1 without z) and one with z a
     # step; validation runs K1 without z
     expect_counts("gan trainer 2 epochs",
@@ -3066,7 +3063,7 @@ def phase_generator_trainer(tmp, seed):
     reset_counts()
     h2 = cli.main(["--config", yamls[0], "--mode", "train"])
     seconds["train"] = time.perf_counter() - t0
-    train_launches_z = convlstm_cell_fwd.launches_z
+    train_launches_z = counted("k1z")
     expect_counts("generator trainer 2 epochs",
                   TRAINER_EPOCHS * -(-n_val // b) * per_call, 0,
                   TRAINER_EPOCHS * (n_train // b) * per_call,
@@ -3835,8 +3832,7 @@ def dp_drive(entry, group, rank=0, world=1):
         metrics.append(run(batch, d))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        counts.append((convlstm_cell_fwd.launches,
-                       convlstm_cell_fwd.launches_z, cell_backward.launches))
+        counts.append(tuple(counted(kw) for kw in ("k1", "k1z", "k6")))
         graphs.append(graph_delta(before))
     params = [p.detach().cpu() for m in modules for p in m.parameters()]
     return dict(grads=grads, grad_norms=grad_norms, metrics=metrics,
@@ -4166,13 +4162,12 @@ def tp_count_all_reduce():
 def tp_drive(entry, group, pos, count=None):
     """One TP run on this process: under ``group`` (MeshGroups) this rank's
     shards of the canonical state on its data replica's rows, else one
-    process on the global batch; TP_STEPS steps, each between the counts
-    set to 0 and read: K1 (without z, with z), the cells' all-gathers and
-    all-reduces, every all_reduce (``count``); step ms; peak allocated
-    memory. Returns, on the CPU: metrics, counts, times, the canonical
+    process on the global batch; TP_STEPS steps, each between a snapshot
+    of the counters and a read: K1 (without z, with z), the cells'
+    all-gathers and all-reduces, every all_reduce (``count``); step ms;
+    peak allocated memory. Returns, on the CPU: metrics, counts, times, the canonical
     Adam moments after step 1, the canonical params after the steps, and
     this rank's replicated params."""
-    from pl_convlstm_gan_tpu_torch.parallel import tp_collectives as tpc
     from pl_convlstm_gan_tpu_torch.parallel.tensor_parallel import (
         canonical_state_dict, is_cell_param, shard_state_dict)
     cfg = tp_config(entry["name"], entry["dtype"], entry["batch"])
@@ -4224,7 +4219,6 @@ def tp_drive(entry, group, pos, count=None):
     metrics, counts, times, peaks, first = [], [], [], [], None
     for i, (batch, d) in enumerate(zip(batches, draws)):
         reset_counts()
-        tpc.reset_counts()
         if count is not None:
             count["n"] = 0
         torch.cuda.synchronize()
@@ -4235,10 +4229,11 @@ def tp_drive(entry, group, pos, count=None):
         times.append((time.perf_counter() - t0) * 1e3)
         peaks.append(torch.cuda.max_memory_allocated() / 1e9)
         counts.append(dict(
-            convlstm_cell_fwd=convlstm_cell_fwd.launches,
-            convlstm_cell_fwd_save_z=convlstm_cell_fwd.launches_z,
-            cell_backward=cell_backward.launches,
-            gather_h=tpc.gather_h.calls, copy_in=tpc.copy_in.calls,
+            convlstm_cell_fwd=counted("k1"),
+            convlstm_cell_fwd_save_z=counted("k1z"),
+            cell_backward=counted("k6"),
+            gather_h=counted("gather_h.calls"),
+            copy_in=counted("copy_in.calls"),
             all_reduce=None if count is None else count["n"]))
         if i == 0:
             first = moments()

@@ -54,7 +54,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ..ops.kernels.convlstm_kernel import reserve_capture_workspace
-from ..utils.profiling import add_counts, counters, span
+from ..utils.profiling import add_counts, count, counters, declare, span
+
+declare("loss_graphs.captures", "loss_graphs.replays", "loss_graphs.eager")
 
 # model -> {key: _LossGraphs, or None once the key ran eagerly}
 _GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -83,15 +85,10 @@ def loss_graphs(model, weights: Sequence[torch.Tensor], loss: Callable,
     graphs = _graphs(model, weights, loss, inputs, targets, extra, key)
     if graphs is None:
         if torch.is_grad_enabled() and inputs.is_cuda:
-            loss_graphs.eager += 1
+            count("loss_graphs.eager")
         return loss(inputs, targets, extra, None)
-    loss_graphs.replays += 1
+    count("loss_graphs.replays")
     return graphs(inputs, targets, extra)
-
-
-loss_graphs.captures = 0
-loss_graphs.replays = 0
-loss_graphs.eager = 0
 
 
 def _graphs(model, weights, loss, inputs, targets, extra, key
@@ -113,7 +110,7 @@ def _graphs(model, weights, loss, inputs, targets, extra, key
     if graphs is None:
         graphs = cache[full] = _LossGraphs(weights, loss, inputs, targets,
                                            extra)
-        loss_graphs.captures += 1
+        count("loss_graphs.captures")
     return None if graphs.pending() else graphs
 
 

@@ -8,9 +8,14 @@ started together. Libraries go to ``pl_convlstm_gan_tpu_torch/_build/`` under
 a name that hashes the source, every header of ``csrc/`` (``*.cuh``, which
 the sources include) and the flags, so an edited source or header is rebuilt
 and an unchanged one is not.
+
+Every kernel launches through ``launch``: the C entry (loaded once), the
+device made current where it is not, the current stream's raw handle last
+among the arguments, the returned error checked.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +24,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -123,3 +130,25 @@ def check(err: int, name: str, what: str) -> None:
         describe.restype = ctypes.c_char_p
         raise RuntimeError(f"{what} failed: CUDA error {err} "
                            f"({describe(err).decode()})")
+
+
+def device_guard(device):
+    """A context that makes the CUDA ``device`` current, or none where it
+    is current already (autograd's thread for it; the main thread on one
+    card), which saves the host a ``torch.cuda.device``."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(name: str, symbol: str, argtypes, device, *args, what: str
+           ) -> None:
+    """Call the C entry ``symbol`` of ``csrc/<name>.cu`` (``load_function``)
+    on ``device`` as ``fn(*args, stream)``: ``stream`` is the raw handle of
+    ``device``'s current stream, whichever the caller made current (a graph
+    capture's, autograd's backward's). Raises (``check``, naming ``what``)
+    on a CUDA error."""
+    fn = load_function(name, symbol, argtypes)
+    with device_guard(device):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    check(err, name, what)

@@ -25,12 +25,12 @@ plain version only for tensors on the CPU.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 import torch.nn.functional as F
 
+from ...utils import profiling
 from ..convlstm import convlstm_gates
 from ..nn import conv2d_nhwc_f32, oihw_from_hwio
 from . import build
@@ -52,6 +52,9 @@ _FOLD_BYTES = 128 * BK * 2                  # one k-block of folded x
 F32_CK = 8              # chunk of the float32 kernel: 8 input channels
 F32_BN = 128            # packed columns of a float32 block: 32 channels
 F32_KERNEL_SIZES = (1, 3, 5)   # the float32 kernel's template instances
+
+profiling.declare("convlstm_cell_fwd.launches", "convlstm_cell_fwd.launches_z",
+                  "convlstm_cell_fwd.flops", "cell_backward.launches")
 
 
 def k_blocks(cx: int, ch: int, k: int):
@@ -302,26 +305,17 @@ def convlstm_cell_fwd(x, h, c, weight, bias, h_out=None, c_out=None,
         packed = kernel_pack(weight, x.dtype)
     _check_args(x, h, c, weight, bias, h_out, c_out, z_out, packed)
     b, hgt, wid, cx = x.shape
-    fn = build.load_function("convlstm_cell", _SYMBOLS[x.dtype], _ARGTYPES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (x, h, c, packed, bias, h_out,
+    ch, k = h.shape[-1], weight.shape[0]
+    build.launch("convlstm_cell", _SYMBOLS[x.dtype], _ARGTYPES, x.device,
+                 *(t.data_ptr() for t in (x, h, c, packed, bias, h_out,
                                           c_out)),
                  None if z_out is None else z_out.data_ptr(), b, hgt, wid, cx,
-                 h.shape[-1], weight.shape[0], stream)
-    build.check(err, "convlstm_cell", "convlstm_cell_fwd launch")
-    if z_out is None:
-        convlstm_cell_fwd.launches += 1
-    else:
-        convlstm_cell_fwd.launches_z += 1
-    ch, k = h.shape[-1], weight.shape[0]
-    convlstm_cell_fwd.flops += 2 * b * hgt * wid * k * k * (cx + ch) * 4 * ch
+                 ch, k, what="convlstm_cell_fwd launch")
+    profiling.count("convlstm_cell_fwd.launches" if z_out is None
+                    else "convlstm_cell_fwd.launches_z")
+    profiling.count("convlstm_cell_fwd.flops",
+                    2 * b * hgt * wid * k * k * (cx + ch) * 4 * ch)
     return h_out, c_out
-
-
-convlstm_cell_fwd.launches = 0
-convlstm_cell_fwd.launches_z = 0
-convlstm_cell_fwd.flops = 0
 
 
 def cell_backward_plain(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
@@ -394,10 +388,13 @@ def _check_backward_args(z, c, c_next, dh_next, dc_next, x, h, db_dtype,
 _bwd_workspace: dict = {}
 
 
-def _workspace(device, stream, cols: int):
+def _workspace(device, cols: int):
     """(counter, partials, max_blocks) for a K6 launch of ``cols`` = 4Ch
-    columns on ``stream``: partials holds max_blocks rows of them."""
-    capturing = torch.cuda.is_current_stream_capturing()
+    columns on ``device``'s current stream: partials holds max_blocks rows
+    of them."""
+    with build.device_guard(device):
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
+        capturing = torch.cuda.is_current_stream_capturing()
     key = (device.index, stream, capturing)
     ws = _bwd_workspace.get(key)
     if ws is None or ws[1].numel() < ws[2] * cols:
@@ -449,12 +446,18 @@ def cell_backward(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("the cell backward's operands must all lie on one "
                          "CUDA device")
+    return _launch_cell_backward(z, c, c_next, *_contiguous(dh_next, dc_next),
+                                 x, h, db_dtype)
+
+
+def _contiguous(dh_next, dc_next):
+    """K6's incoming gradients made contiguous where they are not (autograd
+    may hand strided ones): the kernel reads them flat."""
     if not dh_next.is_contiguous():
         dh_next = dh_next.contiguous()
     if not dc_next.is_contiguous():
         dc_next = dc_next.contiguous()
-    return _launch_cell_backward(z, c, c_next, dh_next, dc_next, x, h,
-                                 db_dtype)
+    return dh_next, dc_next
 
 
 def _launch_cell_backward(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
@@ -471,25 +474,16 @@ def _launch_cell_backward(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
     xh = torch.empty((b, hgt, wid, cx + ch), dtype=torch.float32, device=dev)
     dc_prev = torch.empty_like(c)
     db = torch.empty(4 * ch, dtype=db_dtype, device=dev)
-    fn = build.load_function("cell_backward", _BWD_SYMBOLS[z.dtype],
-                             _BWD_ARGTYPES)
-    # the launch goes to the current device (autograd's thread for dev has
-    # it current already); the stream's handle without a Stream object
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        counter, partials, blocks = _workspace(dev, stream, 4 * ch)
-        err = fn(z.data_ptr(), c.data_ptr(), c_next.data_ptr(),
+    counter, partials, blocks = _workspace(dev, 4 * ch)
+    build.launch("cell_backward", _BWD_SYMBOLS[z.dtype], _BWD_ARGTYPES, dev,
+                 z.data_ptr(), c.data_ptr(), c_next.data_ptr(),
                  dh_next.data_ptr(), dc_next.data_ptr(), x.data_ptr(),
                  h.data_ptr(), dz.data_ptr(), dc_prev.data_ptr(),
                  xh.data_ptr(), db.data_ptr(), partials.data_ptr(),
-                 counter.data_ptr(), b * hgt * wid, cx, ch, blocks, stream)
-    build.check(err, "cell_backward", "cell_backward launch")
-    cell_backward.launches += 1
+                 counter.data_ptr(), b * hgt * wid, cx, ch, blocks,
+                 what="cell_backward launch")
+    profiling.count("cell_backward.launches")
     return dz, dc_prev, xh, db
-
-
-cell_backward.launches = 0
 
 
 class ConvLSTMCellFn(torch.autograd.Function):
@@ -539,12 +533,9 @@ class ConvLSTMCellFn(torch.autograd.Function):
         cx = x.shape[-1]
         k = weight.shape[0]
         if z.device.type == "cuda":
-            if not dh_next.is_contiguous():
-                dh_next = dh_next.contiguous()
-            if not dc_next.is_contiguous():
-                dc_next = dc_next.contiguous()
             dz, dc_prev, xh, db = _launch_cell_backward(
-                z, c, c_next, dh_next, dc_next, x, h, bias.dtype)
+                z, c, c_next, *_contiguous(dh_next, dc_next), x, h,
+                bias.dtype)
         else:
             dz, dc_prev, xh, db = cell_backward_plain(
                 z, c, c_next, dh_next, dc_next, x, h, bias.dtype)

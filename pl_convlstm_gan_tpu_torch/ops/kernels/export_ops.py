@@ -1,6 +1,6 @@
 """The kernel path of serving as registered PyTorch ops, for ``torch.export``.
 
-K1, K2 and K5 are ctypes launches (``build.load_function``), which
+K1, K2 and K5 are ctypes launches (``build.launch``), which
 ``torch.export`` cannot trace. Each rollout of ``rollout_kernel.py`` that
 serving runs is therefore registered whole as one functional op
 (``torch.library.custom_op``, namespace ``plcg_torch``) with a fake

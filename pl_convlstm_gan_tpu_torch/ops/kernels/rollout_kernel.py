@@ -46,17 +46,18 @@ size does not grow with the frame, so one code path serves 128 px and
 
 This module holds:
 - K2's wrapper ``conv_head_fwd``, its plain version ``conv_head_plain``, its
-  launch count ``conv_head_fwd.launches`` and ``head_kernel_misfit`` (the
+  launch counter ``conv_head_fwd.launches`` and ``head_kernel_misfit`` (the
   shapes K2 does not take);
 - ``rollout_kernel_misfit``: why K1 and K2 do not take a model at a
   compute dtype (None when they do), a pure function of the config's
   widths, by which ``rollout_impl: auto`` picks the kernels or the plain path
   before any launch; ``persistent_misfit``: why K5 does not take it;
 - ``rollout_schedule`` and ``walk_schedule``: the phase table and its walk;
-- K5's wrapper ``rollout_persistent_fwd`` (``.launches``, ``.flops``, the
-  operations it ran, and ``.last_launch``, its grid) and its plain version
-  ``rollout_persistent_plain``; ``stamp_phases``, which splits a launch's
-  per-phase clock (its ``stamps``) into cell tiles, head tiles and barriers;
+- K5's wrapper ``rollout_persistent_fwd`` (counters ``.launches`` and
+  ``.flops``, the operations it ran; ``.last_launch``, its grid) and its
+  plain version ``rollout_persistent_plain``; ``stamp_phases``, which splits
+  a launch's per-phase clock (its ``stamps``) into cell tiles, head tiles
+  and barriers (the program trace's reader of K5's stamps);
 - ``pack_weights``: the model's state_dict -> the kernels' HWIO layout, and
   on the card each cell's weight packed once for K1 and K5 (``kernel_pack``);
 - ``rollout_kernel`` (the counterpart of ``rollout_pallas``) and
@@ -87,6 +88,9 @@ _SYMBOLS = {torch.float32: "conv_head_fwd_f32",
             torch.bfloat16: "conv_head_fwd_bf16"}
 _TILE = 8               # K2's tile: 8 x 8 pixels
 _SMEM_LIMIT = 232448    # shared memory one Hopper block may use (227 KB)
+
+profiling.declare("conv_head_fwd.launches", "rollout_persistent_fwd.launches",
+                  "rollout_persistent_fwd.flops")
 
 
 def conv_head_plain(h, weight, bias, out=None):
@@ -153,17 +157,11 @@ def conv_head_fwd(h, weight, bias, out=None):
                          "be 16-byte aligned")
     if out.data_ptr() == h.data_ptr():
         raise ValueError("out must not alias h")
-    fn = build.load_function("conv_head", _SYMBOLS[h.dtype], _ARGTYPES)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), b, hgt, wid, cin, cout, k,
-                 stream)
-    build.check(err, "conv_head", "conv_head_fwd launch")
-    conv_head_fwd.launches += 1
+    build.launch("conv_head", _SYMBOLS[h.dtype], _ARGTYPES, h.device,
+                 *(t.data_ptr() for t in tensors), b, hgt, wid, cin, cout, k,
+                 what="conv_head_fwd launch")
+    profiling.count("conv_head_fwd.launches")
     return out
-
-
-conv_head_fwd.launches = 0
 
 
 def rollout_kernel_misfit(hidden_dims, in_channels: int, kernel_size: int,
@@ -543,9 +541,9 @@ def rollout_persistent_fwd(weights: RolloutWeights, fr, steps: int,
     """K5: the whole rollout of ``_steps`` (same arguments and result) in one
     cooperative launch of ``csrc/rollout_persistent.cu`` on CUDA tensors,
     which must be bfloat16 with K1's packed weights; on CPU tensors its plain
-    version ``rollout_persistent_plain``. Each launch adds one to
-    ``rollout_persistent_fwd.launches`` and its operations (every cell's
-    and head's conv, as ``convlstm_cell_fwd.flops`` counts K1's) to
+    version ``rollout_persistent_plain``. Each launch adds one to the
+    counter ``rollout_persistent_fwd.launches`` and its operations (every
+    cell's and head's conv, as ``convlstm_cell_fwd.flops`` counts K1's) to
     ``.flops``; ``.last_launch`` holds the last launch's grid, blocks an SM,
     shared memory, ring stages, SMs and phases. ``persistent_misfit`` states
     the models it refuses. ``stamps``, a CUDA int64 tensor of at least
@@ -603,24 +601,22 @@ def _launch_persistent(weights: RolloutWeights, fr, steps: int,
                          f"{fr.device}")
     counter = torch.empty(1, dtype=torch.int32, device=fr.device)
     info = (ctypes.c_int * 5)()
-    fn = build.load_function("rollout_persistent", "rollout_persistent_bf16",
-                             _K5_ARGTYPES)
-    with torch.cuda.device(fr.device):
-        stream = torch.cuda.current_stream(fr.device).cuda_stream
-        err = fn(table.data_ptr(), table.shape[0], n, fr.data_ptr(),
-                 out.data_ptr(), (ctypes.c_void_p * len(ptrs))(*ptrs),
+    build.launch("rollout_persistent", "rollout_persistent_bf16",
+                 _K5_ARGTYPES, fr.device, table.data_ptr(), table.shape[0], n,
+                 fr.data_ptr(), out.data_ptr(),
+                 (ctypes.c_void_p * len(ptrs))(*ptrs),
                  (ctypes.c_int * len(dims))(*dims),
                  weights.head[0].data_ptr(), weights.head[1].data_ptr(), b,
                  hgt, wid, cin, k, counter.data_ptr(), info,
-                 None if stamps is None else stamps.data_ptr(), stream)
-    build.check(err, "rollout_persistent", "rollout_persistent_fwd launch")
-    rollout_persistent_fwd.launches += 1
+                 None if stamps is None else stamps.data_ptr(),
+                 what="rollout_persistent_fwd launch")
+    profiling.count("rollout_persistent_fwd.launches")
     px = b * hgt * wid
     cell_ops = sum(2 * px * k * k * (cx + ch) * 4 * ch
                    for cx, ch in zip((cin,) + hidden, hidden))
     n_heads = steps - emit_from
-    rollout_persistent_fwd.flops += (steps * cell_ops
-                                     + n_heads * 2 * px * 9 * hidden[-1] * cin)
+    profiling.count("rollout_persistent_fwd.flops",
+                    steps * cell_ops + n_heads * 2 * px * 9 * hidden[-1] * cin)
     rollout_persistent_fwd.last_launch = dict(
         zip(("grid", "blocks_per_sm", "smem_bytes", "stages", "sms"), info),
         phases=table.shape[0])
@@ -628,8 +624,6 @@ def _launch_persistent(weights: RolloutWeights, fr, steps: int,
                                                            final))
 
 
-rollout_persistent_fwd.launches = 0
-rollout_persistent_fwd.flops = 0
 rollout_persistent_fwd.last_launch = None
 
 
@@ -659,6 +653,16 @@ def stamp_phases(stamps, table) -> dict:
     return dict(total_us=(s[2 + 2 * last] - s[0]) / 1e3,
                 work_us={k: v / 1e3 for k, v in work.items()},
                 barrier_us=barrier / 1e3, phases=count, barriers=last)
+
+
+def _read_k5(stamps, schedule) -> list:
+    """``stamp_phases`` of each row of ``stamps``, launches of one
+    ``schedule`` (``profiling.set_k5_reader``)."""
+    table = rollout_schedule(*schedule)
+    return [stamp_phases(row, table) for row in stamps]
+
+
+profiling.set_k5_reader(_read_k5)
 
 
 def _rollout(weights: RolloutWeights, frames, t_out: int, compute_dtype,

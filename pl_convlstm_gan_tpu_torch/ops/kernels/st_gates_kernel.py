@@ -31,12 +31,12 @@ or raises. Every launch, forward or backward, counts in
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Optional, Sequence
 
 import torch
 
+from ...utils import profiling
 from . import build
 
 _P = ctypes.c_void_p
@@ -46,6 +46,8 @@ _ARGTYPES = {"a_fwd": [_P] * 11 + [_LL, _I, _P],
              "b_fwd": [_P] * 4 + [_LL, _I, _P],
              "b_bwd": [_P] * 7 + [_LL, _I, _P]}
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+profiling.declare("st_gates.launches")
 
 
 def _path_plain(xs, xf, xg, ys, yf, yg, prev):
@@ -152,15 +154,9 @@ def _check(what: str, dtype, f32: Sequence = (), **named) -> torch.device:
 
 
 def _launch(kind: str, dtype, dev, *args) -> None:
-    fn = build.load_function("st_lstm_gates",
-                             f"st_gates_{kind}_{_DTYPES[dtype]}",
-                             _ARGTYPES[kind])
-    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
-          else torch.cuda.device(dev)):
-        stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        err = fn(*args, stream)
-    build.check(err, "st_lstm_gates", f"st_gates {kind} launch")
-    st_gates.launches += 1
+    build.launch("st_lstm_gates", f"st_gates_{kind}_{_DTYPES[dtype]}",
+                 _ARGTYPES[kind], dev, *args, what=f"st_gates {kind} launch")
+    profiling.count("st_gates.launches")
 
 
 def _shapes(x_cat, h_cat, m_cat, c, m):
@@ -300,9 +296,6 @@ def st_gates(x_cat, h_cat, m_cat, c, m, deltas: bool = True):
     if _grad_on(x_cat, h_cat, m_cat, c, m):
         return STGatesA.apply(x_cat, h_cat, m_cat, c, m)
     return st_gates_fwd(x_cat, h_cat, m_cat, c, m, deltas=deltas)
-
-
-st_gates.launches = 0
 
 
 def st_hidden(oxh, om, last):

@@ -9,7 +9,7 @@ each) and ``big_kernel`` (REPS repetitions of abig @ wbig, K = 9 * 128 =
 the source note says what bounds them and how they are laid out.
 
 - ``tap_loop(a9, w9, reps)`` (K3) and ``tap_k1152(abig, wbig, reps)`` (K4):
-  the wrappers; each counts its launches in ``.launches``;
+  the wrappers; each counts its launches in ``<wrapper>.launches``;
 - ``tap_kernel_misfit``: the shapes the kernels refuse, stated once (the
   C entries' ``shape_ok``);
 - ``taps_plain`` / ``big_plain``: the plain versions, a float32
@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ...utils import profiling
 from . import build
 
 TAPS = 9
@@ -39,6 +40,8 @@ _SOURCE = "tap_structure"
 # when the source compiles)
 _BM, _BN, _PAIR = 64, 64, 2
 _K3_SEG, _KT = 128, TAPS * 128
+
+profiling.declare("tap_loop.launches", "tap_k1152.launches")
 
 
 def tap_kernel_misfit(m: int, n: int, kt: int, seg: int, reps: int
@@ -86,13 +89,14 @@ def _check(a, w, m, kt, seg, n, reps):
         raise ValueError(f"tap kernels refuse this shape: {misfit}")
 
 
-def _launch(symbol, what, a, w, m, n, ints):
+def _launch(wrapper, a, w, m, n, ints):
+    """Launch ``<wrapper>_bf16`` into a new out [m, n]; count it in
+    ``<wrapper>.launches``."""
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    fn = build.load_function(_SOURCE, symbol, _ARGTYPES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), *ints, stream)
-    build.check(err, _SOURCE, what)
+    build.launch(_SOURCE, f"{wrapper}_bf16", _ARGTYPES, a.device,
+                 a.data_ptr(), w.data_ptr(), out.data_ptr(), *ints,
+                 what=f"{wrapper} launch")
+    profiling.count(f"{wrapper}.launches")
     return out
 
 
@@ -108,10 +112,7 @@ def tap_loop(a9: torch.Tensor, w9: torch.Tensor, reps: int) -> torch.Tensor:
                          f"[{TAPS}, K, N], got {tuple(a9.shape)}, "
                          f"{tuple(w9.shape)}")
     _check(a9, w9, m, TAPS * k, k, n, reps)
-    out = _launch("tap_loop_bf16", "tap_loop launch", a9, w9, m, n,
-                  (m, k, n, reps))
-    tap_loop.launches += 1
-    return out
+    return _launch("tap_loop", a9, w9, m, n, (m, k, n, reps))
 
 
 def tap_k1152(abig: torch.Tensor, wbig: torch.Tensor, reps: int
@@ -126,11 +127,4 @@ def tap_k1152(abig: torch.Tensor, wbig: torch.Tensor, reps: int
         raise ValueError(f"tap_k1152 needs abig [M, KT] and wbig [KT, N], "
                          f"got {tuple(abig.shape)}, {tuple(wbig.shape)}")
     _check(abig, wbig, m, kt, kt, n, reps)
-    out = _launch("tap_k1152_bf16", "tap_k1152 launch", abig, wbig, m, n,
-                  (m, kt, n, reps))
-    tap_k1152.launches += 1
-    return out
-
-
-tap_loop.launches = 0
-tap_k1152.launches = 0
+    return _launch("tap_k1152", abig, wbig, m, n, (m, kt, n, reps))

@@ -24,6 +24,10 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
+profiling.declare("gather_h.calls", "copy_in.calls")
+
 
 class _GatherH(torch.autograd.Function):
     @staticmethod
@@ -33,7 +37,7 @@ class _GatherH(torch.autograd.Function):
         out = torch.empty((n * h.shape[0],) + tuple(h.shape[1:]),
                           dtype=h.dtype, device=h.device)
         dist.all_gather_into_tensor(out, h.contiguous(), group=group)
-        gather_h.calls += 1
+        profiling.count("gather_h.calls")
         # [n, ..., Ch/n] -> [..., n * Ch/n]: rank r's channels at block r
         return out.view(n, *h.shape).movedim(0, -2).reshape(
             *h.shape[:-1], n * h.shape[-1])
@@ -56,7 +60,7 @@ class _CopyIn(torch.autograd.Function):
     def backward(ctx, grad: torch.Tensor):
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=ctx.group)
-        copy_in.calls += 1
+        profiling.count("copy_in.calls")
         return grad, None
 
 
@@ -70,12 +74,3 @@ def copy_in(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` itself; its gradient is summed over ``group`` in the
     backward."""
     return _CopyIn.apply(x, group)
-
-
-gather_h.calls = 0
-copy_in.calls = 0
-
-
-def reset_counts() -> None:
-    """Set ``gather_h.calls`` and ``copy_in.calls`` to 0."""
-    gather_h.calls = copy_in.calls = 0

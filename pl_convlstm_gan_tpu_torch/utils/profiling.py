@@ -39,12 +39,16 @@ the work happens.
   device until the log is read (``ProgramLog.k5_phases``), and under (b)
   each span is also a ``record_function`` range, so that the profiler's
   trace shows it.
-- ``counters()``: every counter of the program in one dict: the kernel
-  wrappers' launches and operations (K1, K6, K2, K5, K3/K4, K7), the collectives
-  of tensor parallelism, the training losses' CUDA graphs (captures,
-  replays and eager calls) and ``host_syncs`` (``host_sync``). Counters count
+- ``counters()``: every counter of the program in one dict, from one
+  registry here that the modules that count fill: each declares its keys
+  when it is imported (``declare``) and adds to them as it runs
+  (``count``): the kernel wrappers of ``ops/kernels/``,
+  ``parallel/tp_collectives``, ``models/loss_graphs``, and ``host_sync``
+  here. A new kernel's counters touch only its own module. Counters count
   whether tracing is on or not; a replayed CUDA graph adds what its capture
-  counted (``add_counts``).
+  counted (``add_counts``). This module imports nothing of the package's
+  other layers: K5's stamps are split by phase by the reader that
+  ``rollout_kernel`` hands it (``set_k5_reader``).
 """
 from __future__ import annotations
 
@@ -185,11 +189,11 @@ def profile_trace(logdir: str):
 def _kernel_flops() -> int:
     """The operations K1 and K5 have launched so far
     (``convlstm_cell_fwd.flops``, with and without z, and
-    ``rollout_persistent_fwd.flops``): the kernel path's forward does not go
-    through aten, so ``FlopCounterMode`` does not see it."""
-    from ..ops.kernels.convlstm_kernel import convlstm_cell_fwd
-    from ..ops.kernels.rollout_kernel import rollout_persistent_fwd
-    return convlstm_cell_fwd.flops + rollout_persistent_fwd.flops
+    ``rollout_persistent_fwd.flops``; 0 for a kernel whose module is not
+    imported): the kernel path's forward does not go through aten, so
+    ``FlopCounterMode`` does not see it."""
+    return (_counts.get("convlstm_cell_fwd.flops", 0)
+            + _counts.get("rollout_persistent_fwd.flops", 0))
 
 
 class _CostWindow:
@@ -293,7 +297,8 @@ class Span:
     ``root``, the id of its top-level span (its own for a top-level span),
     and for a closed top-level span ``counts``: what each of
     ``counters()`` rose by over it (from the snapshots ``c0`` and ``c1``,
-    taken in the order of ``counters()``)."""
+    lists in the order of ``counters()``, whose keys are only ever
+    appended; a key declared between the two counts from 0)."""
     __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "root", "c0",
                  "c1")
 
@@ -312,8 +317,8 @@ class Span:
     def counts(self) -> Optional[Dict[str, int]]:
         if self.c0 is None or self.c1 is None:
             return None
-        return {key: b - a for (key, _, _), a, b in zip(_counter_sources(),
-                                                        self.c0, self.c1)}
+        c0 = self.c0 + [0] * (len(self.c1) - len(self.c0))
+        return {key: b - a for key, a, b in zip(_counts, c0, self.c1)}
 
     def __repr__(self) -> str:
         return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, "
@@ -350,9 +355,8 @@ class ProgramLog:
         """``rollout_kernel.stamp_phases`` of each K5 launch issued between
         ``t0_ns`` and ``t1_ns``, in order: block 0's time in each cell's
         tiles, in the head's and at the barriers. Copies the stamps to the
-        host, one copy a schedule, which waits for the launches."""
-        from ..ops.kernels.rollout_kernel import (rollout_schedule,
-                                                  stamp_phases)
+        host, one copy a schedule, which waits for the launches. The split
+        is the kernel layer's (``set_k5_reader``)."""
         lo = float("-inf") if t0_ns is None else t0_ns
         hi = float("inf") if t1_ns is None else t1_ns
         chosen = [(i, key) for i, (t, _, key) in enumerate(self.k5)
@@ -362,10 +366,8 @@ class ProgramLog:
             by_key.setdefault(key, []).append(i)
         phases = {}
         for key, idx in by_key.items():
-            table = rollout_schedule(*key)
             host = torch.stack([self.k5[i][1] for i in idx]).cpu()
-            for i, stamps in zip(idx, host):
-                phases[i] = stamp_phases(stamps, table)
+            phases.update(zip(idx, _k5_reader(host, key)))
         return [phases[i] for i, _ in chosen]
 
 
@@ -448,16 +450,13 @@ def span(name: str):
 
 def host_sync(site: str):
     """Mark a host sync (a read of a device value that waits for the
-    device) at ``site``: counted in ``host_sync.count`` (``host_syncs`` of
-    ``counters()``) whether tracing is on or not, and while it is on
-    spanned as ``plcg.sync.<site>``, whose length is the host's wait."""
-    host_sync.count += 1
+    device) at ``site``: counted in ``host_syncs`` of ``counters()``
+    whether tracing is on or not, and while it is on spanned as
+    ``plcg.sync.<site>``, whose length is the host's wait."""
+    _counts["host_syncs"] += 1
     if _on or _autograd_profiler._is_profiler_enabled:
         return _Span("sync." + site)
     return _NULL
-
-
-host_sync.count = 0
 
 
 @contextlib.contextmanager
@@ -501,57 +500,60 @@ def log_k5(stamps: torch.Tensor, schedule: Tuple[int, int, int, int]) -> None:
     _log.k5.append((time.time_ns(), stamps, schedule))
 
 
-_COUNTERS: List[Tuple[str, Any, str]] = []
+def set_k5_reader(reader: Callable) -> None:
+    """Set how ``ProgramLog.k5_phases`` splits K5's stamps:
+    ``reader(stamps, schedule)`` returns ``stamp_phases``' dict for each
+    row of ``stamps`` (launches of one schedule, on the host).
+    ``rollout_kernel``, which logs the launches, sets it at import."""
+    global _k5_reader
+    _k5_reader = reader
 
 
-def _counter_sources() -> List[Tuple[str, Any, str]]:
-    """(key, object, attribute) of each counter, found once."""
-    if not _COUNTERS:
-        from ..ops.kernels.convlstm_kernel import (cell_backward,
-                                                   convlstm_cell_fwd)
-        from ..ops.kernels.rollout_kernel import (conv_head_fwd,
-                                                  rollout_persistent_fwd)
-        from ..ops.kernels.st_gates_kernel import st_gates
-        from ..models.loss_graphs import loss_graphs
-        from ..ops.kernels.tap_structure_kernel import tap_k1152, tap_loop
-        from ..parallel.tp_collectives import copy_in, gather_h
-        _COUNTERS.extend(
-            (f"{fn.__name__}.{attr}", fn, attr) for fn, attr in (
-                (convlstm_cell_fwd, "launches"),
-                (convlstm_cell_fwd, "launches_z"),
-                (convlstm_cell_fwd, "flops"), (cell_backward, "launches"),
-                (conv_head_fwd, "launches"),
-                (rollout_persistent_fwd, "launches"),
-                (rollout_persistent_fwd, "flops"), (tap_loop, "launches"),
-                (tap_k1152, "launches"), (st_gates, "launches"),
-                (gather_h, "calls"), (copy_in, "calls"),
-                (loss_graphs, "captures"), (loss_graphs, "replays"),
-                (loss_graphs, "eager")))
-        _COUNTERS.append(("host_syncs", host_sync, "count"))
-    return _COUNTERS
+_k5_reader: Optional[Callable] = None
+
+
+# ---------------------------------------------------- the program's counters
+
+_counts: Dict[str, int] = {"host_syncs": 0}
+
+
+def declare(*keys: str) -> None:
+    """Make each of ``keys`` a counter of ``counters()``, at 0 unless it
+    exists. A module that counts declares its keys when it is imported."""
+    for key in keys:
+        _counts.setdefault(key, 0)
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to the declared counter ``key``: one dict-item add, no
+    lock, no allocation."""
+    _counts[key] += n
 
 
 def _snapshot() -> list:
-    return [getattr(obj, attr) for _, obj, attr in _counter_sources()]
+    return list(_counts.values())
 
 
 def counters() -> Dict[str, int]:
-    """Every counter of the program, by ``<function>.<attribute>``: K1's
-    launches (with z apart) and operations, K6's launches (the cell's gate
-    backward), K2's launches, K5's launches
-    and operations, K3's and K4's launches, K7's (``st_gates.launches``:
-    the ST-LSTM gate passes, forward and backward), the tensor-parallel
-    collectives' calls, the training losses' CUDA graphs (``loss_graphs.
-    captures``, ``.replays`` and ``.eager``: calls with gradients on CUDA
-    tensors that ran eagerly) and ``host_syncs``. One snapshot; the counters
-    only rise, except where a caller resets them."""
-    return {key: getattr(obj, attr) for key, obj, attr in _counter_sources()}
+    """Every declared counter of the program, by ``<function>.<what>``:
+    K1's launches (``convlstm_cell_fwd.launches``, with z apart in
+    ``.launches_z``) and operations (``.flops``), K6's launches (the cell's
+    gate backward, ``cell_backward.launches``), K2's launches, K5's
+    launches and operations, K3's and K4's launches, K7's
+    (``st_gates.launches``: the ST-LSTM gate passes, forward and backward),
+    the tensor-parallel collectives' calls, the training losses' CUDA
+    graphs (``loss_graphs.captures``, ``.replays`` and ``.eager``: calls
+    with gradients on CUDA tensors that ran eagerly) and ``host_syncs``;
+    the keys of a module appear once it is imported. One snapshot; the
+    counters only rise, except where ``add_counts`` takes a capture's back.
+    What rose over a stretch is the difference of two snapshots."""
+    return dict(_counts)
 
 
 def add_counts(counts: Dict[str, int]) -> None:
-    """Add ``counts`` (by the keys of ``counters()``) to the program's
-    counters: a replayed CUDA graph runs the launches its capture counted,
-    and a capture itself runs none."""
-    for key, obj, attr in _counter_sources():
-        if counts.get(key):
-            setattr(obj, attr, getattr(obj, attr) + counts[key])
+    """Add ``counts`` (by the keys of ``counters()``; others are ignored)
+    to the program's counters: a replayed CUDA graph runs the launches its
+    capture counted, and a capture itself runs none."""
+    for key, n in counts.items():
+        if n and key in _counts:
+            _counts[key] += n

@@ -19,6 +19,7 @@ from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain)
 from pl_convlstm_gan_tpu_torch.ops.nn import hwio_from_oihw, oihw_from_hwio
+from pl_convlstm_gan_tpu_torch.utils.profiling import counters
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -60,10 +61,10 @@ def test_cell_wrapper_on_cpu_is_plain_and_writes_in_place(dtype):
                            for a in _cell_inputs(3, 1, 8, 3))
     h_ref, c_ref = convlstm_cell_plain(x, h, c, kern, bias)
     h_out, c_buf = torch.empty_like(h), c.clone()
-    before = convlstm_cell_fwd.launches
+    before = counters()["convlstm_cell_fwd.launches"]
     res = convlstm_cell_fwd(x, h, c_buf, kern, bias, h_out, c_buf)
     assert res[0] is h_out and res[1] is c_buf
-    assert convlstm_cell_fwd.launches == before
+    assert counters()["convlstm_cell_fwd.launches"] == before
     assert torch.equal(h_out, h_ref) and torch.equal(c_buf, c_ref)
     # the impl-dispatching step takes OIHW weights and gives the same result
     hk, ck = convlstm_step(x, h, c, oihw_from_hwio(kern), bias, impl="kernel")
@@ -95,10 +96,10 @@ def test_head_matches_jax_conv():
     out = conv_head_plain(*(torch.from_numpy(a) for a in (h, kern, bias)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     buf = torch.empty_like(out)
-    before = conv_head_fwd.launches
+    before = counters()["conv_head_fwd.launches"]
     assert conv_head_fwd(*(torch.from_numpy(a) for a in (h, kern, bias)),
                          buf) is buf
-    assert conv_head_fwd.launches == before
+    assert counters()["conv_head_fwd.launches"] == before
     assert torch.equal(buf, out)
 
 

@@ -99,6 +99,10 @@ def test_plain_is_the_eager_backward(dtype, cx, ch):
     _compare_to_ref(dz, dc_prev, db, dz_j, dc_prev_j, db_j, dtype)
 
 
+def _k6_launches() -> int:
+    return profiling.counters()["cell_backward.launches"]
+
+
 def test_wrapper_runs_the_plain_version_on_cpu():
     """CPU tensors: the plain version's bits, no launch counted; mixed
     dtypes (bfloat16 activations, float32 bias) and strided gradients are
@@ -106,9 +110,9 @@ def test_wrapper_runs_the_plain_version_on_cpu():
     ops = list(_operands(2, 6, 5, 3, 8, torch.bfloat16))
     ops[3] = ops[3].float().transpose(1, 2).contiguous().transpose(1, 2)
     assert not ops[3].is_contiguous()
-    before = cell_backward.launches
+    before = _k6_launches()
     got = cell_backward(*ops, torch.float32)
-    assert cell_backward.launches == before
+    assert _k6_launches() == before
     for g, w in zip(got, cell_backward_plain(*ops, torch.float32)):
         assert torch.equal(g, w)
     assert got[3].dtype == torch.float32 and got[1].dtype == torch.bfloat16
@@ -122,10 +126,10 @@ def test_function_backward_on_cpu_launches_nothing():
     bias = torch.zeros(32, requires_grad=True)
     x, h, c = (torch.randn(2, 6, 6, n, generator=g).requires_grad_(True)
                for n in (4, 8, 8))
-    before = profiling.counters()["cell_backward.launches"]
+    before = _k6_launches()
     hn, cn = ConvLSTMCellFn.apply(w, bias, x, h, c)
     (hn.sum() + cn.square().sum()).backward()
-    assert profiling.counters()["cell_backward.launches"] == before
+    assert _k6_launches() == before
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (w, bias, x, h, c))
 
@@ -195,10 +199,10 @@ def test_meta_tensors_reach_every_rule(case):
         meta["x"] = ops["x"]
     if case == "strided_residual":
         meta["c_next"] = ops["c_next"].contiguous().to("meta").transpose(1, 2)
-    before = cell_backward.launches
+    before = _k6_launches()
     with pytest.raises(ValueError, match=words):
         cell_backward(*meta.values(), db)
-    assert cell_backward.launches == before
+    assert _k6_launches() == before
 
 
 # ---------------------------------------------------------------- the card
@@ -258,9 +262,9 @@ CARD_SHAPES = {
 def test_k6_matches_plain(card, name):
     b, hgt, wid, cx, ch, dtype = CARD_SHAPES[name]
     ops = _operands(b, hgt, wid, cx, ch, dtype, device="cuda", seed=7)
-    before = cell_backward.launches
+    before = _k6_launches()
     got = cell_backward(*ops, dtype)
-    assert cell_backward.launches == before + 1
+    assert _k6_launches() == before + 1
     _compare(got, cell_backward_plain(*ops, dtype), dtype)
 
 
@@ -331,9 +335,9 @@ def test_forecaster_step_runs_k6(card, monkeypatch):
     batch = _nowcast_batch(cfg, 1)
     mc = cfg.model
     per_step = len(mc.hidden_dims) * (mc.input_frames + mc.output_frames - 1)
-    before = cell_backward.launches
+    before = _k6_launches()
     forecaster_train_step(state, batch, cfg.training.learning_rate)
-    assert cell_backward.launches - before == per_step == 72
+    assert _k6_launches() - before == per_step == 72
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     grads = {}
@@ -351,9 +355,9 @@ def test_forecaster_step_runs_k6(card, monkeypatch):
 
     sf = StreamingForecaster(cfg, state.model.state_dict())
     frames = batch[0][:1]
-    before = cell_backward.launches
+    before = _k6_launches()
     st, _ = sf.observe_window(sf.init_state(1, frames.shape[-2],
                                             frames.shape[-1]), frames)
     sf.forecast(st, 30)
     torch.cuda.synchronize()
-    assert cell_backward.launches == before
+    assert _k6_launches() == before

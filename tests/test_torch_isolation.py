@@ -67,3 +67,26 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+_LAYERING = """
+import json, sys
+from pl_convlstm_gan_tpu_torch.utils import profiling
+profiling.counters()
+profiling.add_counts({})
+profiling.compiled_cost(lambda: 0)
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[:2] in [
+    ["pl_convlstm_gan_tpu_torch", layer]
+    for layer in ("ops", "models", "parallel", "train")])))
+"""
+
+
+def test_profiling_loads_no_layer_above_it():
+    """``utils/profiling`` sits at the bottom of the package: its counters,
+    ``add_counts`` and ``compiled_cost`` load no module of ``ops``,
+    ``models``, ``parallel`` or ``train`` (the modules that count declare
+    their counters in it, not the other way round)."""
+    res = subprocess.run([sys.executable, "-c", _LAYERING], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []

@@ -36,10 +36,11 @@ from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     C_BUF, CELL, CELL_PHASE, C_READ, C_WRITE, FROM_FRAME, FROM_H, FROM_OUT,
     HEAD_PHASE, H_READ, H_WRITE, KIND, OUT_SLOT, PING0, PING1, SEED, STEP,
-    X_FROM, X_INDEX, conv_head_fwd, conv_head_plain, final_buffers,
-    observe_kernel, pack_weights, persistent_misfit, rollout_kernel,
-    rollout_kernel_from_state, rollout_persistent_fwd,
-    rollout_persistent_plain, rollout_plain, rollout_schedule)
+    X_FROM, X_INDEX, conv_head_plain, final_buffers, observe_kernel,
+    pack_weights, persistent_misfit, rollout_kernel,
+    rollout_kernel_from_state, rollout_persistent_plain, rollout_plain,
+    rollout_schedule)
+from pl_convlstm_gan_tpu_torch.utils.profiling import counters
 from pl_convlstm_gan_tpu_torch.weights import flax_to_state_dict
 from test_torch_models import flax_params, frames_np
 from test_torch_streaming import jax_state_numpy, jax_streaming
@@ -317,8 +318,9 @@ def test_cpu_tensors_never_reach_k5s_launch(monkeypatch):
         return convlstm_cell_fwd(*args, **kwargs)
     monkeypatch.setattr(rk, "rollout_persistent_plain", counted_plain)
     monkeypatch.setattr(rk, "convlstm_cell_fwd", counted_cell)
-    counts = (rollout_persistent_fwd.launches, convlstm_cell_fwd.launches,
-              conv_head_fwd.launches)
+    launches = ("rollout_persistent_fwd.launches",
+                "convlstm_cell_fwd.launches", "conv_head_fwd.launches")
+    counts = [counters()[k] for k in launches]
     params = flax_params(56, HIDDEN)
     frames = torch.from_numpy(frames_np(57, size=SIZE))
     for name, dtype in DTYPES.items():
@@ -326,15 +328,14 @@ def test_cpu_tensors_never_reach_k5s_launch(monkeypatch):
         out = rollout_kernel(weights, frames, T_OUT, dtype)
         assert torch.equal(out, rollout_plain(weights, frames, T_OUT, dtype))
     assert calls == {"plain": 1, "cell": (T_IN + T_OUT - 1) * len(HIDDEN)}
-    assert (rollout_persistent_fwd.launches, convlstm_cell_fwd.launches,
-            conv_head_fwd.launches) == counts
+    assert [counters()[k] for k in launches] == counts
 
 
 def test_k5_takes_non_cpu_tensors_or_raises(monkeypatch):
     """Tensors off the CPU go to K5's checks, which raise on what K5 does not
     take: nothing falls back to the host loop or to the plain path."""
     monkeypatch.setattr(rk, "rollout_persistent_plain", None)
-    launches = rollout_persistent_fwd.launches
+    launches = counters()["rollout_persistent_fwd.launches"]
     weights = pack_weights(flax_to_state_dict(flax_params(58, HIDDEN)),
                            torch.bfloat16)
     meta = rk.RolloutWeights(
@@ -352,4 +353,4 @@ def test_k5_takes_non_cpu_tensors_or_raises(monkeypatch):
                     device="meta") for cx in (1, 8)))
     with pytest.raises(ValueError, match="one CUDA device"):
         rk._steps(packed, fr, T_IN + T_OUT - 1, T_IN - 1, seeds)
-    assert rollout_persistent_fwd.launches == launches
+    assert counters()["rollout_persistent_fwd.launches"] == launches

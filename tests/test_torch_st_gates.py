@@ -28,11 +28,16 @@ from pl_convlstm_gan_tpu_torch.ops.kernels.st_gates_kernel import (
     STGatesA, STGatesB, st_gates, st_gates_bwd, st_gates_bwd_plain,
     st_gates_fwd, st_gates_plain, st_hidden, st_hidden_bwd,
     st_hidden_bwd_plain, st_hidden_plain)
+from pl_convlstm_gan_tpu_torch.utils.profiling import counters
 
 F64_TOL = 2e-6
 GRAD_TOL = 1e-5
 F32_ULPS = 2.0 ** -18
 BF16_ULP = 2.0 ** -7
+
+
+def _k7_launches() -> int:
+    return counters()["st_gates.launches"]
 
 
 def _operands(p, fw, dtype=torch.float32, device="cpu", seed=0):
@@ -153,7 +158,7 @@ def test_functions_on_cpu_launch_nothing():
     """STGatesA and STGatesB on CPU tensors: the plain versions forward and
     backward, gradients as autograd's through the plain forward, no K7
     launch counted; under no_grad the deltas are left out."""
-    before = st_gates.launches
+    before = _k7_launches()
     ops = [t.requires_grad_(True) for t in _operands(12, 8)]
     grads = _grads(ops)
     outs = STGatesA.apply(*ops)
@@ -176,7 +181,7 @@ def test_functions_on_cpu_launch_nothing():
         assert plain[3] is None and plain[4] is None
         assert torch.equal(plain[0], outs[0])
         assert torch.equal(st_hidden(oxh, om, last), h)
-    assert st_gates.launches == before
+    assert _k7_launches() == before
 
 
 def test_backward_skips_unneeded_state_grads():
@@ -206,7 +211,7 @@ def test_meta_tensors_reach_every_rule(case):
     """Tensors off the CPU go to K7's checks, never to a plain fallback:
     a dtype K7 does not take, operands of two dtypes, an oxh not in float32,
     a non-contiguous backward operand, a device that is not CUDA."""
-    before = st_gates.launches
+    before = _k7_launches()
     xc, hc, mc, c, m = _operands(12, 8)
     if case == "float16":
         with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -226,7 +231,7 @@ def test_meta_tensors_reach_every_rule(case):
     else:
         with pytest.raises(ValueError, match="one CUDA device"):
             st_gates_fwd(*_meta(xc, hc, mc, c, m))
-    assert st_gates.launches == before
+    assert _k7_launches() == before
 
 
 # ---------------------------------------------------------------- the card
@@ -267,7 +272,7 @@ def test_k7_matches_plain(card, name):
     p, fw, dtype = CARD_SHAPES[name]
     ops = _operands(p, fw, dtype, device="cuda", seed=5)
     grads = _grads(ops, dtype, device="cuda", seed=6)
-    before = st_gates.launches
+    before = _k7_launches()
     got = st_gates_fwd(*ops)
     for i, (g, w) in enumerate(zip(got, st_gates_plain(*ops))):
         _card_close(f"pass A output {i}", g, w)
@@ -287,7 +292,7 @@ def test_k7_matches_plain(card, name):
     for i, (g, w) in enumerate(zip(st_hidden_bwd(gh, oxh, om, last),
                                    st_hidden_bwd_plain(gh, oxh, om, last))):
         _card_close(f"pass B gradient {i}", g, w)
-    assert st_gates.launches - before == 5
+    assert _k7_launches() - before == 5
 
 
 @pytest.mark.cuda
@@ -301,10 +306,10 @@ def test_predrnn_step_on_k7(card):
                     kernel_size=5, patch_size=4).to(card)
     frames = torch.rand(2, 20, 1, 32, 32, device=card)
     mask = torch.rand(18, 2, device=card) < 0.5
-    before = st_gates.launches
+    before = _k7_launches()
     loss, _ = model.loss(frames[:, :10], frames[:, 10:], mask)
     loss.backward()
-    assert st_gates.launches - before == 4 * 76
+    assert _k7_launches() - before == 4 * 76
     assert all(bool(p.grad.isfinite().all()) for p in model.parameters())
 
 
@@ -332,10 +337,10 @@ def test_predrnn_replayed_steps_equal_eager_ones(card):
         got = []
         for model, fn in ((graphed, graphed.loss), (eager, eager._loss)):
             model.zero_grad(set_to_none=True)
-            before = st_gates.launches
+            before = _k7_launches()
             loss, pred = fn(frames[:, :10], frames[:, 10:], mask)
             loss.backward()
-            assert st_gates.launches - before == 4 * 76, (step, model)
+            assert _k7_launches() - before == 4 * 76, (step, model)
             got.append((loss.detach(), pred,
                         [p.grad.clone() for p in model.parameters()]))
         (lg, pg, gg), (le, pe, ge) = got

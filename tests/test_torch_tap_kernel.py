@@ -21,7 +21,12 @@ relative, as there: both sum float32 products in other orders and round
 once to bf16.
 
 ``build.library_path`` hashes the headers of ``csrc/`` with each source, so
-an edited header rebuilds every kernel."""
+an edited header rebuilds every kernel. ``build.launch``, the one launch
+path of every kernel, is held here with its C entry stubbed: the arguments
+in order with the stream last, the device made current only where it is
+not, a CUDA error raised through ``build.check``."""
+import contextlib
+import ctypes
 import shutil
 
 import numpy as np
@@ -148,3 +153,40 @@ def test_editing_a_source_changes_only_its_library_path(csrc_copy):
     assert after["tap_structure"] != before["tap_structure"]
     assert after["convlstm_cell"] == before["convlstm_cell"]
     assert after["conv_head"] == before["conv_head"]
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_launch_passes_the_stream_last_and_checks_the_error(monkeypatch,
+                                                            current):
+    """The entry is loaded by ``load_function`` and called with the
+    arguments in order and the raw handle of the device's current stream
+    last, under a device guard only where the device is not current; a
+    non-zero return raises with the entry's CUDA error string."""
+    calls, guards = [], []
+
+    def load(name, symbol, argtypes):
+        if symbol == "cuda_error_string":
+            return lambda err: b"an illegal memory access was encountered"
+        return lambda *args: calls.append((name, symbol, args)) or (
+            700 if symbol == "bad" else 0)
+
+    @contextlib.contextmanager
+    def guard(device):
+        guards.append(device)
+        yield
+
+    monkeypatch.setattr(build, "load_function", load)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    # absent from a build of torch without CUDA
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    dev = torch.device("cuda", 1)
+    build.launch("lib", "good", [ctypes.c_void_p] * 3, dev, 11, None,
+                 what="good launch")
+    assert calls == [("lib", "good", (11, None, 1001))]
+    assert guards == ([] if current == 1 else [dev])
+    with pytest.raises(RuntimeError, match=r"bad launch failed: CUDA error "
+                       r"700 \(an illegal memory access was encountered\)"):
+        build.launch("lib", "bad", [], dev, 33, what="bad launch")
+    assert calls[-1] == ("lib", "bad", (33, 1001))

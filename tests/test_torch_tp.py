@@ -79,10 +79,10 @@ def _run_case(case, group, pos, count=None):
     of each step, and for the NaN case the state after its first step."""
     from pl_convlstm_gan_tpu_torch.models import (ConvLSTMForecaster,
                                                   Discriminator)
-    from pl_convlstm_gan_tpu_torch.parallel import tp_collectives as tpc
     from pl_convlstm_gan_tpu_torch.parallel.tensor_parallel import (
         canonical_state_dict, shard_state_dict)
     from pl_convlstm_gan_tpu_torch.train import steps
+    from pl_convlstm_gan_tpu_torch.utils.profiling import counters
 
     fam = case["family"]
     model_group = None if group is None else group.model
@@ -133,12 +133,14 @@ def _run_case(case, group, pos, count=None):
         draws = case["draws"][i]
         if draws is not None:
             draws = torch.from_numpy(_block(draws.T, idx, cnt).T.copy())
-        tpc.reset_counts()
+        before = counters()
         if count is not None:
             count["all_reduce"] = 0
         out["metrics"].append(step(state, local, draws))
+        after = counters()
         out["collectives"].append(dict(
-            gather_h=tpc.gather_h.calls, copy_in=tpc.copy_in.calls,
+            gather_h=after["gather_h.calls"] - before["gather_h.calls"],
+            copy_in=after["copy_in.calls"] - before["copy_in.calls"],
             all_reduce=None if count is None else count["all_reduce"]))
         if fam == "nan_skip" and i == 0:
             out["after_first"] = snapshot()

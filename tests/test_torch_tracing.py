@@ -284,6 +284,14 @@ def test_program_trace_is_not_reentrant_and_threads_keep_own_parents():
 
 
 def test_counters_hold_every_counter():
+    """Each module that counts declares its keys when it is imported; with
+    every owner imported, ``counters()`` holds the program's 16."""
+    import importlib
+    for owner in ("ops.kernels.convlstm_kernel", "ops.kernels.rollout_kernel",
+                  "ops.kernels.st_gates_kernel",
+                  "ops.kernels.tap_structure_kernel",
+                  "parallel.tp_collectives", "models.loss_graphs"):
+        importlib.import_module(f"pl_convlstm_gan_tpu_torch.{owner}")
     got = profiling.counters()
     assert set(got) == {
         "convlstm_cell_fwd.launches", "convlstm_cell_fwd.launches_z",
