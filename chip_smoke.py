@@ -1543,7 +1543,8 @@ LAUNCH_KEYS = {"k1": "convlstm_cell_fwd.launches",
                "k2": "conv_head_fwd.launches", "k3": "tap_loop.launches",
                "k4": "tap_k1152.launches",
                "k5": "rollout_persistent_fwd.launches",
-               "k6": "cell_backward.launches", "k7": "st_gates.launches"}
+               "k6": "cell_backward.launches", "k7": "st_gates.launches",
+               "wg": "cell_wgrad.calls"}
 _since = {}
 
 
@@ -1566,14 +1567,16 @@ K6_BY_PATH = {}
 
 
 def expect_counts(what, k1, k2, k1z=0, k5=0, k6=0, path=None, k7=0, k3=0,
-                  k4=0):
+                  k4=0, wg=0):
     """Raise unless each kernel launched as often as its keyword of
     LAUNCH_KEYS says since the last reset_counts() (K1 without z, K2, K1
-    with z, K5, K6, K7 and K3/K4; every one not named 0: K7, the ST-LSTM
-    gate passes, on every ConvLSTM path); returns the counts of K1, K2,
-    K5, K6 and K7 by wrapper. With ``path`` the K6 count read is kept in
-    K6_BY_PATH[path]."""
-    want = dict(k1=k1, k1z=k1z, k2=k2, k3=k3, k4=k4, k5=k5, k6=k6, k7=k7)
+    with z, K5, K6, K7 and K3/K4, and the cells' weight-gradient
+    convolutions ``wg``: one a kernel cell and training pass over all its
+    steps, one a step under remat; every one not named 0: K7, the ST-LSTM gate passes, on every
+    ConvLSTM path); returns the counts of K1, K2, K5, K6 and K7 by
+    wrapper. With ``path`` the K6 count read is kept in K6_BY_PATH[path]."""
+    want = dict(k1=k1, k1z=k1z, k2=k2, k3=k3, k4=k4, k5=k5, k6=k6, k7=k7,
+                wg=wg)
     got = {kw: counted(kw) for kw in LAUNCH_KEYS}
     if got != want:
         raise AssertionError(f"{what}: launches {got}; expected {want}")
@@ -2263,7 +2266,7 @@ def phase_train(dtype_name, seed):
             graphs[name].append(graph_delta(before))
             if name == "kernel":
                 expect_counts(f"train {dtype_name} step {i}", 0, 0, per_step,
-                              k6=per_step,
+                              k6=per_step, wg=n_cells,
                               path=f"train_per_step.{dtype_name}")
             else:
                 expect_counts(f"plain train {dtype_name} step {i}", 0, 0, 0)
@@ -2355,6 +2358,7 @@ def phase_trainer(tmp, request):
     expect_counts("trainer 2 epochs", TRAINER_EPOCHS * n_val * per_step, 0,
                   TRAINER_EPOCHS * n_train * per_step,
                   k6=TRAINER_EPOCHS * n_train * per_step,
+                  wg=TRAINER_EPOCHS * n_train * len(mc.hidden_dims),
                   path="trainer_train." + cfg.precision.compute_dtype)
     h3 = cli.main(["--config", yamls[1], "--mode", "train", "--resume"])
     if h3["epoch"] != list(range(TRAINER_EPOCHS + 1)) or \
@@ -2645,7 +2649,8 @@ def phase_gan(name, dtype_name, step_impl, tf_prob, steps, cuts, seed):
             times[p].append((time.perf_counter() - t0) * 1e3)
             want = expect if p == "kernel" else (0, 0)
             expect_counts(f"gan {name} {p} step {i}", want[0], 0, want[1],
-                          k6=want[1], path=f"gan_{name}_{step_impl}_per_step"
+                          k6=want[1], wg=n_cells if want[1] else 0,
+                          path=f"gan_{name}_{step_impl}_per_step"
                           f".{dtype_name}" if p == "kernel" else None)
             if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
                 raise AssertionError(f"gan {name} {p} step {i}: {m}")
@@ -2772,6 +2777,7 @@ def phase_gan_trainer(tmp, seed):
                   TRAINER_EPOCHS * (n_train + n_val) * per_step, 0,
                   TRAINER_EPOCHS * n_train * per_step,
                   k6=TRAINER_EPOCHS * n_train * per_step,
+                  wg=TRAINER_EPOCHS * n_train * len(mc.hidden_dims),
                   path="gan_trainer_train." + cfg.precision.compute_dtype)
     h3 = cli.main(["--config", yamls[1], "--mode", "train", "--resume"])
     if h3["epoch"] != list(range(TRAINER_EPOCHS + 1)) or \
@@ -2944,7 +2950,8 @@ def phase_generator(tmp, dtype_name, seed):
         generator_loss(st.model, batches[0], loss_cfg)[0].backward()
         expect_counts(f"generator {dtype_name} {p} gradients", 0, 0,
                       per_call if p == "kernel" else 0,
-                      k6=per_call if p == "kernel" else 0)
+                      k6=per_call if p == "kernel" else 0,
+                      wg=len(mc.hidden_dims) if p == "kernel" else 0)
         grads[p] = flat_grads(st.model)
         st.optimizer.zero_grad(set_to_none=True)
     grad_err = float((grads["kernel"] - grads["plain"]).norm()
@@ -2963,6 +2970,7 @@ def phase_generator(tmp, dtype_name, seed):
             expect_counts(f"generator {dtype_name} {p} step {i}", 0, 0,
                           per_call if p == "kernel" else 0,
                           k6=per_call if p == "kernel" else 0,
+                          wg=len(mc.hidden_dims) if p == "kernel" else 0,
                           path=f"generator_train_step.{dtype_name}"
                           if p == "kernel" else None)
             if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
@@ -3068,6 +3076,7 @@ def phase_generator_trainer(tmp, seed):
                   TRAINER_EPOCHS * -(-n_val // b) * per_call, 0,
                   TRAINER_EPOCHS * (n_train // b) * per_call,
                   k6=TRAINER_EPOCHS * (n_train // b) * per_call,
+                  wg=TRAINER_EPOCHS * (n_train // b) * len(mc.hidden_dims),
                   path="generator_trainer_train."
                   + cfg.precision.compute_dtype)
     t0 = time.perf_counter()
@@ -3443,6 +3452,7 @@ def phase_profiling(tmp, int8_predict, request, seed):
         expect_counts(f"profiling {name} step", 0, 0,
                       per_step if name == "kernel" else 0,
                       k6=per_step if name == "kernel" else 0,
+                      wg=len(mc.hidden_dims) if name == "kernel" else 0,
                       path="profiling_train_step." + cfg.precision.compute_dtype
                       if name == "kernel" else None)
         if cost is None or m["skipped"] or not np.isfinite(m["total"]):
@@ -3519,8 +3529,8 @@ def remat_config(impl, remat, policy):
 def remat_run(label, cfg, gen_sd, disc_sd, batches, draws, expect):
     """One run of the remat phase from the seeded state: the step-1
     gradients of G and D, then the steps with exact K1 and K6 counts
-    (``expect``: K1 without z, K1 with z, K6, per step and per gradient
-    pass), their times,
+    (``expect``: K1 without z, K1 with z, K6 and the cells' weight-gradient
+    convolutions, per step and per gradient pass), their times,
     and the peak of allocated device memory over the gradient pass and the
     steps. Returns its record, with the gradients and the final params."""
     tc = cfg.training
@@ -3533,7 +3543,7 @@ def remat_run(label, cfg, gen_sd, disc_sd, batches, draws, expect):
     reset_counts()
     grads = gan_grads(st, cfg, batches[0], draws[0])
     expect_counts(f"remat {label} gradients", expect[0], 0, expect[1],
-                  k6=expect[2])
+                  k6=expect[2], wg=expect[3])
     metrics, times = [], []
     for i, batch in enumerate(batches):
         step = gan_step_fn(st, cfg, lr, d_lr, draws[i])
@@ -3544,7 +3554,8 @@ def remat_run(label, cfg, gen_sd, disc_sd, batches, draws, expect):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         expect_counts(f"remat {label} step {i}", expect[0], 0, expect[1],
-                      k6=expect[2], path=f"remat_{label}_per_step."
+                      k6=expect[2], wg=expect[3],
+                      path=f"remat_{label}_per_step."
                       + cfg.precision.compute_dtype)
         if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"remat {label} step {i}: {m}")
@@ -3595,9 +3606,11 @@ def phase_remat(seed):
     for label, impl, remat, policy, _ in REMAT_RUNS:
         cfg = remat_config(impl, remat, policy)
         if impl == "auto":
-            expect = (0, 0, 0)
-        else:       # vjp: one forward with z, remat runs it again; one K6
-            expect = (0, per_pass * (2 if remat else 1), per_pass)
+            expect = (0, 0, 0, 0)
+        else:       # vjp: one forward with z, remat runs it again; one K6;
+            # the weight gradient once a cell, or once a step under remat
+            expect = (0, per_pass * (2 if remat else 1), per_pass,
+                      per_pass if remat else len(mc.hidden_dims))
         runs[label] = remat_run(label, cfg, gen_sd, disc_sd, batches, draws,
                                 expect)
     for label, _, _, _, against in REMAT_RUNS:
@@ -3696,7 +3709,8 @@ def dp_setup(seed, runs=DP_RUNS):
     """name -> what a rank needs to run runs[name]: the seeded initial
     state dicts, the global batches and draws (numpy), and the K1 and K6
     counts a step each rank must show (K1 without z, K1 with z, K6: one a
-    cell step of the backward)."""
+    cell step of the backward; then the cells' weight-gradient convolutions,
+    one a cell)."""
     setup = {}
     for name, batch, impl, tf_prob, cuts in runs:
         cfg = dp_config(name, batch, impl)
@@ -3715,7 +3729,9 @@ def dp_setup(seed, runs=DP_RUNS):
                 batches.append(tuple(bt[:4]) + (sv,))
             entry["draws"] = [None] * DP_STEPS
             per_pass = mc.T * len(mc.hidden_dims)
-            entry["expect"] = (0,) + (per_pass if impl == "pallas" else 0,) * 2
+            k1 = impl == "pallas"
+            entry["expect"] = (0, per_pass * k1, per_pass * k1,
+                               len(mc.hidden_dims) * k1)
         else:
             size = cfg.data.synthetic_image_size
             scan = mc.input_frames + mc.output_frames - 1
@@ -3736,7 +3752,8 @@ def dp_setup(seed, runs=DP_RUNS):
             detached = (mc.family == "gan"
                         and cfg.training.gan_step_impl == "default")
             entry["expect"] = (per_pass * (k1 and detached),
-                               per_pass * k1, per_pass * k1)
+                               per_pass * k1, per_pass * k1,
+                               len(mc.hidden_dims) * k1)
         entry["batches"] = batches
         entry["dtype"] = cfg.precision.compute_dtype
         entry["graph_steps"] = mc.family == "forecaster"
@@ -3832,7 +3849,8 @@ def dp_drive(entry, group, rank=0, world=1):
         metrics.append(run(batch, d))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        counts.append(tuple(counted(kw) for kw in ("k1", "k1z", "k6")))
+        counts.append(tuple(counted(kw)
+                            for kw in ("k1", "k1z", "k6", "wg")))
         graphs.append(graph_delta(before))
     params = [p.detach().cpu() for m in modules for p in m.parameters()]
     return dict(grads=grads, grad_norms=grad_norms, metrics=metrics,
@@ -3923,7 +3941,8 @@ def dp_compare(name, entry, ranks, ref, label):
     for r, rec in enumerate(ranks):
         if rec["counts"] != [tuple(entry["expect"])] * len(rec["counts"]):
             raise AssertionError(f"dp {label} {name} rank {r}: launches "
-                                 f"(K1 without z, K1 with z, K6) "
+                                 f"(K1 without z, K1 with z, K6, weight-"
+                                 f"gradient convolutions) "
                                  f"{rec['counts']}, expected "
                                  f"{tuple(entry['expect'])} a step")
         if any(m["skipped"] for m in rec["metrics"]):

@@ -13,7 +13,10 @@ replayed in torch, so a caller (or a test) supplies the draws.
 'kernel' (K1; under autograd ``ConvLSTMCellFn``: K1 writing z and the custom
 backward), the port's meaning of the config's ``xla`` and ``pallas``. With
 'kernel' on the card each cell's weight is packed for K1 once per forward
-pass, not once per step.
+pass, not once per step. With gradients and without remat, a kernel cell's
+weight is also cast once per pass and its weight gradient computed once,
+after the backward of all its steps, as one convolution over them
+(``ConvLSTMCell.for_pass``; under remat each step computes its own).
 
 Training on the card (``loss`` with gradients on CUDA tensors) replays CUDA
 graphs (``models/loss_graphs.py``, shared with PredRNN): from the second
@@ -187,8 +190,8 @@ class ConvLSTMForecaster(nn.Module):
         states = [(zeros(f), zeros(f // self.n_tp)) for f in self.hidden_dims]
         prev_out = None       # set by the head at step t_in - 1, read after
         cells = self.core.cells()
-        packed = [cell.pack(cdtype) for cell in cells]
         remat = self.remat and torch.is_grad_enabled()
+        weights = [cell.for_pass(cdtype, remat) for cell in cells]
         preds = []
         for s in range(steps):
             if s < t_in:
@@ -202,10 +205,10 @@ class ConvLSTMForecaster(nn.Module):
             with_head = s >= t_in - 1
             flat = [t for st in states for t in st]
             if remat:
-                out = checkpoint(self._step, x, packed, with_head, *flat,
+                out = checkpoint(self._step, x, weights, with_head, *flat,
                                  **self._remat_kwargs)
             else:
-                out = self._step(x, packed, with_head, *flat)
+                out = self._step(x, weights, with_head, *flat)
             states = [(out[2 * i], out[2 * i + 1]) for i in range(len(cells))]
             if with_head:
                 prev_out = out[-1]
@@ -238,14 +241,16 @@ class ConvLSTMForecaster(nn.Module):
         teacher-forcing probability ``p``: [steps], p at every step."""
         return torch.full((self.input_frames + self.output_frames - 1,), p)
 
-    def _step(self, x, packed, with_head, *flat):
+    def _step(self, x, weights, with_head, *flat):
         """One step of the recurrence, a function of its tensor inputs alone:
         the cells on input x and the carried (h, c) of each cell (``flat``:
-        h0, c0, h1, c1, ...), then, when ``with_head``, the head. Returns the
-        new (h, c) of each cell, flattened, and the head's output last."""
+        h0, c0, h1, c1, ...), with each cell's weights of the pass
+        (``weights``), then, when ``with_head``, the head. Returns the new
+        (h, c) of each cell, flattened, and the head's output last."""
         out = []
         for li, cell in enumerate(self.core.cells()):
-            h, c = cell(x, flat[2 * li], flat[2 * li + 1], packed=packed[li])
+            h, c = cell(x, flat[2 * li], flat[2 * li + 1],
+                        weights=weights[li])
             out += [h, c]
             x = h
         if with_head:

@@ -24,7 +24,9 @@ blocks and 1.5x).
 ``convlstm_impl`` picks the cells' step as in the forecaster: 'torch'
 (plain) or 'kernel' (K1; under autograd ``ConvLSTMCellFn``, K1 writing
 z). With 'kernel' on the card each cell's weight is packed for K1 once per
-forward pass. Module names follow the flax tree (``init_conv``,
+forward pass, and with gradients each kernel cell's weight gradient is one
+convolution over the pass's T steps (``ConvLSTMCell.for_pass``). Module
+names follow the flax tree (``init_conv``,
 ``recurrence.cell1``, ``upsample_0.conv``, ``dem_attn.conv_reduce``, ...),
 so ``weights.flax_to_state_dict`` maps a JAX checkpoint as it is.
 
@@ -145,8 +147,8 @@ class Generator(nn.Module):
         cells = self.recurrence.cells()
         states = [(xm.new_zeros((b, h, w, f)), xm.new_zeros((b, h, w, f)))
                   for f in self.hidden_dims]
-        packed = [None if self.split_precompute and i == 0 else
-                  cell.pack(cdtype) for i, cell in enumerate(cells)]
+        weights = [None if self.split_precompute and i == 0 else
+                   cell.for_pass(cdtype) for i, cell in enumerate(cells)]
         if self.split_precompute:
             seq = cells[0].precompute_x(xm).reshape(t, b, h, w, -1)
         else:
@@ -158,7 +160,7 @@ class Generator(nn.Module):
                 if i == 0 and self.split_precompute:
                     hn, cn = cell.step(x, *states[0])
                 else:
-                    hn, cn = cell(x, *states[i], packed=packed[i])
+                    hn, cn = cell(x, *states[i], weights=weights[i])
                 states[i] = (hn, cn)
                 x = hn
             tops.append(x)

@@ -9,7 +9,7 @@ or to the input's type when ``dtype`` is None.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -18,9 +18,21 @@ from torch import nn
 from ..ops.convlstm import (convlstm_precompute_x, convlstm_step,
                             convlstm_step_precomputed, convlstm_step_tp,
                             pack_step_weight)
+from ..ops.kernels.convlstm_kernel import pass_weight
 from ..ops.nn import conv2d_nhwc_f32, torch_init_bound
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..parallel.tensor_parallel import local_shard, shard_cell_params
+
+
+class CellPass(NamedTuple):
+    """A cell's weights for one forward pass (``ConvLSTMCell.for_pass``):
+    K1's packed weight, and where the pass's weight gradient is one
+    convolution, the compute-dtype weight of every step and its
+    ``CellWgrad``. None: made at each step (the weight cast from the
+    parameter)."""
+    packed: Optional[torch.Tensor] = None
+    weight: Optional[torch.Tensor] = None
+    wgrad: object = None
 
 
 def _init_uniform(param: torch.Tensor, fan_in: int) -> None:
@@ -101,21 +113,35 @@ class ConvLSTMCell(nn.Module):
         if tp_group is not None:
             self.weight.tp_sharded = self.bias.tp_sharded = True
 
-    def pack(self, dtype: torch.dtype):
-        """K1's packed weight at the compute ``dtype`` (``pack_step_weight``;
-        None when this cell launches no K1), for a loop over a sequence to
-        make once per forward pass and hand to every step."""
-        return pack_step_weight(self.weight.detach().to(dtype), self.impl)
+    def for_pass(self, dtype: torch.dtype, remat: bool = False) -> CellPass:
+        """This cell's weights at the compute ``dtype`` for one forward pass
+        over a sequence, for the loop to make once and hand to every step:
+        K1's packed weight (``pack_step_weight``; None when this cell
+        launches no K1) and, where a kernel cell's weight takes a gradient
+        outside ``remat`` (whose recompute would stash every step again),
+        the weight cast once and its ``CellWgrad``
+        (``convlstm_kernel.pass_weight``): the pass's weight gradient is
+        then one convolution over all its steps."""
+        weight = wgrad = None
+        if (self.impl == "kernel" and not remat and torch.is_grad_enabled()
+                and self.weight.requires_grad):
+            weight, wgrad = pass_weight(self.weight, dtype)
+        cast = (self.weight.detach().to(dtype) if weight is None
+                else weight.detach())
+        return CellPass(pack_step_weight(cast, self.impl), weight, wgrad)
 
-    def forward(self, x, h, c, packed=None):
+    def forward(self, x, h, c, weights: Optional[CellPass] = None):
         dtype = self.dtype or x.dtype
         if self.tp_group is not None:
             return convlstm_step_tp(x.to(dtype), h.to(dtype), c.to(dtype),
                                     self.weight.to(dtype),
                                     self.bias.to(dtype), self.tp_group)
-        return convlstm_step(x.to(dtype), h.to(dtype), c.to(dtype),
-                             self.weight.to(dtype), self.bias.to(dtype),
-                             impl=self.impl, packed=packed)
+        packed, weight, wgrad = weights or CellPass()
+        if weight is None:
+            weight = self.weight.to(dtype)
+        return convlstm_step(x.to(dtype), h.to(dtype), c.to(dtype), weight,
+                             self.bias.to(dtype), impl=self.impl,
+                             packed=packed, wgrad=wgrad)
 
 
 class SplitInputConvLSTMCell(ConvLSTMCell):

@@ -127,7 +127,7 @@ def pack_step_weight(weight: torch.Tensor, impl: str = "torch"):
 
 def convlstm_step(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                   weight: torch.Tensor, bias: torch.Tensor, impl: str = "torch",
-                  packed=None):
+                  packed=None, wgrad=None):
     """Impl-dispatching cell step: 'torch' (plain, differentiated by
     autograd) or 'kernel' (the fused CUDA cell on CUDA tensors, its plain
     version on CPU tensors). With 'kernel', a step that needs gradients runs
@@ -135,7 +135,9 @@ def convlstm_step(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     under ``no_grad`` / ``inference_mode`` launches K1 without z. K1 on the
     card reads ``packed`` (``pack_step_weight(weight, impl)``, made here
     when None) in place of an HWIO copy; the HWIO view of the weight goes to
-    the backward."""
+    the backward. ``wgrad`` (``convlstm_kernel.pass_weight``'s, ``weight``
+    being that pass's weight) has the weight gradient of the pass's steps
+    computed once, after all of them."""
     if impl == "torch":
         return convlstm_step_torch(x, h, c, weight, bias)
     if impl == "kernel":
@@ -149,7 +151,7 @@ def convlstm_step(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
         operands = (w, bias.contiguous(), x.contiguous(), h.contiguous(),
                     c.contiguous())
         if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-            return ConvLSTMCellFn.apply(*operands, packed)
+            return ConvLSTMCellFn.apply(*operands, packed, wgrad)
         w, b, x, h, c = operands
         return convlstm_cell_fwd(x, h, c, w, b, packed=packed)
     raise ValueError(f"Unknown convlstm impl: {impl!r} (valid: 'torch', 'kernel')")

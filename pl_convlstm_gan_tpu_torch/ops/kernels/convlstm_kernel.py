@@ -18,7 +18,10 @@ each rule stated once) and ``ConvLSTMCellFn``, the training step as a
 ``torch.autograd.Function``, whose gate backward is K6
 (``csrc/cell_backward.cu``): its wrapper ``cell_backward``, its plain
 version ``cell_backward_plain`` and its launch count
-(``cell_backward.launches``).
+(``cell_backward.launches``). ``pass_weight`` gives a cell's weight for one
+training forward pass and a ``CellWgrad``, through which that pass's weight
+gradient is one convolution over all its steps (``cell_wgrad.calls``: one
+a cell and pass, one a step where each step computes its own).
 
 On CUDA tensors the wrappers launch their kernel or raise; they take the
 plain version only for tensors on the CPU.
@@ -54,7 +57,8 @@ F32_BN = 128            # packed columns of a float32 block: 32 channels
 F32_KERNEL_SIZES = (1, 3, 5)   # the float32 kernel's template instances
 
 profiling.declare("convlstm_cell_fwd.launches", "convlstm_cell_fwd.launches_z",
-                  "convlstm_cell_fwd.flops", "cell_backward.launches")
+                  "convlstm_cell_fwd.flops", "cell_backward.launches",
+                  "cell_wgrad.calls")
 
 
 def k_blocks(cx: int, ch: int, k: int):
@@ -460,17 +464,21 @@ def _contiguous(dh_next, dc_next):
     return dh_next, dc_next
 
 
-def _launch_cell_backward(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
+def _launch_cell_backward(z, c, c_next, dh_next, dc_next, x, h, db_dtype,
+                          dz=None):
     """K6's launch on operands that meet ``cell_backward``'s rules and are
     contiguous, without testing them again: what ``ConvLSTMCellFn.backward``
     holds on the card (its residuals passed K1's checks in the forward, and
     autograd hands it gradients of h' and c' in their shapes and dtype).
-    Each output is an allocation of its own: on the H100's host one
-    ``torch.empty`` takes ~2 µs, two views of a shared buffer ~6 µs."""
+    dz goes into the float32 tensor given (a pass's slot,
+    ``CellWgrad.slot``); every other output is an allocation of its own: on
+    the H100's host one ``torch.empty`` takes ~2 µs, two views of a shared
+    buffer ~6 µs."""
     b, hgt, wid, cx = x.shape
     ch = c.shape[-1]
     dev = z.device
-    dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
+    if dz is None:
+        dz = torch.empty(z.shape, dtype=torch.float32, device=dev)
     xh = torch.empty((b, hgt, wid, cx + ch), dtype=torch.float32, device=dev)
     dc_prev = torch.empty_like(c)
     db = torch.empty(4 * ch, dtype=db_dtype, device=dev)
@@ -486,18 +494,142 @@ def _launch_cell_backward(z, c, c_next, dh_next, dc_next, x, h, db_dtype):
     return dz, dc_prev, xh, db
 
 
+def _conv_backward(dz, xh, w32, mask):
+    """aten's ``convolution_backward`` of the cell's SAME conv (stride 1,
+    padding K // 2) on NHWC dz [N,H,W,4Ch] and xh [N,H,W,Cin] and the
+    float32 OIHW weight ``w32``: (d xh in NCHW, dW in OIHW), each None where
+    ``mask`` (input, weight) does not ask for it.
+
+    The op of autograd's conv backward and of torch.nn.grad: cuDNN's dgrad
+    is the SAME conv of dz with the flipped, in/out-swapped kernel and its
+    wgrad the patch correlation of concat(x, h) with dz, the two convs of
+    _bwd. Written as a forward F.conv2d of the flipped kernel, the input
+    gradient of the (64, 64) cells went to an FFT algorithm that cuDNN's
+    heuristics chose, and a nowcast_128 train step took ~14 s on an H100."""
+    k = w32.shape[-1]
+    dxh, dw, _ = torch.ops.aten.convolution_backward(
+        dz.permute(0, 3, 1, 2), xh.permute(0, 3, 1, 2), w32, None, (1, 1),
+        (k // 2, k // 2), (1, 1), False, (0, 0), 1, (*mask, False))
+    return dxh, dw
+
+
+class CellWgrad:
+    """One kernel cell's weight gradient over one training forward pass,
+    computed once: dW = sum over steps t of corr(xh_t, dz_t) is one
+    convolution backward over the steps stacked along the batch.
+
+    ``pass_weight`` makes it with the pass's weight. Each ``ConvLSTMCellFn``
+    step of the pass takes a slot in the forward (``join``); its backward
+    has K6 write dz, float32, into that slot (``slot``), keeps the xh =
+    concat(x, h), float32, that K6 writes into a tensor of its own
+    (``keep``), and computes no weight gradient of its own. The backward of
+    ``pass_weight``'s node, which autograd runs after every step's, stacks
+    the kept xh, makes the one call (``weight_grad``) and frees everything.
+    The dz slots are allocated by the pass's first backward step, like any
+    tensor of the backward (inside a CUDA graph's capture, in its pool):
+    B*T*H*W*4Ch*4 bytes a cell, held beside every residual of the forward.
+    The xh, B*T*H*W*(Cx + Ch)*4 bytes a cell, are kept one a step while the
+    steps' residuals are freed, so they do not add to that peak; stacking
+    them costs one copy at the end. The float32 weight that each step's
+    input gradient reads is cast once, by that first step, too."""
+
+    def __init__(self):
+        self.steps = 0          # the slots: steps that joined in the forward
+        self.geometry = None    # (B, H, W, Cx, Ch), one for every step
+        self.dz = self.w32 = self.kept = None
+
+    def join(self, x, h) -> int:
+        """A slot for a step on x [B,H,W,Cx] and h [B,H,W,Ch]."""
+        geometry = (*x.shape, h.shape[-1])
+        if self.geometry is None:
+            self.geometry = geometry
+        elif geometry != self.geometry:
+            raise ValueError(f"the steps of one pass share a shape: "
+                             f"{geometry} after {self.geometry}")
+        self.steps += 1
+        return self.steps - 1
+
+    def slot(self, t: int, weight):
+        """The float32 dz [B,H,W,4Ch] view of slot ``t``, to be written; the
+        first call of a backward allocates the slots and casts ``weight``
+        (HWIO) to the float32 OIHW ``w32``."""
+        if self.dz is None:
+            b, hgt, wid, _, ch = self.geometry
+            self.dz = torch.empty((self.steps, b, hgt, wid, 4 * ch),
+                                  dtype=torch.float32, device=weight.device)
+            self.w32 = oihw_from_hwio(weight).float().contiguous()
+            self.kept = [None] * self.steps
+        return self.dz[t]
+
+    def keep(self, t: int, xh):
+        """Slot ``t``'s float32 xh [B,H,W,Cx+Ch], kept until
+        ``weight_grad``."""
+        self.kept[t] = xh
+
+    def weight_grad(self):
+        """dW (OIHW, float32) over every slot written since the last call,
+        or None where none was; frees the slots. A slot that no step's
+        backward reached (its outputs did not reach the loss) counts zero."""
+        if self.dz is None:
+            return None
+        n, b, hgt, wid, _ = self.dz.shape
+        for t, kept in enumerate(self.kept):
+            if kept is None:
+                self.dz[t].zero_()
+                self.kept[t] = self.dz.new_zeros(
+                    (b, hgt, wid, sum(self.geometry[3:])))
+        xh = torch.cat(self.kept)
+        self.kept = None
+        _, dw = _conv_backward(self.dz.view(n * b, hgt, wid, -1),
+                               xh.view(n * b, hgt, wid, -1), self.w32,
+                               (False, True))
+        profiling.count("cell_wgrad.calls")
+        self.dz = self.w32 = None
+        return dw
+
+
+class _PassWeight(torch.autograd.Function):
+    """apply(weight, dtype, wgrad) -> ``weight`` in ``dtype``: the weight
+    every step of a pass reads. Its backward returns ``wgrad``'s one
+    weight gradient in the weight's dtype, plus any gradient the pass's
+    steps sent back themselves."""
+
+    @staticmethod
+    def forward(ctx, weight, dtype, wgrad):
+        ctx.set_materialize_grads(False)
+        ctx.wgrad, ctx.dtype = wgrad, weight.dtype
+        return weight.to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dw = ctx.wgrad.weight_grad()
+        if grad is not None:
+            dw = grad if dw is None else dw + grad
+        return None if dw is None else dw.to(ctx.dtype), None, None
+
+
+def pass_weight(weight, dtype):
+    """(``weight`` in ``dtype``, a fresh ``CellWgrad``) for one training
+    forward pass of a kernel cell: hand both to each of the pass's
+    ``ConvLSTMCellFn`` steps, and the weight's gradient is computed once,
+    after every step's backward, as one convolution over all the steps.
+    ``weight`` (OIHW) is cast once a pass, not once a step."""
+    wgrad = CellWgrad()
+    return _PassWeight.apply(weight, dtype, wgrad), wgrad
+
+
 class ConvLSTMCellFn(torch.autograd.Function):
     """One training cell step: forward on K1 with ``z`` (save_z=True), the
     hand-written backward of the JAX package's ``convlstm_step_pallas_core``
     (``_fwd`` / ``_bwd``, ``ops/pallas/convlstm_kernel.py:325-388``).
 
     apply(weight HWIO [K,K,Cx+Ch,4Ch], bias [4Ch], x [B,H,W,Cx], h, c
-    [B,H,W,Ch], packed=None) -> (h', c'). On CUDA tensors the forward
-    launches K1 (all operands one dtype; it reads ``packed``, the
+    [B,H,W,Ch], packed=None, wgrad=None) -> (h', c'). On CUDA tensors the
+    forward launches K1 (all operands one dtype; it reads ``packed``, the
     non-differentiable ``kernel_pack(weight, x.dtype)``, made by the caller
     once per forward pass, while ``weight`` itself, which may be a view, is
-    kept for the backward); on CPU tensors it runs K1's plain version, which also
-    takes mixed dtypes.
+    kept for the backward); on CPU tensors it runs K1's plain version, which
+    also takes mixed dtypes.
 
     The residuals are those of ``_fwd``: (weight, bias, x, h, c, z, c'). The
     backward's gate algebra is K6 (on CPU tensors its plain version; on the
@@ -505,17 +637,21 @@ class ConvLSTMCellFn(torch.autograd.Function):
     forward made of the residuals): one launch reads z, c, c', dh', dc', x
     and h and writes dz [B,H,W,4Ch] in float32 (the gates recomputed from
     the stored z in float32, tanh from the stored c'), dc_prev in c's dtype,
-    xh = concat(x, h) in float32, and db in the bias's dtype. Both convs then run
-    in float32 on that dz and xh and a float32 copy of the weight (cuDNN on
-    the card): the input gradient as a SAME conv with the spatially
-    flipped, in/out-swapped kernel, the weight gradient as the patch
-    correlation, both by aten's ``convolution_backward``. dx, dh_prev and dw
-    are cast to their primals' dtypes only at the end. The forward
-    allocates fresh h', c' and z: c is a residual here, so it is never
-    updated in place."""
+    xh = concat(x, h) in float32, and db in the bias's dtype. The convs then
+    run in float32 on that dz and xh and a float32 copy of the weight
+    (cuDNN on the card, ``_conv_backward``): the input gradient as a SAME
+    conv with the spatially flipped, in/out-swapped kernel, and the weight
+    gradient as the patch correlation. With ``wgrad`` (``pass_weight``'s,
+    ``weight`` being that pass's weight) the step takes a slot of the pass:
+    K6 writes dz there, its xh is kept, the float32 weight is the pass's,
+    and the weight gradient waits for ``CellWgrad.weight_grad``'s one call over all
+    the steps; without it each step computes its own. dx and dh_prev (and a
+    step's own dw) are cast to their primals' dtypes only at the end. The
+    forward allocates fresh h', c' and z: c is a residual here, so it is
+    never updated in place."""
 
     @staticmethod
-    def forward(ctx, weight, bias, x, h, c, packed=None):
+    def forward(ctx, weight, bias, x, h, c, packed=None, wgrad=None):
         if weight.shape[0] % 2 == 0:
             raise ValueError(f"the cell's custom backward needs an odd kernel "
                              f"size, got {tuple(weight.shape[:2])}")
@@ -525,41 +661,46 @@ class ConvLSTMCellFn(torch.autograd.Function):
         h_next, c_next = convlstm_cell_fwd(x, h, c, weight, bias, z_out=z,
                                            packed=packed)
         ctx.save_for_backward(weight, bias, x, h, c, z, c_next)
+        ctx.wgrad = wgrad
+        if wgrad is not None:
+            ctx.slot = wgrad.join(x, h)
         return h_next, c_next
 
     @staticmethod
     def backward(ctx, dh_next, dc_next):
         weight, bias, x, h, c, z, c_next = ctx.saved_tensors
         cx = x.shape[-1]
-        k = weight.shape[0]
+        need_dxh = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        need_dw = ctx.needs_input_grad[0]
+        wgrad = ctx.wgrad if need_dw else None
+        dz = None
+        if wgrad is not None:
+            dz = wgrad.slot(ctx.slot, weight)
         if z.device.type == "cuda":
             dz, dc_prev, xh, db = _launch_cell_backward(
                 z, c, c_next, *_contiguous(dh_next, dc_next), x, h,
-                bias.dtype)
+                bias.dtype, dz)
         else:
-            dz, dc_prev, xh, db = cell_backward_plain(
-                z, c, c_next, dh_next, dc_next, x, h, bias.dtype)
-
-        # Both convs in one call of aten's convolution_backward (the op of
-        # autograd's conv backward and of torch.nn.grad): cuDNN's dgrad is
-        # the SAME conv of dz with the flipped, in/out-swapped kernel and
-        # its wgrad the patch correlation of concat(x, h) with dz, the two
-        # convs of _bwd. Written as a forward F.conv2d of the flipped
-        # kernel, the input gradient of the (64, 64) cells went to an FFT
-        # algorithm that cuDNN's heuristics chose, and a nowcast_128 train
-        # step took ~14 s on an H100.
-        need_dxh = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
-        need_dw = ctx.needs_input_grad[0]
-        w32 = oihw_from_hwio(weight).float().contiguous()  # [4Ch, Cin, K, K]
-        dxh, dw, _ = torch.ops.aten.convolution_backward(
-            dz.permute(0, 3, 1, 2), xh.permute(0, 3, 1, 2), w32, None,
-            (1, 1), (k // 2, k // 2), (1, 1), False, (0, 0), 1,
-            (need_dxh, need_dw, False))
-        dx = dh_prev = None
+            outs = cell_backward_plain(z, c, c_next, dh_next, dc_next, x, h,
+                                       bias.dtype)
+            _, dc_prev, xh, db = outs
+            if dz is None:
+                dz = outs[0]
+            else:
+                dz.copy_(outs[0])
+        if wgrad is not None:
+            wgrad.keep(ctx.slot, xh)
+        own_dw = need_dw and wgrad is None
+        dx = dh_prev = dw = None
+        if need_dxh or own_dw:
+            w32 = (wgrad.w32 if wgrad is not None else
+                   oihw_from_hwio(weight).float().contiguous())
+            dxh, dw = _conv_backward(dz, xh, w32, (need_dxh, own_dw))
         if need_dxh:
             dxh = dxh.permute(0, 2, 3, 1)
             dx = dxh[..., :cx].to(x.dtype)
             dh_prev = dxh[..., cx:].to(h.dtype)
-        if need_dw:
+        if own_dw:
+            profiling.count("cell_wgrad.calls")
             dw = dw.permute(2, 3, 1, 0).to(weight.dtype)  # OIHW -> HWIO
-        return dw, db, dx, dh_prev, dc_prev, None
+        return dw, db, dx, dh_prev, dc_prev, None, None

@@ -538,7 +538,9 @@ def counters() -> Dict[str, int]:
     """Every declared counter of the program, by ``<function>.<what>``:
     K1's launches (``convlstm_cell_fwd.launches``, with z apart in
     ``.launches_z``) and operations (``.flops``), K6's launches (the cell's
-    gate backward, ``cell_backward.launches``), K2's launches, K5's
+    gate backward, ``cell_backward.launches``), the kernel cells' weight
+    gradients (``cell_wgrad.calls``, the convolutions: one a cell and
+    training pass, one a step under remat), K2's launches, K5's
     launches and operations, K3's and K4's launches, K7's
     (``st_gates.launches``: the ST-LSTM gate passes, forward and backward),
     the tensor-parallel collectives' calls, the training losses' CUDA

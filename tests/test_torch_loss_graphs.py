@@ -15,7 +15,8 @@ state, in bfloat16 and float32, with and without scheduled-sampling draws:
 the loss and the predictions within 1e-6 relative (the same kernels on the
 same operands; cuDNN may sum in another order), each gradient leaf within
 1e-3 of its norm; K1 with z and K6 launch 3 x 24 = 72 times a step, replayed
-or not; an eager K6 launch after a capture uses no buffer of the graph's
+or not, and the cells' weight gradients are 3 calls, one a cell over its 24
+steps; an eager K6 launch after a capture uses no buffer of the graph's
 and still equals its plain version. Run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_loss_graphs.py``.
 """
@@ -168,7 +169,8 @@ def test_replayed_steps_equal_eager_ones(card, dtype, draws):
     makes them), each followed by Adam on the graphed model's parameters in
     place. The eager model takes the graphed one's state before each step.
     Loss and predictions within 1e-6, gradients within 1e-3; 72 K1 with z
-    and 72 K6 a step; one eager call, then a capture and a replay, then
+    and 72 K6 a step, and each cell's weight gradient one call over its 24
+    steps (3 calls); one eager call, then a capture and a replay, then
     replays."""
     graphed = _forecaster(dtype, "kernel").to(card)
     eager = _forecaster(dtype, "kernel").to(card)
@@ -191,6 +193,7 @@ def test_replayed_steps_equal_eager_ones(card, dtype, draws):
             delta = {k: after[k] - before[k] for k in after}
             assert delta["convlstm_cell_fwd.launches_z"] == PER_STEP, step
             assert delta["cell_backward.launches"] == PER_STEP, step
+            assert delta["cell_wgrad.calls"] == CELLS, step
             if model is graphed:
                 assert tuple(delta[k] for k in GRAPH_KEYS) == \
                     want_graphs[step], step

@@ -73,7 +73,11 @@ def test_remat_gradients_equal_no_remat(impl, policy):
     those without it exactly: the recompute runs the same ops on the same
     inputs (the CPU's convs are deterministic), and what a policy keeps is
     the forward's own value. impl 'kernel' runs K1's plain version with the
-    custom backward (ConvLSTMCellFn), recomputed under remat."""
+    custom backward (ConvLSTMCellFn), recomputed under remat. One sum is
+    another on that path: without remat each kernel cell's weight gradient
+    is one convolution over the pass's steps, under remat one a step
+    (``ConvLSTMCell.for_pass``), so those weights' gradients are the same
+    float32 terms summed in another order, held to 1e-5 relative."""
     params = flax_params(11, HIDDEN)
     inputs, targets = _data(12)
     draws = torch.from_numpy(np.random.default_rng(13).random((STEPS, B))
@@ -83,7 +87,12 @@ def test_remat_gradients_equal_no_remat(impl, policy):
                              targets, draws)
     assert torch.equal(loss0, loss1)
     for name in want:
-        assert torch.equal(got[name], want[name]), name
+        if impl == "kernel" and name.startswith("core.cell_") \
+                and name.endswith(".weight"):
+            rel = float((got[name] - want[name]).norm() / want[name].norm())
+            assert rel <= 1e-5, (name, rel)
+        else:
+            assert torch.equal(got[name], want[name]), name
 
 
 class _ConvCount(TorchDispatchMode):

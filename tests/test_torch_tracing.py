@@ -285,7 +285,7 @@ def test_program_trace_is_not_reentrant_and_threads_keep_own_parents():
 
 def test_counters_hold_every_counter():
     """Each module that counts declares its keys when it is imported; with
-    every owner imported, ``counters()`` holds the program's 16."""
+    every owner imported, ``counters()`` holds the program's 17."""
     import importlib
     for owner in ("ops.kernels.convlstm_kernel", "ops.kernels.rollout_kernel",
                   "ops.kernels.st_gates_kernel",
@@ -296,7 +296,7 @@ def test_counters_hold_every_counter():
     assert set(got) == {
         "convlstm_cell_fwd.launches", "convlstm_cell_fwd.launches_z",
         "convlstm_cell_fwd.flops", "cell_backward.launches",
-        "conv_head_fwd.launches",
+        "cell_wgrad.calls", "conv_head_fwd.launches",
         "rollout_persistent_fwd.launches", "rollout_persistent_fwd.flops",
         "tap_loop.launches", "tap_k1152.launches", "st_gates.launches",
         "gather_h.calls", "copy_in.calls", "loss_graphs.captures",
