@@ -229,6 +229,15 @@ own line:
    captured), a profile of one, and a request of 10 frames through
    load_predictor (152 K7 launches) against the plain versions'; K7 reads
    0 on every ConvLSTM phase (expect_counts);
+9b. trajgru: K8, TrajGRU's warp, against its plain version at the HKO-7
+   layer shapes (B 4; 96^2 x 64, L 13 and 9; 32^2 x 192, L 13; 16^2 x 192,
+   L 9; bf16): the forward bit for bit, the backward within K8_TOL, timed
+   in turns beside its byte bound and the library path (h repeated L times
+   and F.grid_sample); TrajGRU at its HKO-7 widths (B 4, 5 -> 20 frames of
+   480^2, bf16): six train steps timed (150 K8 launches each, no K1-K7;
+   from the second on, replays of the CUDA graphs), their peak, a profile
+   of one, and a request of 5 frames through load_predictor (75 K8
+   launches); K8 reads 0 on every other phase (expect_counts);
 19. one JSON line {"kernels": [...]} with each kernel's launches (per path,
    K5's among them; K1's and K2's bf16 launches those of the host loop a
    model K5 refuses keeps,
@@ -242,6 +251,7 @@ own line:
 then the card's name and power limit (nvidia-smi), and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
+``--trajgru`` runs the build and phase 9b alone, then K8's kernels line.
 On four GPUs: ``--tp-nccl`` runs phase 17 over NCCL, one rank a GPU;
 ``--dp-nccl`` runs phase 16's NCCL run (nowcast_128_pallas, global batch 4)
 at world 2 and 4, one rank a GPU, against one process.
@@ -278,6 +288,7 @@ from pl_convlstm_gan_tpu_torch.ops.kernels.convlstm_kernel import (
     convlstm_cell_plain, kernel_pack)
 from pl_convlstm_gan_tpu_torch.ops.kernels import st_gates_kernel as k7_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels import tap_structure_kernel as tap_mod
+from pl_convlstm_gan_tpu_torch.ops.kernels import traj_warp_kernel as k8_mod
 from pl_convlstm_gan_tpu_torch.ops.kernels.rollout_kernel import (
     conv_head_fwd, conv_head_plain, persistent_misfit, rollout_persistent_fwd,
     rollout_schedule)
@@ -395,6 +406,22 @@ PREDRNN_B, PREDRNN_SIZE = 8, 128
 # cosine lies within such a change of zero, so the gradients are compared
 # by the norm of their difference over all parameters
 PREDRNN_TOL = {"loss": 1e-3, "request": 2e-2, "grad": 5e-2}
+# K8 (csrc/traj_warp.cu) against its plain version on the same CUDA tensors
+# (tests/test_torch_trajgru.py states the reasons): the forward bit for
+# bit; the backward's dh within 1e-5 and its dflows within 1e-4 of their
+# largest magnitude (float32 atomics in a changing order), plus one bf16
+# ulp (2^-7 relative) where the result is rounded to bf16
+K8_SOURCE = "pl_convlstm_gan_tpu_torch/csrc/traj_warp.cu"
+K8_REPLACES = ("none: the JAX package has no TrajGRU; the learned-flow warp "
+               "of models/trajgru.py, h repeated L times and F.grid_sample "
+               "in NCHW on the plain path")
+K8_TOL = {"dh": 1e-5, "dflows": 1e-4, "bf16": 2.0 ** -7}
+# TrajGRU at its HKO-7 widths (bench_cuda/configs/trajgru_hko7_bf16.json):
+# the default TrajGRU of models/trajgru.py, B 4, 5 -> 20 frames of 480^2;
+# its K8 shapes (B, H, W, C, L): the 96^2, 32^2 and 16^2 layers
+TRAJGRU_B, TRAJGRU_SIZE = 4, 480
+TRAJGRU_K8_SHAPES = ((4, 96, 96, 64, 13), (4, 96, 96, 64, 9),
+                     (4, 32, 32, 192, 13), (4, 16, 16, 192, 9))
 TRAIN_STEPS = {"bfloat16": 5, "float32": 2}
 # kernel path (K1 + ConvLSTMCellFn) against the plain path (autograd through
 # convlstm_step_torch) from one state, same batches:
@@ -1536,6 +1563,149 @@ def phase_predrnn(tmp, seed):
     return rec
 
 
+def k8_err(got, want, tol):
+    """The largest error of a K8 output over its bound (``tol`` of the
+    largest magnitude, plus a bf16 ulp for a bf16 result; <= 1 passes)."""
+    w = want.float()
+    bound = tol * w.abs().max()
+    if want.dtype == torch.bfloat16:
+        bound = bound + K8_TOL["bf16"] * w.abs()
+    return float(((got.float() - w).abs() / bound.clamp_min(1e-30)).max())
+
+
+def k8_library(h, flows):
+    """The plain path K8 replaces, for its time: h repeated L times in NCHW
+    and one ``F.grid_sample`` (align_corners=True) at the flows."""
+    b, hgt, wid, _ = h.shape
+    links = flows.shape[-1] // 2
+    rep = h.permute(0, 3, 1, 2).repeat(links, 1, 1, 1)
+    f = flows.reshape(b, hgt, wid, links, 2).permute(3, 0, 1, 2, 4).reshape(
+        links * b, hgt, wid, 2).float()
+    xs = torch.arange(wid, device=h.device).view(1, 1, wid)
+    ys = torch.arange(hgt, device=h.device).view(1, hgt, 1)
+    grid = torch.stack([2 * (xs + f[..., 0]) / (wid - 1) - 1,
+                        2 * (ys + f[..., 1]) / (hgt - 1) - 1], -1)
+    return F.grid_sample(rep, grid.to(h.dtype), align_corners=True)
+
+
+def phase_trajgru(tmp, seed):
+    """K8 and TrajGRU at its HKO-7 widths (B 4, 5 -> 20 frames of 480^2,
+    bf16): K8 against its plain version at the four layer shapes (the
+    forward bit for bit, the backward within K8_TOL; flows of 0.7 and 6
+    pixels), timed in turns (K8, plain, plain, K8) beside its byte bound and
+    the library path (``k8_library``, forward and with its backward); six
+    train steps timed (150 K8 launches each, no K1-K7; from the third on,
+    replays of the CUDA graphs the second captured), their peak and a
+    profile of one; a request of 5 frames through load_predictor (75 K8
+    launches). Returns the record."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    shapes = []
+    for b, hgt, wid, c, links in TRAJGRU_K8_SHAPES:
+        errs = {}
+        for scale in (0.7, 6.0):
+            h = torch.randn(b, hgt, wid, c, device=DEVICE,
+                            generator=g).bfloat16()
+            flows = (torch.randn(b, hgt, wid, 2 * links, device=DEVICE,
+                                 generator=g) * scale).bfloat16()
+            gs = torch.randn(b, hgt, wid, links * c, device=DEVICE,
+                             generator=g).bfloat16()
+            reset_counts()
+            fwd = k8_mod.traj_warp_fwd(h, flows)
+            dh, df = k8_mod.traj_warp_bwd(h, flows, gs)
+            expect_counts(f"K8 {(b, hgt, wid, c, links)}", 0, 0, k8=2)
+            if not torch.equal(fwd, k8_mod.traj_warp_plain(h, flows)):
+                raise AssertionError(f"K8 forward at {(b, hgt, wid, c)} L "
+                                     f"{links} differs from its plain version")
+            want_dh, want_df = k8_mod.traj_warp_bwd_plain(h, flows, gs)
+            errs[scale] = max(k8_err(dh, want_dh, K8_TOL["dh"]),
+                              k8_err(df, want_df, K8_TOL["dflows"]))
+        times = {"fwd": [], "bwd": [], "plain_fwd": [], "plain_bwd": []}
+        for key in ("k8", "plain", "plain", "k8"):
+            if key == "k8":
+                times["fwd"].append(queued_ms(
+                    lambda: k8_mod.traj_warp_fwd(h, flows), 20))
+                times["bwd"].append(queued_ms(
+                    lambda: k8_mod.traj_warp_bwd(h, flows, gs), 20))
+            else:
+                times["plain_fwd"].append(queued_ms(
+                    lambda: k8_mod.traj_warp_plain(h, flows), 3))
+                times["plain_bwd"].append(queued_ms(
+                    lambda: k8_mod.traj_warp_bwd_plain(h, flows, gs), 3))
+        hg, fg = h.clone().requires_grad_(True), flows.clone().requires_grad_(
+            True)
+
+        def library_both():
+            out = k8_library(hg, fg)
+            torch.autograd.grad(out, (hg, fg), torch.ones_like(out))
+        px = b * hgt * wid
+        nbytes = {"fwd": px * 2 * (c + 2 * links + links * c),
+                  "bwd": px * (2 * (links * c + c + 4 * links) + 4 * c)}
+        rec = dict(shape=[b, hgt, wid, c, links], err_over_tol=errs,
+                   library_fwd_ms=queued_ms(lambda: k8_library(h, flows), 5),
+                   library_fwd_bwd_ms=queued_ms(library_both, 3))
+        for kind in ("fwd", "bwd"):
+            bound_ms, by = bound(0, nbytes[kind], "bfloat16")
+            ms = statistics.mean(times[kind])
+            rec[kind] = dict(ms=ms, plain_ms=statistics.mean(
+                times[f"plain_{kind}"]), bytes=nbytes[kind],
+                bound_ms=bound_ms, bound_by=by, roofline=bound_ms / ms)
+        say(phase="traj_warp", tol=K8_TOL, **rec)
+        if not all(v <= 1.0 for v in errs.values()):
+            raise AssertionError(f"K8 {rec['shape']}: backward errors over "
+                                 f"tolerance {errs}")
+        shapes.append(rec)
+
+    from pl_convlstm_gan_tpu_torch.config import Config
+    cfg = Config.from_dict({
+        "model": {"family": "trajgru", "hidden_dims": [64, 192, 192],
+                  "input_frames": 5, "output_frames": 20},
+        "training": {"batch_size": TRAJGRU_B, "learning_rate": 1e-4},
+        "precision": {"compute_dtype": "bfloat16"}})
+    torch.manual_seed(seed)
+    model = build_model(cfg)
+    ckpt = os.path.join(tmp, "trajgru_seed.pt")
+    torch.save(model.state_dict(), ckpt)
+    frames = torch.rand(TRAJGRU_B, 25, 1, TRAJGRU_SIZE, TRAJGRU_SIZE,
+                        device=DEVICE, generator=g)
+    batch = (frames[:, :5], frames[:, 5:])
+    per_step = 2 * (3 * 5 + 3 * 20)
+    model.to(DEVICE).train()
+    state = TrainState(model, make_optimizer(model))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(6):
+        reset_counts()
+        before = graph_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = forecaster_train_step(state, batch, 1e-4)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        expect_counts(f"trajgru train step {i}", 0, 0, k8=per_step)
+        if i >= 1 and graph_delta(before)[1] != 1:
+            raise AssertionError(f"trajgru train step {i} did not replay")
+        if m["skipped"] or not np.isfinite(m["total"]):
+            raise AssertionError(f"trajgru train step {i}: {m}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile = profile_train_step(lambda: forecaster_train_step(
+        state, batch, 1e-4), phase="trajgru_profile")
+    del state, model
+    torch.cuda.empty_cache()
+    predict = load_predictor(cfg, ckpt)
+    reset_counts()
+    out = predict(frames[:, :5])
+    expect_counts("trajgru request", 0, 0, k8=per_step // 2)
+    rec = dict(batch=TRAJGRU_B, size=TRAJGRU_SIZE, k8=shapes,
+               k8_per_step=per_step, k8_per_request=per_step // 2,
+               step_ms=times, step_p50_ms=statistics.median(times[2:]),
+               request_p50_ms=p50_ms({"k8": lambda: predict(
+                   frames[:, :5])})["k8"][0],
+               peak_gib=peak, out_shape=list(out.shape))
+    say(phase="trajgru", **rec)
+    rec["profile"] = profile
+    return rec
+
+
 # the launch counters of the program's registry (utils.profiling.counters(),
 # declared by the kernel wrappers), by the keyword expect_counts takes
 LAUNCH_KEYS = {"k1": "convlstm_cell_fwd.launches",
@@ -1544,6 +1714,7 @@ LAUNCH_KEYS = {"k1": "convlstm_cell_fwd.launches",
                "k4": "tap_k1152.launches",
                "k5": "rollout_persistent_fwd.launches",
                "k6": "cell_backward.launches", "k7": "st_gates.launches",
+               "k8": "traj_warp.launches",
                "wg": "cell_wgrad.calls"}
 _since = {}
 
@@ -1567,16 +1738,17 @@ K6_BY_PATH = {}
 
 
 def expect_counts(what, k1, k2, k1z=0, k5=0, k6=0, path=None, k7=0, k3=0,
-                  k4=0, wg=0):
+                  k4=0, wg=0, k8=0):
     """Raise unless each kernel launched as often as its keyword of
     LAUNCH_KEYS says since the last reset_counts() (K1 without z, K2, K1
-    with z, K5, K6, K7 and K3/K4, and the cells' weight-gradient
+    with z, K5, K6, K7, K8 and K3/K4, and the cells' weight-gradient
     convolutions ``wg``: one a kernel cell and training pass over all its
-    steps, one a step under remat; every one not named 0: K7, the ST-LSTM gate passes, on every
-    ConvLSTM path); returns the counts of K1, K2, K5, K6 and K7 by
+    steps, one a step under remat; every one not named 0: K7 and K8, the
+    ST-LSTM gate passes and TrajGRU's warp, on every ConvLSTM path);
+    returns the counts of K1, K2, K5, K6 and K7 by
     wrapper. With ``path`` the K6 count read is kept in K6_BY_PATH[path]."""
     want = dict(k1=k1, k1z=k1z, k2=k2, k3=k3, k4=k4, k5=k5, k6=k6, k7=k7,
-                wg=wg)
+                wg=wg, k8=k8)
     got = {kw: counted(kw) for kw in LAUNCH_KEYS}
     if got != want:
         raise AssertionError(f"{what}: launches {got}; expected {want}")
@@ -2195,6 +2367,8 @@ def profile_train_step(step, phase="train_profile"):
             return "K1"
         if "st_gates" in key:
             return "K7"
+        if "traj_warp" in key:
+            return "K8"
         if any(m in key.lower() for m in conv_marks):
             return "cudnn_conv"
         return "elementwise_reduce_copy"
@@ -4691,10 +4865,28 @@ def k5_entry(k5, paths, streams, exports, precip, fit, trainer, tp):
         ptxas=k5["ptxas"])
 
 
+def k8_entries(traj):
+    """K8's {"kernels"} records, one a layer shape of phase_trajgru: its
+    forward and backward times summed, beside the plain version's, the
+    library path's and the byte bound."""
+    return [dict(
+        name="traj_warp", dtype="bfloat16", route="cuda", source=K8_SOURCE,
+        replaces=K8_REPLACES, shape=r["shape"],
+        launches=traj["k8_per_step"],
+        launches_by_path={"trajgru_train_step": traj["k8_per_step"],
+                          "trajgru_request": traj["k8_per_request"]},
+        err_over_tol=r["err_over_tol"],
+        ms=r["fwd"]["ms"] + r["bwd"]["ms"],
+        plain_ms=r["fwd"]["plain_ms"] + r["bwd"]["plain_ms"],
+        bound_ms=r["fwd"]["bound_ms"] + r["bwd"]["bound_ms"],
+        bound_by="bytes", library_ms=r["library_fwd_bwd_ms"],
+        per_pass={"fwd": r["fwd"], "bwd": r["bwd"]}) for r in traj["k8"]]
+
+
 def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
                    trainer, gans, gan_trainer, gens, gen_trainer, taps,
                    remat, dp, tp, exports, int8, k5, precip, fit, cell_bwd,
-                   k7, predrnn):
+                   k7, predrnn, traj):
     """The {"kernels": [...]} records, one per kernel (K1 with z as its own
     entry) and compute dtype, then K3 and K4. K1's times and bound are per
     launch, averaged over one request's (or train step's) mix of cell shapes
@@ -4873,6 +5065,7 @@ def kernel_entries(cell, head, paths, streams, n_cells, cell_z, trains,
             plain_ms=sum(p["plain_ms"] for p in passes.values()),
             bound_ms=sum(p["bound_ms"] for p in passes.values()),
             bound_by="bytes", library_ms=None, per_pass=passes))
+    entries += k8_entries(traj)
     for name, source, replaces, stands_for in (
             ("tap_loop", K3_SOURCE, K3_REPLACES, K3_STANDS_FOR),
             ("tap_k1152", K4_SOURCE, K4_REPLACES, K4_STANDS_FOR)):
@@ -4911,6 +5104,12 @@ def main() -> int:
     # float32 references in full float32 (cuDNN convs default to TF32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:2] == ["--trajgru"]:        # the build and phase 9b alone
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            traj = phase_trajgru(tmp, SEED)
+        print(json.dumps({"kernels": k8_entries(traj)}), flush=True)
+        return 0
     import importlib.util
     say(phase="env", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
@@ -4998,6 +5197,7 @@ def main() -> int:
         trains = {dtype_name: phase_train(dtype_name, SEED)
                   for dtype_name in ("bfloat16", "float32")}
         predrnn = phase_predrnn(tmp, SEED)
+        traj = phase_trajgru(tmp, SEED)
         trainer = phase_trainer(tmp, requests[0])
         gans = [phase_gan(*run, seed=SEED) for run in GAN_RUNS]
         gan_trainer = phase_gan_trainer(tmp, SEED)
@@ -5012,7 +5212,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(
         cell, head, paths, streams, len(hidden), cell_z, trains, trainer,
         gans, gan_trainer, gens, gen_trainer, taps, remat, dp, tp,
-        exports, int8, k5, precip, fit, cell_bwd, k7, predrnn)}),
+        exports, int8, k5, precip, fit, cell_bwd, k7, predrnn, traj)}),
         flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

@@ -16,8 +16,10 @@ hand-written CUDA kernels: the fused ConvLSTM cell step (which also writes
 the conv pre-activation for the custom backward in training), the conv
 head, and the tap-structure experiment's two contractions. It also runs
 PredRNN-V2 (family ``predrnn``), whose gate passes are a hand-written
-kernel as well, beside a plain float32 reference (``reference``). Serving's kernel path is also registered as
-PyTorch ops, so that exported programs hold it.
+kernel as well, and TrajGRU's encoder-forecaster (family ``trajgru``), whose
+learned-flow warp is one, each beside a plain float32 reference
+(``reference``). Serving's kernel path is also registered as PyTorch ops,
+so that exported programs hold it.
 
 Layout
 ------
@@ -28,9 +30,10 @@ Layout
                with their plain versions, and serving's kernel path as
                registered ops (``export_ops``)
 - ``models``   ``Generator``, ``ConvLSTMForecaster``, the GAN's
-               ``Discriminator``, ``PredRNN`` and their layers as
-               ``nn.Module``s; the int8 rollout (``quantized``)
-- ``reference`` plain float32 references (``predrnn``: thuml's PredRNN-V2)
+               ``Discriminator``, ``PredRNN``, ``TrajGRU`` and their
+               layers as ``nn.Module``s; the int8 rollout (``quantized``)
+- ``reference`` plain float32 references (``predrnn``: thuml's PredRNN-V2;
+               ``trajgru``: HKO-7's TrajGRU)
 - ``weights``  flax params tree <-> torch state_dict; optax Adam state <->
                torch.optim.Adam; a whole JAX GANTrainState; the reference
                PyTorch Generator's ``.pth`` names

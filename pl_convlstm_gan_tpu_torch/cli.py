@@ -22,7 +22,8 @@
         --input frames.npy --checkpoint stream.ptexport [--horizons 10,30]
 
 Train mode, the default (as in the JAX CLI), runs ``Trainer`` (the
-Generator family) or ``SequenceTrainer`` (forecaster and GAN); ``--resume``
+Generator family) or ``SequenceTrainer`` (forecaster, GAN, PredRNN and
+TrajGRU); ``--resume``
 continues from ``<output_dir>/latest``, else ``best_model``, recovering a
 checkpoint a crash left at ``.pending`` or ``.old``. Eval mode restores a
 checkpoint (default ``<output_dir>/best_model``) and prints the test-split

@@ -74,7 +74,7 @@ class ModelConfig:
     target_grid_size: Optional[List[int]] = None
     input_grid_size: Optional[List[int]] = None
     # TPU-build extensions
-    # "generator" | "forecaster" | "gan" | "predrnn"
+    # "generator" | "forecaster" | "gan" | "predrnn" | "trajgru"
     family: str = "generator"
     in_channels: int = 1
     dem_channels: int = 1
@@ -110,6 +110,19 @@ class ModelConfig:
     # patch_size x patch_size into channels, and the decoupling loss's weight
     patch_size: int = 1
     decouple_beta: float = 0.1
+    # trajgru family (TrajGRU's encoder-forecaster, models/trajgru.py), one
+    # entry a resolution from the frames up (hidden_dims: each level's
+    # TrajGRU width; kernel_size: its i2h conv): the encoder's and the
+    # forecaster's link counts L, the encoder's downsampling conv before
+    # each level and the forecaster's transposed conv after each level,
+    # each [out_channels, kernel, stride, padding]
+    traj_links: List[int] = field(default_factory=lambda: [13, 13, 9])
+    traj_forecast_links: List[int] = field(
+        default_factory=lambda: [9, 13, 13])
+    traj_stems: List[List[int]] = field(default_factory=lambda: [
+        [8, 7, 5, 1], [192, 5, 3, 1], [192, 3, 2, 1]])
+    traj_deconvs: List[List[int]] = field(default_factory=lambda: [
+        [8, 7, 5, 1], [64, 5, 3, 1], [192, 4, 2, 1]])
 
 
 @dataclass
@@ -265,6 +278,8 @@ class Config:
             raise ValueError(f"Unknown model family: {self.model.family}")
         if self.model.family == "predrnn":
             self._check_predrnn()
+        if self.model.family == "trajgru":
+            self._check_trajgru()
         if self.precision.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute dtype: {self.precision.compute_dtype}")
         convlstm_cell_impl(self.model.convlstm_impl)   # raises if unknown
@@ -339,6 +354,51 @@ class Config:
             raise ValueError("predrnn has no tensor-parallel or remat path "
                              "(mesh.model_axis 1, model.remat false)")
 
+    def _check_trajgru(self) -> None:
+        """What the trajgru family needs: one link count, stem and
+        transposed conv a level, each positive, convs whose strides the
+        transposed convs undo on the synthetic frames (``level_sizes``), and
+        none of the ConvLSTM paths' options it has no counterpart of (its
+        forecaster does not feed its predictions back, so no scheduled
+        sampling)."""
+        from .models.trajgru import level_sizes
+        mc = self.model
+        n = len(mc.hidden_dims)
+        lists = {"traj_links": mc.traj_links,
+                 "traj_forecast_links": mc.traj_forecast_links,
+                 "traj_stems": mc.traj_stems,
+                 "traj_deconvs": mc.traj_deconvs}
+        bad = {k: len(v) for k, v in lists.items() if len(v) != n}
+        if n < 1 or bad:
+            raise ValueError(f"trajgru needs one entry a level in each of "
+                             f"{', '.join(lists)} ({n} hidden_dims), got "
+                             f"{bad}")
+        specs = [tuple(s) for s in mc.traj_stems + mc.traj_deconvs]
+        if any(len(s) != 4 or min(s[:3]) < 1 or s[3] < 0 for s in specs):
+            raise ValueError(f"trajgru's stems and transposed convs are "
+                             f"[out_channels, kernel, stride, padding], "
+                             f"positive, got {specs}")
+        if min(mc.hidden_dims + mc.traj_links + mc.traj_forecast_links
+               + [mc.in_channels]) < 1:
+            raise ValueError("trajgru's widths and link counts must be "
+                             "positive")
+        if mc.kernel_size % 2 == 0:
+            raise ValueError(f"trajgru needs an odd kernel_size, got "
+                             f"{mc.kernel_size}")
+        if self.data.source == "synthetic":
+            size = self.data.synthetic_image_size
+            level_sizes(size, size, mc.traj_stems, mc.traj_deconvs)
+        if mc.input_frames < 1 or mc.output_frames < 1:
+            raise ValueError("trajgru needs input_frames and output_frames "
+                             ">= 1")
+        if self.mesh.model_axis > 1 or mc.remat:
+            raise ValueError("trajgru has no tensor-parallel or remat path "
+                             "(mesh.model_axis 1, model.remat false)")
+        if self.training.scheduled_sampling:
+            raise ValueError("trajgru's forecaster does not feed its "
+                             "predictions back, so it has no scheduled "
+                             "sampling (training.scheduled_sampling false)")
+
     def _check_training(self) -> None:
         """What a training run needs beyond the checks above."""
         if self.data.loader == "grain" and \
@@ -346,7 +406,7 @@ class Config:
             raise ImportError(GRAIN_MISSING)
 
 
-FAMILIES = ("generator", "forecaster", "gan", "predrnn")
+FAMILIES = ("generator", "forecaster", "gan", "predrnn", "trajgru")
 GRAIN_MISSING = ("data.loader 'grain' needs the grain package, which is not "
                  "installed; use data.loader: plain")
 

@@ -19,10 +19,14 @@ the same formulas, clamps and masks:
 - ``sharpness_sums``: high-frequency spectral power fraction and mean
   gradient magnitude, as (sum, weight) pairs for exact global ratios;
 - the Generator's ``combined_loss`` and its terms, with ``CombinedLoss``,
-  the reference's class surface over it.
+  the reference's class surface over it;
+- HKO-7's balanced losses for TrajGRU (``balanced_mse_mae``,
+  ``balancing_weights``, ``rainfall_to_pixel``; Shi et al. 2017,
+  arXiv:1706.03458, and the HKO-7 benchmark code).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import numpy as np
@@ -418,3 +422,44 @@ class CombinedLoss:
                              self.lambda_point, self.lambda_conserve,
                              self.lambda_smooth, self.lambda_temporal,
                              self.use_weighted_loss, self.weight_strategy)
+
+
+# ------------------------------------------------------ HKO-7's balanced loss
+
+# rain rates (mm/h) at which a pixel's weight steps up, the weights below
+# the first and at or above each, the Z-R relation Z = A R^B, and the
+# global scale of the loss (HKO-7's settings)
+HKO_THRESHOLDS = (0.5, 2.0, 5.0, 10.0, 30.0)
+HKO_WEIGHTS = (1.0, 1.0, 2.0, 5.0, 10.0, 30.0)
+HKO_ZR_A, HKO_ZR_B = 58.53, 1.56
+HKO_LOSS_SCALE = 5e-5
+
+
+def rainfall_to_pixel(rate: float) -> float:
+    """A rain rate (mm/h) as HKO-7's pixel value: Z = 58.53 R^1.56, pixel =
+    (dBZ + 10) / 70."""
+    dbz = HKO_ZR_B * 10.0 * math.log10(rate) + 10.0 * math.log10(HKO_ZR_A)
+    return (dbz + 10.0) / 70.0
+
+
+def balancing_weights(target: torch.Tensor) -> torch.Tensor:
+    """Each pixel's weight from its target's rain rate: 1, 1, 2, 5, 10, 30
+    below 0.5 mm/h and at or above 0.5, 2, 5, 10 and 30 (thresholds in
+    pixel values, compared in the target's dtype)."""
+    w = torch.full_like(target, HKO_WEIGHTS[0])
+    for i, rate in enumerate(HKO_THRESHOLDS):
+        step = HKO_WEIGHTS[i + 1] - HKO_WEIGHTS[i]
+        w = w + step * (target >= rainfall_to_pixel(rate)).to(target.dtype)
+    return w
+
+
+def balanced_mse_mae(pred: torch.Tensor, target: torch.Tensor,
+                     scale: float = HKO_LOSS_SCALE) -> torch.Tensor:
+    """HKO-7's training loss on [B, T, C, H, W]: the balanced squared and
+    absolute errors each summed over a frame's pixels and averaged over
+    frames and rows, added with weight 1 each, times ``scale``."""
+    w = balancing_weights(target)
+    err = pred - target
+    mse = (w * err.square()).sum(dim=(2, 3, 4)).mean()
+    mae = (w * err.abs()).sum(dim=(2, 3, 4)).mean()
+    return scale * (mse + mae)

@@ -1,6 +1,6 @@
 """A model's training loss replayed as CUDA graphs, for every family that
-trains through ``train/steps.forecaster_train_step`` (``ConvLSTMForecaster``
-and ``PredRNN``).
+trains through ``train/steps.forecaster_train_step`` (``ConvLSTMForecaster``,
+``PredRNN`` and ``TrajGRU``).
 
 A train step at the port's widths is ~2,000 (the nowcaster) to ~2,700
 (PredRNN) launches. Issued one by one they take the host longer than the
@@ -10,13 +10,14 @@ at a key runs eagerly and warms every kernel, the second captures the
 forward (the model's loss and predictions) as one graph and the backward to
 the parameters' gradients as another, in one memory pool, and every later
 call copies its inputs into the graphs' buffers and replays them. The graphs
-run the same kernels (K1, K6, K7 and cuDNN's convs) on the same addresses,
-so a replayed step computes what the eager one computes.
+run the same kernels (K1, K6, K7, K8 and cuDNN's convs) on the same
+addresses, so a replayed step computes what the eager one computes.
 
 The mechanism is generic: a model hands over its differentiable weights in
 a fixed order and a function ``loss(inputs, targets, extra, weights)`` that
 computes its (loss, predictions) on those weights (None: its parameters).
-``extra`` is PredRNN's mask or the forecaster's ``teacher_draws``.
+``extra`` is PredRNN's mask or the forecaster's ``teacher_draws`` (TrajGRU
+has none).
 
 When the graphs engage (``engages``), decided from what the call can
 observe: gradients are enabled, the inputs are CUDA tensors that need no
@@ -39,8 +40,9 @@ Counters (``utils.profiling.counters()``): ``loss_graphs.captures``,
 ``loss_graphs.replays`` and ``loss_graphs.eager`` (calls with gradients on
 CUDA tensors that ran eagerly: the warm-up, TP, remat, a pending backward).
 A capture launches nothing, so it takes back what its kernels counted; a
-replay adds what its capture counted (``add_counts``), so K1's, K6's and
-K7's launch counters read the same on a replayed step as on an eager one.
+replay adds what its capture counted (``add_counts``), so K1's, K6's,
+K7's and K8's launch counters read the same on a replayed step as on an
+eager one.
 
 Tracing: a replayed forward is the span ``plcg.loss_graphs.replay`` (inside
 ``plcg.train.forward`` in a train step; the backward's replay runs on

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from .config import Config, convlstm_cell_impl, rollout_path
-from .models import ConvLSTMForecaster, Discriminator, Generator, PredRNN
+from .models import (ConvLSTMForecaster, Discriminator, Generator, PredRNN,
+                     TrajGRU)
 from .models.quantized import prepare_int8_forecaster, rollout_int8
 from .ops.kernels.rollout_kernel import (pack_weights, rollout_kernel,
                                          rollout_kernel_misfit)
@@ -55,7 +56,9 @@ def build_model(config: Config, lu_channels: int = 0,
     ``ConvLSTMForecaster`` (families forecaster and gan; ``output_frames``
     overrides the rollout horizon, which the recurrent weights do not
     depend on), ``PredRNN`` (family predrnn; the same override; its gate
-    passes on K7 on the card) or ``Generator`` (family generator;
+    passes on K7 on the card), ``TrajGRU`` (family trajgru; the same
+    override; its warps on K8 on the card) or ``Generator`` (family
+    generator;
     ``lu_channels``, else
     ``model.lu_channels``, is the LUCC class count; ``input_grid_size`` is
     passed when ``target_grid_size`` is configured).
@@ -78,6 +81,15 @@ def build_model(config: Config, lu_channels: int = 0,
             output_frames=output_frames or mc.output_frames,
             in_channels=mc.in_channels, kernel_size=mc.kernel_size,
             patch_size=mc.patch_size, decouple_beta=mc.decouple_beta,
+            dtype=dtype)
+    if mc.family == "trajgru":
+        return TrajGRU(
+            hidden_dims=tuple(mc.hidden_dims), links=tuple(mc.traj_links),
+            forecast_links=tuple(mc.traj_forecast_links),
+            stems=mc.traj_stems, deconvs=mc.traj_deconvs,
+            input_frames=mc.input_frames,
+            output_frames=output_frames or mc.output_frames,
+            in_channels=mc.in_channels, kernel_size=mc.kernel_size,
             dtype=dtype)
     if mc.family != "generator":
         raise ValueError(f"Unknown model family: {mc.family!r}")
@@ -179,9 +191,10 @@ def build_predict_fn(config: Config, checkpoint_path: str,
     Family predrnn: fn(frames [B,T_in,C,H,W]) -> [B,T_out,C,H,W] float32,
     the model itself (thuml's test mask: the input frames, then its own
     predictions), its convs on cuDNN and its gate passes on K7 on the card;
+    family trajgru the same, its warps on K8 on the card; for both
     ``rollout_impl`` does not apply."""
     dev = resolve_device(device)
-    if config.model.family == "predrnn":
+    if config.model.family in ("predrnn", "trajgru"):
         model = build_model(config, output_frames=output_frames)
         model.load_state_dict(load_state_dict(checkpoint_path))
         return model.to(dev).eval()

@@ -1,5 +1,5 @@
-"""SequenceTrainer: training of the forecaster, GAN and PredRNN families,
-on one device or data-parallel over the ranks of a process group.
+"""SequenceTrainer: training of the forecaster, GAN, PredRNN and TrajGRU
+families, on one device or data-parallel over the ranks of a process group.
 
 Counterpart of the JAX package's ``train/sequence_trainer.py``. What it
 keeps:
@@ -22,6 +22,10 @@ keeps:
   prediction-phase choice with p / 2 (thuml's ``r_eta`` and ``eta``, 0.5
   and 0.5 at the start, 1 and 0 at the end); with p 0 no masks (the input
   frames, then the model's own predictions);
+- ``family: trajgru`` (``models/trajgru.py``): the same step on the model's
+  own loss (HKO-7's balanced MSE plus MAE); its forecaster does not feed
+  its predictions back, so it takes no draws (``training.
+  scheduled_sampling`` is refused for it);
 - the forecaster train step (clip 0.5, Adam, NaN-skip: ``steps.py``),
   ReduceLROnPlateau on the val L1, optional early stopping;
 - ``family: gan``: a discriminator (``model.disc_features``) initialised

@@ -12,7 +12,9 @@ Counterpart of the single-device half of the JAX package's
   the targets; a PredRNN (family predrnn) trains through the same step on
   its own loss (``PredRNN.loss``: the MSE of every step's prediction plus
   the weighted decoupling loss), the draws its [T_in + T_out - 2, B]
-  reverse-scheduled-sampling masks;
+  reverse-scheduled-sampling masks; a TrajGRU (family trajgru) on its own
+  loss too (``TrajGRU.loss``: HKO-7's balanced MSE plus MAE), without
+  draws;
 - the update is clip-by-global-norm then Adam moments, with the LR passed
   per step: ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` with ``lr``
   set in its ``param_groups`` each step, and the clip written by hand to
@@ -363,7 +365,8 @@ def aggregate_generator_eval(metric_batches, loss_cfg: Dict
 def forecaster_loss(model, inputs, targets, teacher_draws=None):
     """(loss, predictions): the model's own ``loss`` (``ConvLSTMForecaster``:
     L1 of the rollout with scheduled sampling; ``PredRNN``: MSE plus the
-    weighted decoupling loss, ``teacher_draws`` its masks)."""
+    weighted decoupling loss, ``teacher_draws`` its masks; ``TrajGRU``:
+    HKO-7's balanced MSE plus MAE, no draws)."""
     return model.loss(inputs, targets, teacher_draws)
 
 

@@ -25,10 +25,11 @@ the work happens.
   ``train.step`` with ``train.forward``, ``train.backward`` and
   ``train.update`` (``train/steps.py``), ``predrnn.rollout`` and
   ``predrnn.decouple`` (``models/predrnn.py``: PredRNN's recurrence and its
-  batched decoupling loss), ``loss_graphs.replay`` (``models/loss_graphs.
-  py``: a replay of a captured training loss's forward, the forecaster's
-  or PredRNN's), and ``sync.<site>`` at each host
-  sync of a train step (``host_sync``). Tracing is off unless switched on,
+  batched decoupling loss), ``trajgru.encode`` and ``trajgru.forecast``
+  (``models/trajgru.py``: TrajGRU's encoder and forecaster),
+  ``loss_graphs.replay`` (``models/loss_graphs.py``: a replay of a
+  captured training loss's forward, of any family), and ``sync.<site>`` at
+  each host sync of a train step (``host_sync``). Tracing is off unless switched on,
   and then a span costs one test of two flags and returns a shared null
   context. It is on (a) inside ``program_trace()`` and (b) while any
   ``torch.profiler`` runs (``profile_trace`` among them). While on, each
@@ -543,6 +544,7 @@ def counters() -> Dict[str, int]:
     training pass, one a step under remat), K2's launches, K5's
     launches and operations, K3's and K4's launches, K7's
     (``st_gates.launches``: the ST-LSTM gate passes, forward and backward),
+    K8's (``traj_warp.launches``: TrajGRU's warps, forward and backward),
     the tensor-parallel collectives' calls, the training losses' CUDA
     graphs (``loss_graphs.captures``, ``.replays`` and ``.eager``: calls
     with gradients on CUDA tensors that ran eagerly) and ``host_syncs``;

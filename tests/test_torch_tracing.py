@@ -285,11 +285,12 @@ def test_program_trace_is_not_reentrant_and_threads_keep_own_parents():
 
 def test_counters_hold_every_counter():
     """Each module that counts declares its keys when it is imported; with
-    every owner imported, ``counters()`` holds the program's 17."""
+    every owner imported, ``counters()`` holds the program's 18."""
     import importlib
     for owner in ("ops.kernels.convlstm_kernel", "ops.kernels.rollout_kernel",
                   "ops.kernels.st_gates_kernel",
                   "ops.kernels.tap_structure_kernel",
+                  "ops.kernels.traj_warp_kernel",
                   "parallel.tp_collectives", "models.loss_graphs"):
         importlib.import_module(f"pl_convlstm_gan_tpu_torch.{owner}")
     got = profiling.counters()
@@ -299,7 +300,7 @@ def test_counters_hold_every_counter():
         "cell_wgrad.calls", "conv_head_fwd.launches",
         "rollout_persistent_fwd.launches", "rollout_persistent_fwd.flops",
         "tap_loop.launches", "tap_k1152.launches", "st_gates.launches",
-        "gather_h.calls", "copy_in.calls", "loss_graphs.captures",
+        "traj_warp.launches", "gather_h.calls", "copy_in.calls", "loss_graphs.captures",
         "loss_graphs.replays", "loss_graphs.eager", "host_syncs"}
     assert all(isinstance(v, int) for v in got.values())
 
